@@ -1,0 +1,163 @@
+"""Checkpoint store: atomic npz shards + manifest with per-shard SHA-256.
+
+Layout per step (the JAX package's format)::
+
+    <dir>/step_000123.tmp-<nonce>/   (write everything, fsync)
+        shard_00000.npz ... shard_NNNNN.npz
+        manifest.json                (leaf->shard map, digests, meta)
+    <dir>/step_000123/               (atomic rename when complete)
+
+numpy I/O only.  numpy has no bfloat16: a bf16 leaf is stored as its raw
+16-bit pattern (int16) and its key is listed in the manifest under
+``bf16_keys``, so :func:`load_arrays` hands back int16 for it and the
+caller reinterprets (``torch.from_numpy(a).view(torch.bfloat16)``).
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import pathlib
+import shutil
+import time
+import warnings
+from typing import Optional
+
+import numpy as np
+
+__all__ = ["ArtifactCorruption", "save_arrays", "load_arrays", "latest_step"]
+
+_MANIFEST = "manifest.json"
+
+
+class ArtifactCorruption(ValueError):
+    """A checkpoint shard's bytes do not match its manifest digest."""
+
+    def __init__(self, shard: int, path, expected: str, actual: str):
+        self.shard = shard
+        self.path = str(path)
+        self.expected = expected
+        self.actual = actual
+        super().__init__(
+            f"checkpoint shard {shard} corrupt: {path} sha256 "
+            f"{actual[:12]}… does not match manifest {expected[:12]}…")
+
+
+def _sha256(path: pathlib.Path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def save_arrays(
+    directory,
+    step: int,
+    arrays: dict[str, np.ndarray],
+    *,
+    shard_mb: int = 512,
+    extra_meta: Optional[dict] = None,
+    bf16_keys: tuple = (),
+) -> pathlib.Path:
+    """Write one checkpoint of flat ``path -> array`` leaves atomically;
+    returns the final path."""
+    directory = pathlib.Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    final = directory / f"step_{step:08d}"
+    tmp = directory / f"step_{step:08d}.tmp-{os.getpid()}-{int(time.time()*1e3)}"
+    tmp.mkdir(parents=True)
+
+    shard_bytes = shard_mb * 1024 * 1024
+    shards: list[dict] = []
+    cur: dict = {}
+    cur_size = 0
+    leaf_to_shard: dict = {}
+    for key, arr in arrays.items():
+        arr = np.asarray(arr)
+        if cur_size + arr.nbytes > shard_bytes and cur:
+            shards.append(cur)
+            cur, cur_size = {}, 0
+        cur[key] = arr
+        cur_size += arr.nbytes
+        leaf_to_shard[key] = len(shards)
+    if cur:
+        shards.append(cur)
+
+    for i, shard in enumerate(shards):
+        # npz keys cannot contain '/': encode
+        enc = {k.replace("/", "::"): v for k, v in shard.items()}
+        path = tmp / f"shard_{i:05d}.npz"
+        with open(path, "wb") as f:
+            np.savez(f, **enc)
+            f.flush()
+            os.fsync(f.fileno())
+
+    manifest = {
+        "step": step,
+        "format": 1,
+        "n_shards": len(shards),
+        "leaf_to_shard": leaf_to_shard,
+        "shard_digests": [
+            _sha256(tmp / f"shard_{i:05d}.npz") for i in range(len(shards))
+        ],
+        "bf16_keys": sorted(bf16_keys),
+        "time": time.time(),
+        "meta": extra_meta or {},
+    }
+    with open(tmp / _MANIFEST, "w") as f:
+        json.dump(manifest, f)
+        f.flush()
+        os.fsync(f.fileno())
+
+    if final.exists():
+        shutil.rmtree(final)
+    os.rename(tmp, final)  # atomic publish
+    return final
+
+
+def latest_step(directory) -> Optional[int]:
+    directory = pathlib.Path(directory)
+    if not directory.exists():
+        return None
+    steps = []
+    for p in directory.iterdir():
+        if p.is_dir() and p.name.startswith("step_") and ".tmp" not in p.name:
+            if (p / _MANIFEST).exists():  # complete checkpoints only
+                steps.append(int(p.name.split("_")[1]))
+    return max(steps) if steps else None
+
+
+def load_arrays(
+    directory, *, step: Optional[int] = None, verify: bool = True,
+) -> tuple[dict[str, np.ndarray], int, dict, set]:
+    """Load a checkpoint as a flat ``path -> array`` dict.
+
+    ``verify``: check each shard's SHA-256 against the manifest and raise
+    :class:`ArtifactCorruption` on mismatch; manifests written before
+    digests existed load with a warning.  Returns (arrays, step, meta,
+    bf16_keys)."""
+    directory = pathlib.Path(directory)
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {directory}")
+    path = directory / f"step_{step:08d}"
+    manifest = json.loads((path / _MANIFEST).read_text())
+    digests = manifest.get("shard_digests")
+    if verify and digests is None:
+        warnings.warn(
+            f"{path} manifest predates shard checksums; loading unverified",
+            stacklevel=2)
+    arrays: dict[str, np.ndarray] = {}
+    for i in range(manifest["n_shards"]):
+        spath = path / f"shard_{i:05d}.npz"
+        if verify and digests is not None:
+            actual = _sha256(spath)
+            if actual != digests[i]:
+                raise ArtifactCorruption(i, spath, digests[i], actual)
+        with np.load(spath) as z:
+            for k in z.files:
+                arrays[k.replace("::", "/")] = z[k]
+    return (arrays, step, manifest.get("meta", {}),
+            set(manifest.get("bf16_keys", ())))

@@ -1,0 +1,60 @@
+"""Architecture config schema (dense decoder subset).
+
+The port serves the dense family only, so :class:`ArchConfig` keeps the
+fields that family reads.  ``from_dict`` accepts a full config dict as the
+JAX package writes it into artifact manifests and drops the fields of the
+other families.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+__all__ = ["ArchConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+
+    # attention options
+    qk_norm: bool = False
+    rope_theta: float = 1e6
+
+    # mlp options
+    mlp: Literal["swiglu", "gelu"] = "swiglu"
+
+    # misc
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ArchConfig":
+        """Build from a manifest's ``arch_config``; fields this schema does
+        not model (other families, training knobs) are dropped."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        for flag in ("qkv_bias", "mlp_bias"):
+            if d.get(flag):
+                raise ValueError(f"{flag}=True is not supported by the port")
+        return cls(**{k: v for k, v in d.items() if k in names})

@@ -1,0 +1,130 @@
+"""Turn JAX-package state, given as numpy arrays, into the port's objects.
+
+The JAX package regenerates its incoherence transforms from seeds with
+``jax.random``; the port cannot, so a caller that has the reference
+objects extracts their arrays — packed codes, ``s``, ``D``, norms, the
+embedding and every transform's ``A``/``B``/``signs``/``perm`` — as numpy
+and hands them here.  Nothing in this module imports JAX.
+
+Quantized state (:func:`quantized_model_from_numpy`) is a tree::
+
+    {"embed": {"tok": ..., "head": ...}, "final_norm": {"scale": ...},
+     "blocks": [{"ln1": {"scale": ...}, "ln2": {...}, "q_norm": ...,
+                 "k_norm": ..., "attn.wq": LINEAR, ...}, ...]}
+
+with ``LINEAR = {"packed", "s", "D" (optional), "bits", "m", "n", "maxq",
+"U": TRANSFORM, "V": TRANSFORM}`` and ``TRANSFORM = {"kind", "n", "A",
+"B", "signs", "perm"}`` (absent factors as None).  fp params
+(:func:`fp_params_from_numpy`) are the JAX package's ``model.init`` tree,
+layers stacked along axis 0.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import incoherence as inc
+from repro_torch.core.quantizer import QuantizedLinear
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.launch.quantize import QuantizedModel
+from repro_torch.serve.artifacts import save_quantized
+
+__all__ = [
+    "transform_from_numpy",
+    "linear_from_numpy",
+    "quantized_model_from_numpy",
+    "fp_params_from_numpy",
+    "write_port_artifact",
+]
+
+
+def _t(a, device, dtype=None):
+    if a is None:
+        return None
+    t = torch.from_numpy(np.array(a, copy=True))
+    return (t if dtype is None else t.to(dtype)).to(device)
+
+
+def transform_from_numpy(d: dict,
+                         device=DEFAULT_DEVICE) -> inc.OrthogonalTransform:
+    device = resolve_device(device)
+    return inc.OrthogonalTransform(
+        d["kind"], int(d["n"]),
+        _t(d.get("A"), device, torch.float32),
+        _t(d.get("B"), device, torch.float32),
+        _t(d.get("signs"), device, torch.float32),
+        _t(d.get("perm"), device, torch.int64),
+    )
+
+
+def linear_from_numpy(d: dict, device=DEFAULT_DEVICE) -> QuantizedLinear:
+    device = resolve_device(device)
+    state = inc.PreprocessState(
+        U=transform_from_numpy(d["U"], device),
+        V=transform_from_numpy(d["V"], device),
+        D=_t(d.get("D"), device, torch.float32),
+        s=_t(d["s"], device, torch.float32),
+        maxq=int(d["maxq"]),
+    )
+    return QuantizedLinear(
+        _t(d["packed"], device, torch.int32), int(d["bits"]), int(d["m"]),
+        int(d["n"]), state, use_kernel=bool(d.get("use_kernel", False)),
+    )
+
+
+def _tree(x, device):
+    if isinstance(x, dict):
+        return {k: _tree(v, device) for k, v in x.items()}
+    return _t(x, device)
+
+
+def quantized_model_from_numpy(arch_config: dict, tree: dict,
+                               device=DEFAULT_DEVICE) -> QuantizedModel:
+    device = resolve_device(device)
+    cfg = ArchConfig.from_dict(arch_config)
+    blocks = []
+    for blk in tree["blocks"]:
+        out = {}
+        for name, val in blk.items():
+            if isinstance(val, dict) and "packed" in val:
+                out[name] = linear_from_numpy(val, device)
+            else:
+                out[name] = _tree(val, device)
+        blocks.append(out)
+    return QuantizedModel(cfg=cfg, embed=_tree(tree["embed"], device),
+                          final_norm=_tree(tree["final_norm"], device),
+                          blocks=blocks)
+
+
+def fp_params_from_numpy(params: dict, device=DEFAULT_DEVICE) -> dict:
+    """The JAX package's stacked ``model.init`` tree -> the port's fp tree
+    (``layers`` as a list of per-layer dicts)."""
+    device = resolve_device(device)
+    stacked = params["layers"]
+    n = len(next(iter(_leaves(stacked))))
+    layers = [_index(stacked, i, device) for i in range(n)]
+    return {"embed": _tree(params["embed"], device), "layers": layers,
+            "final_norm": _tree(params["final_norm"], device)}
+
+
+def _leaves(x):
+    if isinstance(x, dict):
+        for v in x.values():
+            yield from _leaves(v)
+    else:
+        yield x
+
+
+def _index(x, i, device):
+    if isinstance(x, dict):
+        return {k: _index(v, i, device) for k, v in x.items()}
+    return _t(np.asarray(x)[i], device)
+
+
+def write_port_artifact(directory, arch_config: dict, tree: dict,
+                        quip_config: dict, extra_meta=None):
+    """Convert quantized numpy state and write it as a port artifact (the
+    conversion stays on the host: the arrays go straight to disk)."""
+    qm = quantized_model_from_numpy(arch_config, tree, device="cpu")
+    return save_quantized(directory, qm, quip_config, extra_meta=extra_meta)

@@ -1,0 +1,61 @@
+"""Deterministic synthetic token streams (numpy only).
+
+The same order-1 Markov source with motif insertions as the JAX package's
+``repro/data/synthetic.py``, drawn with the same numpy generators, so a
+given ``(vocab, seed)`` yields the same prompts in both packages.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+__all__ = ["SyntheticLM", "make_calibration"]
+
+
+@dataclasses.dataclass
+class SyntheticLM:
+    """Order-1 Markov token source with motif insertions (deterministic)."""
+
+    vocab: int
+    seed: int = 0
+    n_motifs: int = 64
+    motif_len: int = 8
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        v = self.vocab
+        self.n_succ = min(32, v)
+        self.succ = rng.integers(0, v, size=(v, self.n_succ), dtype=np.int32)
+        self.succ_p = rng.dirichlet(np.ones(self.n_succ) * 0.5, size=v).astype(
+            np.float32
+        )
+        self.motifs = rng.integers(
+            0, v, size=(self.n_motifs, self.motif_len), dtype=np.int32
+        )
+
+    def sample(self, rng: np.random.Generator, batch: int, seq: int) -> np.ndarray:
+        out = np.empty((batch, seq), dtype=np.int32)
+        tok = rng.integers(0, self.vocab, size=batch).astype(np.int32)
+        for t in range(seq):
+            u = rng.random(batch)
+            cdf = np.cumsum(self.succ_p[tok], axis=-1)
+            idx = (u[:, None] > cdf).sum(-1).clip(0, self.n_succ - 1)
+            tok = self.succ[tok, idx]
+            out[:, t] = tok
+        n_splice = max(1, seq // (4 * self.motif_len))
+        for b in range(batch):
+            for _ in range(n_splice):
+                m = rng.integers(0, self.n_motifs)
+                p = rng.integers(0, max(1, seq - self.motif_len))
+                out[b, p : p + self.motif_len] = self.motifs[m]
+        return out
+
+
+def make_calibration(vocab: int, *, n_segments: int = 128,
+                     seg_len: int = 2048, seed: int = 1234,
+                     source_seed: int = 0) -> np.ndarray:
+    """(n_segments, seg_len) int32 token segments: ``source_seed`` picks the
+    Markov source, ``seed`` the samples."""
+    src = SyntheticLM(vocab, source_seed)
+    return src.sample(np.random.default_rng(seed), n_segments, seg_len)

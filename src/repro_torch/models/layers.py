@@ -1,0 +1,110 @@
+"""Primitive layers of the dense decoder's serving path.
+
+Functional, on plain tensors, with the JAX package's layouts and masking
+convention (masked scores are set to ``finfo(float32).min``), so the
+tests compare like with like.  Attention scores and outputs accumulate in
+fp32 whatever the storage dtype; probabilities are cast down to V's dtype
+for the PV product, as the JAX package does.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+
+__all__ = [
+    "NEG",
+    "apply_w",
+    "rms_norm",
+    "norm_apply",
+    "rope",
+    "gqa_scores",
+    "gqa_out",
+    "embed",
+    "lm_logits",
+    "mlp_apply",
+    "quantize_kv",
+]
+
+NEG = torch.finfo(torch.float32).min
+
+
+def apply_w(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y = x @ W for a dense (in, out) weight."""
+    return x @ w
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return ((xf * torch.rsqrt(var + eps)) * scale.to(torch.float32)).to(x.dtype)
+
+
+def norm_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    return rms_norm(x, p["scale"], cfg.norm_eps)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotate pairs (llama rotate-half convention).
+
+    x: (..., S, H, hd); positions: (S,) or (B, S) int.
+    """
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (
+        -torch.arange(half, dtype=torch.float32, device=x.device) / half
+    )
+    ang = positions[..., None].to(torch.float32) * freqs  # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]  # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1 = x[..., :half].to(torch.float32)
+    x2 = x[..., half:].to(torch.float32)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def gqa_scores(q: torch.Tensor, k: torch.Tensor,
+               cfg: ArchConfig) -> torch.Tensor:
+    """q: (B, Sq, H, hd), k: (B, Skv, KV, hd) -> (B, KV, G, Sq, Skv) fp32.
+
+    Grouped einsum: the repeated-KV operand is never materialized."""
+    B, Sq, H, hd = q.shape
+    G = H // cfg.n_kv_heads
+    qg = q.reshape(B, Sq, cfg.n_kv_heads, G, hd).to(torch.float32)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(torch.float32))
+    return s * (hd**-0.5)
+
+
+def gqa_out(probs: torch.Tensor, v: torch.Tensor,
+            cfg: ArchConfig) -> torch.Tensor:
+    """probs: (B, KV, G, Sq, Skv), v: (B, Skv, KV, hd) -> (B, Sq, H, hd) fp32.
+
+    probs are rounded to v's storage dtype, then accumulated in fp32."""
+    B, KV, G, Sq, Skv = probs.shape
+    p = probs.to(v.dtype).to(torch.float32)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
+    return o.reshape(B, Sq, cfg.n_heads, cfg.head_dim)
+
+
+def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return p["tok"][tokens]
+
+
+def lm_logits(p: dict, h: torch.Tensor) -> torch.Tensor:
+    w = p["head"] if "head" in p else p["tok"].T
+    return h @ w
+
+
+def mlp_apply(up: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """The swiglu nonlinearity between the up/gate and down projections."""
+    return F.silu(up) * gate
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8 over the last axis of (..., hd)."""
+    xf = x.to(torch.float32)
+    scale = torch.amax(torch.abs(xf), dim=-1) / 127.0
+    scale = torch.clamp(scale, min=1e-8)
+    q = torch.round(xf / scale[..., None])
+    return q.to(torch.int8), scale

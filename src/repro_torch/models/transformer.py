@@ -1,0 +1,55 @@
+"""Seeded fp parameters of the dense decoder (the JAX package's layout).
+
+The tree is ``{"embed": {"tok", "head"}, "layers": [per-layer dict],
+"final_norm": {"scale"}}`` with (in, out) weights — the layout of the JAX
+package's ``init_decoder`` after ``unstack_layers``.  The scales are the
+JAX package's; the values come from a ``torch.Generator``, so they differ
+from ``jax.random``'s (tests convert the JAX package's params instead).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+
+__all__ = ["init_decoder"]
+
+
+def init_decoder(cfg: ArchConfig, generator: torch.Generator, *,
+                 device=DEFAULT_DEVICE) -> dict:
+    device = resolve_device(device)
+    dt = getattr(torch, cfg.dtype)
+    d, f = cfg.d_model, cfg.d_ff
+    resid = 1.0 / math.sqrt(2 * max(cfg.n_layers, 1))
+
+    def w(shape, std=None):
+        std = shape[0] ** -0.5 if std is None else std
+        return (torch.randn(shape, generator=generator, device=device)
+                * std).to(dt)
+
+    def ones(n):
+        return {"scale": torch.ones(n, dtype=dt, device=device)}
+
+    embed = {"tok": w((cfg.vocab, d), 0.02)}
+    if not cfg.tie_embeddings:
+        embed["head"] = w((d, cfg.vocab), d**-0.5)
+    layers = []
+    for _ in range(cfg.n_layers):
+        attn = {
+            "wq": w((d, cfg.q_dim)),
+            "wk": w((d, cfg.kv_dim)),
+            "wv": w((d, cfg.kv_dim)),
+            "wo": w((cfg.q_dim, d), cfg.q_dim**-0.5 * resid),
+        }
+        if cfg.qk_norm:
+            attn["q_norm"] = ones(cfg.head_dim)["scale"]
+            attn["k_norm"] = ones(cfg.head_dim)["scale"]
+        mlp = {"wi": w((d, f)), "wo": w((f, d), f**-0.5 * resid)}
+        if cfg.mlp == "swiglu":
+            mlp["wg"] = w((d, f))
+        layers.append({"ln1": ones(d), "attn": attn, "ln2": ones(d),
+                       "mlp": mlp})
+    return {"embed": embed, "layers": layers, "final_norm": ones(d)}

@@ -1,0 +1,53 @@
+"""Engine driver: the loop that decides WHEN to tick.
+
+The engine owns no loop — :meth:`Engine.tick` is a pure unit of work and
+``idle`` / ``next_arrival`` are the predicates a driver needs.
+"""
+from __future__ import annotations
+
+import time
+from typing import TYPE_CHECKING, Optional
+
+if TYPE_CHECKING:  # pragma: no cover - typing only
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.scheduler import Request
+
+__all__ = ["run_to_completion"]
+
+
+def run_to_completion(engine: "Engine",
+                      max_steps: Optional[int] = None) -> list["Request"]:
+    """Drive ``engine`` until every submitted request is terminal.
+
+    ``max_steps`` bounds ticks that DID work (a runaway-loop backstop);
+    idle iterations waiting on future arrivals don't consume it.
+    """
+    sch = engine.scheduler
+    todo = sch.pending + len(engine.running)
+    budget_tokens = sum(
+        r.max_new + len(r.prefix)
+        for r in (*sch.waiting, *sch.queue, *engine.running)
+    )
+    max_steps = max_steps or 1000 + 20 * budget_tokens
+    done0 = len(engine.finished)
+    worked_steps = stalls = 0
+    while not engine.idle:
+        if engine.tick().worked:
+            worked_steps, stalls = worked_steps + 1, 0
+            if worked_steps > max_steps:
+                raise RuntimeError(
+                    f"engine did not drain in {max_steps} working steps")
+        else:
+            arrival = engine.next_arrival()
+            if arrival is not None:
+                # idle until the next virtual arrival
+                time.sleep(max(0.0, min(0.01, arrival - engine.now())))
+            else:
+                stalls += 1  # arrived work exists but nothing progressed
+                if stalls > 10_000:
+                    raise RuntimeError(
+                        "engine stalled: pending requests but no step "
+                        "makes progress (pool misconfigured?)")
+    if len(engine.finished) - done0 != todo:
+        raise RuntimeError("run ended with requests not terminal")
+    return engine.finished[done0:]
