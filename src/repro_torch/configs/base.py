@@ -28,6 +28,7 @@ class ArchConfig:
     # attention options
     qk_norm: bool = False
     rope_theta: float = 1e6
+    attn_q_chunk: int = 1024  # query-block size for full-sequence attention
 
     # mlp options
     mlp: Literal["swiglu", "gelu"] = "swiglu"

@@ -42,7 +42,11 @@ __all__ = [
 def _t(a, device, dtype=None):
     if a is None:
         return None
-    t = torch.from_numpy(np.array(a, copy=True))
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: exact through fp32
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
     return (t if dtype is None else t.to(dtype)).to(device)
 
 

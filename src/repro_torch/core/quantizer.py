@@ -1,41 +1,63 @@
-"""QuIP inference representation: the packed :class:`QuantizedLinear`.
+"""QuIP Algorithm 3: the per-layer quantization pipeline and the packed
+inference representation.
 
-Inference never materializes the dequantized matrix:
+``quantize_layer`` = Alg. 1 (incoherence pre-processing) → rounding method
+(LDLQ et al.) → packing, with the per-layer quality report.  The result is
+a :class:`QuantizedLinear`: packed 2/3/4-bit integers plus the transform
+factors.  Inference never materializes the dequantized matrix:
 
     y = x·D^{-1} →(V)→ quant_matmul(packed) →(U^T)→ y
 
 mirroring the paper's "multiply by W = U^T Ŵ V" factorization (Sec. 4.1).
 The transforms and the grid matmul's epilogue run in fp32 whatever the
-activation dtype (the factors are fp32); the result is cast back to the
-input's dtype.
+activation dtype (the factors are fp32).  The output has the dtype the JAX
+package's layer returns: its fp32 ``D`` and factors promote the result, so
+a bf16 input gives fp32 whenever ``D`` or a transform other than ``none``
+is present, and keeps its dtype only through identity transforms.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional
+import math
+import time
+from typing import Callable, Optional
 
 import torch
 from torch import nn
 
 from repro_torch.core import incoherence as inc
 from repro_torch.core import packing
+from repro_torch.core.hessian import damp
+from repro_torch.core.methods import round_weights
+from repro_torch.core.proxy import proxy_loss
 
-__all__ = ["QuipConfig", "QuantizedLinear"]
+__all__ = ["QuipConfig", "QuantizedLinear", "quantize_layer"]
 
 _FACTORS = ("A", "B", "signs", "perm")
 
 
 @dataclasses.dataclass(frozen=True)
 class QuipConfig:
-    """The quantization settings an artifact records (serving reads bits)."""
-
     bits: int = 2
-    method: str = "ldlq"
-    transform: str = "kronecker"
+    method: str = "ldlq"  # near | stoch | ldlq | ldlq_stoch | ldlq_rg | greedy
+    incoherence: bool = True
+    transform: inc.TransformKind = "kronecker"  # | "hadamard" | "none"
+    rho: float = 2.4
+    alpha: float = 0.01
+    rescale: bool = True
+    permute: bool = True
+    spectrum_range: Optional[bool] = None  # default: == incoherence
+    greedy_passes: int = 10
+    block: int = 128
+    use_kernel: bool = True  # quant_matmul on the inference path
 
     @property
     def maxq(self) -> int:
         return 2**self.bits - 1
+
+    def label(self) -> str:
+        return f"{self.method}{'+incp' if self.incoherence else ''}@{self.bits}b"
 
 
 class QuantizedLinear(nn.Module):
@@ -87,26 +109,39 @@ class QuantizedLinear(nn.Module):
             maxq=self.maxq,
         )
 
-    def dequantize(self) -> torch.Tensor:
-        """Materialize W_eff (m, n) fp32 — tests/export only."""
+    def dequantize(self, *, plain: bool = False) -> torch.Tensor:
+        """Materialize W_eff (m, n) fp32 — tests/export only; ``plain``
+        reverts the transforms with the kernels' plain versions."""
         Wq = packing.unpack(self.packed, self.bits, self.n).to(torch.float32)
-        return inc.incoherence_postprocess(Wq, self.state)
+        return inc.incoherence_postprocess(Wq, self.state, plain=plain)
 
-    def forward(self, x: torch.Tensor, *,
-                use_kernel: Optional[bool] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, use_kernel: Optional[bool] = None,
+                plain: bool = False) -> torch.Tensor:
         """y = x @ W_eff^T with x (..., n) — structured inference path.
 
         ``use_kernel`` overrides the layer default for this call: the
         serving adapter's paged paths pass ``True`` so every projection
         goes through ``quant_matmul`` (the CUDA kernel for a CUDA tensor).
+        ``plain`` runs every step as plain PyTorch on any device (the
+        transforms and the grid matmul): the recompute oracle's path.
         """
+        if plain:
+            use_kernel = False
         h = x.to(torch.float32)
         if self.D is not None:
             h = h / self.D
-        h = inc.apply_transform(self.transform("V"), h)
+        h = inc.apply_transform(self.transform("V"), h, plain=plain)
         z = self._matmul(h, use_kernel=use_kernel)
-        return inc.apply_transform(
-            self.transform("U"), z, inverse=True).to(x.dtype)
+        y = inc.apply_transform(self.transform("U"), z, inverse=True,
+                                plain=plain)
+        return y.to(self.out_dtype(x.dtype))
+
+    def out_dtype(self, dtype: torch.dtype) -> torch.dtype:
+        """The JAX package's result dtype for an input of ``dtype``: its
+        fp32 ``D`` and transform factors promote the activations."""
+        if self.D is None and self._kinds["U"] == self._kinds["V"] == "none":
+            return dtype
+        return torch.promote_types(dtype, torch.float32)
 
     def _matmul(self, h: torch.Tensor,
                 use_kernel: Optional[bool] = None) -> torch.Tensor:
@@ -121,3 +156,109 @@ class QuantizedLinear(nn.Module):
         Wq = packing.unpack(self.packed, self.bits, self.n)
         Wd = inc.from_grid(Wq.to(h.dtype), self.s.to(h.dtype), self.maxq)
         return h @ Wd.T
+
+
+def quantize_layer(
+    W: torch.Tensor,
+    H: torch.Tensor,
+    cfg: QuipConfig,
+    *,
+    seed: int = 0,
+    generator: Optional[torch.Generator] = None,
+    collect_stats: bool = True,
+    transforms: Optional[inc.TransformFactory] = None,
+    phases: Optional[Callable] = None,
+) -> tuple[QuantizedLinear, dict]:
+    """Algorithm 3 on one layer.  W: (m, n), H: (n, n) SPD proxy Hessian.
+
+    With ``collect_stats`` the returned dict is the per-layer quality
+    report the JAX package writes: µ(W)/µ(H) before and after
+    preprocessing, the raw Hessian's spectrum extremes and condition
+    number, the absolute and H-relative proxy loss, weight-error norms and
+    the wall-clock spent in this call.  The µ(H) measurements
+    eigendecompose H twice.  ``transforms`` overrides the seeded U/V
+    transforms (see ``incoherence_preprocess``); ``generator`` the draws
+    of the stochastic methods (default seeded ``seed ^ 0x5EED``);
+    ``phases(name)``, if given, returns a context manager timing each step.
+    """
+    t0 = time.perf_counter()
+    phase = phases or (lambda name: contextlib.nullcontext())
+    m, n = W.shape
+    W = W.to(torch.float32)
+    H = H.to(torch.float32)
+    spectrum = (cfg.spectrum_range if cfg.spectrum_range is not None
+                else cfg.incoherence)
+    with phase("preprocess"):
+        if cfg.incoherence:
+            Wg, Ht, state = inc.incoherence_preprocess(
+                W, H, bits=cfg.bits, seed=seed, rho=cfg.rho,
+                alpha=cfg.alpha, kind=cfg.transform, rescale=cfg.rescale,
+                permute=cfg.permute, spectrum_range=spectrum,
+                transforms=transforms,
+            )
+        else:
+            # baseline processing: damping only, identity transforms
+            Ht = damp(H, cfg.alpha)
+            s = (inc.quant_range(W, cfg.rho) if spectrum
+                 else torch.max(torch.abs(W)))
+            state = inc.PreprocessState(
+                U=inc.OrthogonalTransform("none", m),
+                V=inc.OrthogonalTransform("none", n),
+                D=None, s=s, maxq=cfg.maxq,
+            )
+            Wg = inc.to_grid(W, s, cfg.maxq)
+
+    kw = {}
+    if cfg.method in ("ldlq", "ldlq_stoch"):
+        kw["block"] = cfg.block
+    if cfg.method in ("ldlq_rg", "greedy"):
+        kw["greedy_passes"] = cfg.greedy_passes
+    if generator is None:
+        generator = torch.Generator(device=W.device)
+        generator.manual_seed(seed ^ 0x5EED)
+    with phase("round"):
+        Wq = round_weights(cfg.method, Wg, Ht, cfg.maxq, generator, **kw)
+    with phase("pack"):
+        packed = packing.pack(Wq.to(torch.int32), cfg.bits)
+        layer = QuantizedLinear(packed, cfg.bits, m, n, state,
+                                use_kernel=cfg.use_kernel)
+    stats: dict = {}
+    if collect_stats:
+        with phase("stats_eigh"):
+            evals_pre, Q_pre = inc.eigh_sym(H)
+            _, Q_post = inc.eigh_sym(Ht)
+        with phase("stats"):
+            What = layer.dequantize()
+            err = What - W
+            # post-incoherence W on its native scale: invert only the grid
+            # map, leaving the U·W·Vᵀ conjugation in place — µ of exactly
+            # what the rounding method saw
+            W_post = inc.from_grid(Wg, state.s, state.maxq)
+            lmin = float(torch.min(evals_pre))
+            lmax = float(torch.max(evals_pre))
+            ploss = float(proxy_loss(What, W, H))
+            # H-relative proxy loss: tr(ΔW H ΔWᵀ) / tr(W H Wᵀ), scale-free
+            whw = float(torch.einsum("ij,jk,ik->", W, H, W))
+            stats = {
+                "proxy_loss": ploss,
+                "proxy_rel": ploss / whw if whw > 0 else 0.0,
+                "frob_rel_err": float(
+                    torch.linalg.norm(err) / torch.linalg.norm(W)),
+                "max_abs_err": float(torch.max(torch.abs(err))),
+                "s": float(state.s),
+                "mu_w_pre": float(inc.mu_weight(W)),
+                "mu_w_post": float(inc.mu_weight(W_post)),
+                "mu_h_pre": float(torch.max(torch.abs(Q_pre))
+                                  * math.sqrt(n)),
+                "mu_h_post": float(torch.max(torch.abs(Q_post))
+                                   * math.sqrt(n)),
+                "h_lambda_min": lmin,
+                "h_lambda_max": lmax,
+                "h_cond": lmax / max(lmin, 1e-30),
+                "m": m,
+                "n": n,
+                "bits": cfg.bits,
+                "method": cfg.label(),
+                "wall_s": time.perf_counter() - t0,
+            }
+    return layer, stats

@@ -31,6 +31,9 @@ SOURCES = {
     "paged_attention": (
         _KERNELS / "paged_attention" / "csrc" / "paged_attention.cu"
     ),
+    "ldlq": _KERNELS / "ldlq" / "csrc" / "ldlq.cu",
+    "kron_mul": _KERNELS / "kron_mul" / "csrc" / "kron_mul.cu",
+    "hadamard": _KERNELS / "hadamard" / "csrc" / "hadamard.cu",
 }
 
 # (the C++ standard is PyTorch's own: cpp_extension adds it)

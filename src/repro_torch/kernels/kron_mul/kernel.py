@@ -1,0 +1,47 @@
+"""Launch wrapper of the hand-written CUDA Kronecker-transform kernel.
+
+``kron_mul_kernel(x, A, B)`` computes ``y = (A ⊗ B) x`` per row of x
+(N, p*q) — what the Pallas kernel
+``repro/kernels/kron_mul/kernel.py:kron_mul_kernel`` computes.  A CUDA
+tensor launches ``csrc/kron_mul.cu`` through
+``torch.ops.repro_torch.kron_mul`` (and raises if it cannot); a CPU tensor
+runs the plain version ``ref.kron_mul_ref``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.kron_mul.ref import kron_mul_ref
+
+__all__ = ["kron_mul_kernel", "COUNTS", "MAX_P", "MAX_Q"]
+
+# launches of the CUDA kernel (chip_smoke.py reads and resets this)
+COUNTS = {"kron_mul": 0}
+MAX_P, MAX_Q = 128, 160  # csrc/kron_mul.h kKronMaxP / kKronMaxQ
+
+
+def kron_mul_kernel(x: torch.Tensor, A: torch.Tensor,
+                    B: torch.Tensor) -> torch.Tensor:
+    """x (N, p*q), A (p, p), B (q, q), fp32 -> (N, p*q) fp32."""
+    if A.ndim != 2 or B.ndim != 2 or A.shape[0] != A.shape[1] or \
+            B.shape[0] != B.shape[1]:
+        raise ValueError(
+            f"A and B must be square, got {tuple(A.shape)} and "
+            f"{tuple(B.shape)}")
+    p, q = A.shape[0], B.shape[0]
+    if x.ndim != 2 or x.shape[1] != p * q:
+        raise ValueError(
+            f"x feature dim {x.shape[-1]} != p*q = {p}*{q} = {p * q}")
+    if not x.is_cuda:
+        return kron_mul_ref(x, A, B)
+    if any(t.dtype != torch.float32 for t in (x, A, B)):
+        raise ValueError("the kron_mul kernel takes float32 operands only")
+    if p > MAX_P or q > MAX_Q:
+        raise ValueError(
+            f"kron_mul factors {p} x {q} exceed the kernel's {MAX_P} x "
+            f"{MAX_Q}")
+    y = _build.ops().kron_mul(x, A, B)
+    if x.shape[0]:
+        COUNTS["kron_mul"] += 1
+    return y

@@ -36,10 +36,11 @@ __all__ = ["resolve_device", "quantized_generate", "build_engine", "main"]
 @torch.no_grad()
 def quantized_generate(qm, prompt: torch.Tensor, gen: int) -> torch.Tensor:
     """Reference recompute path: full-prefix forward per token (O(S^2) per
-    token — the equivalence oracle for the engine's cached decode)."""
+    token — the equivalence oracle for the engine's cached decode), in
+    plain PyTorch, so it checks the engine's kernels."""
     toks = prompt
     for _ in range(gen):
-        logits = qm.logits(toks)[:, -1]
+        logits = qm.logits(toks, plain=True)[:, -1]
         toks = torch.cat([toks, torch.argmax(logits, -1)[:, None]
                           .to(toks.dtype)], dim=1)
     return toks[:, prompt.shape[1]:]

@@ -15,6 +15,7 @@ from repro_torch.configs.base import ArchConfig
 
 __all__ = [
     "NEG",
+    "matmul",
     "apply_w",
     "rms_norm",
     "norm_apply",
@@ -25,14 +26,24 @@ __all__ = [
     "lm_logits",
     "mlp_apply",
     "quantize_kv",
+    "attend",
+    "project_qkv",
+    "attention_full",
 ]
 
 NEG = torch.finfo(torch.float32).min
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in the promoted dtype of the two (JAX's promotion: an fp32
+    activation against a bf16 weight computes in fp32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
 def apply_w(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y = x @ W for a dense (in, out) weight."""
-    return x @ w
+    return matmul(x, w)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -93,7 +104,7 @@ def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 def lm_logits(p: dict, h: torch.Tensor) -> torch.Tensor:
     w = p["head"] if "head" in p else p["tok"].T
-    return h @ w
+    return matmul(h, w)
 
 
 def mlp_apply(up: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
@@ -108,3 +119,59 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     scale = torch.clamp(scale, min=1e-8)
     q = torch.round(xf / scale[..., None])
     return q.to(torch.int8), scale
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           positions: torch.Tensor, cfg: ArchConfig, *,
+           causal: bool = True) -> torch.Tensor:
+    """Softmax attention of post-RoPE q (B, S, H, hd) over k/v (B, S, KV,
+    hd), chunked over query blocks of ``cfg.attn_q_chunk`` (rows of a
+    softmax are independent, so chunking changes no value) -> (B, S, H, hd)
+    fp32.  Causal masking is an additive -1e30 bias without the head
+    dims."""
+    S = q.shape[1]
+    qc = min(cfg.attn_q_chunk, S)
+    while S % qc:
+        qc -= 1
+    outs = []
+    for i0 in range(0, S, qc):
+        s = gqa_scores(q[:, i0:i0 + qc], k, cfg)  # (B, KV, G, qc, S)
+        if causal:
+            pq = positions[i0:i0 + qc]
+            s = s + torch.where(pq[:, None] >= positions[None, :], 0.0,
+                                -1e30).to(torch.float32)
+        outs.append(gqa_out(torch.softmax(s, dim=-1), v, cfg))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                positions: torch.Tensor):
+    """(q, k, v) of the dense family's attention from fp params: (B, S,
+    heads, hd) each, qk-normed and RoPE'd."""
+    B, S, _ = x.shape
+    q = apply_w(p["wq"], x).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = apply_w(p["wk"], x).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = apply_w(p["wv"], x).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return rope(q, positions, cfg.rope_theta), rope(k, positions,
+                                                    cfg.rope_theta), v
+
+
+def attention_full(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
+                   positions: torch.Tensor, causal: bool = True,
+                   return_kv: bool = False):
+    """Full-sequence self-attention of the dense family from fp params
+    (``wq wk wv wo`` as (in, out), ``q_norm``/``k_norm`` with qk-norm).
+
+    x: (B, S, D) -> (B, S, D), and the post-RoPE ``(k, v)`` (B, S, KV,
+    hd) with ``return_kv``.
+    """
+    B, S, _ = x.shape
+    q, k, v = project_qkv(p, x, cfg, positions)
+    o = attend(q, k, v, positions, cfg, causal=causal)
+    out = apply_w(p["wo"], o.to(x.dtype).reshape(B, S, cfg.q_dim))
+    if return_kv:
+        return out, (k, v)
+    return out

@@ -46,10 +46,14 @@ def _np(t: torch.Tensor) -> tuple[np.ndarray, bool]:
     return t.numpy(), False
 
 
-def save_quantized(directory, qm: QuantizedModel, quip_config: dict, *,
+def save_quantized(directory, qm: QuantizedModel, quip_config, *,
                    extra_meta: Optional[dict] = None) -> pathlib.Path:
     """Persist a :class:`QuantizedModel` whose linears are
-    :class:`QuantizedLinear` (``quip_config`` is recorded as given)."""
+    :class:`QuantizedLinear`.  ``quip_config`` (a ``QuipConfig``, recorded
+    field by field as the JAX package records it, or a dict recorded as
+    given) and ``extra_meta`` (the quantize driver passes ``stats``,
+    ``seed``, ``smoke`` and the ``quality`` section) go into the
+    manifest."""
     arrays: dict[str, torch.Tensor] = {}
     for k, v in qm.embed.items():
         arrays[f"embed/{k}"] = v
@@ -86,7 +90,9 @@ def save_quantized(directory, qm: QuantizedModel, quip_config: dict, *,
         "kind": "quip_quantized_model",
         "format": ARTIFACT_FORMAT,
         "arch_config": dataclasses.asdict(qm.cfg),
-        "quip_config": dict(quip_config),
+        "quip_config": (dataclasses.asdict(quip_config)
+                        if dataclasses.is_dataclass(quip_config)
+                        else dict(quip_config)),
         "n_blocks": len(qm.blocks),
         "linears": linear_meta,
         **(extra_meta or {}),
@@ -162,6 +168,6 @@ def load_quantized(directory, *, device=DEFAULT_DEVICE, verify: bool = True):
         blocks.append(blk)
     qm = QuantizedModel(
         cfg=cfg, embed=subtree("embed/"), final_norm=subtree("final_norm/"),
-        blocks=blocks,
+        blocks=blocks, stats=meta.get("stats", []),
     )
     return qm, meta

@@ -9,7 +9,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
-from test_torch_quantizer import quantized_tree_numpy
+from torch_parity import quantized_tree_numpy
 
 from repro.configs import get_smoke_config as ref_smoke
 from repro.core.quantizer import QuipConfig

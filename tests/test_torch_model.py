@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_quantizer import quantized_tree_numpy
+from torch_parity import quantized_tree_numpy
 
 from repro.configs import get_smoke_config as ref_smoke
 from repro.core.quantizer import QuipConfig
@@ -57,6 +57,30 @@ def test_quantized_logits_match_reference(quantized_smoke):
     with torch.no_grad():
         got = qm.logits(torch.from_numpy(toks).long())
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+def test_plain_oracle_reaches_no_kernel_wrapper(quantized_smoke, monkeypatch):
+    """``logits(plain=True)`` (the recompute oracle) calls none of the
+    kernels' wrappers, so on the card it checks them instead of sharing
+    them; on the CPU it gives the same logits as the default path."""
+    from repro_torch.core import incoherence as inc
+    from repro_torch.kernels.quant_matmul import ops as qmm
+
+    _, qm, _ = quantized_smoke
+    toks = torch.from_numpy(make_calibration(256, n_segments=2, seg_len=12,
+                                             seed=9)).long()
+    with torch.no_grad():
+        want = qm.logits(toks)
+
+    def no_kernel(*a, **k):
+        raise AssertionError("a kernel wrapper was called on the plain path")
+
+    for mod, name in ((inc, "kron_mul"), (inc, "hadamard_transform"),
+                      (qmm, "quant_matmul")):
+        monkeypatch.setattr(mod, name, no_kernel)
+    with torch.no_grad():
+        got = qm.logits(toks, plain=True)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def test_fp_cached_decoder_matches_reference():

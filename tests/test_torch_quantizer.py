@@ -5,8 +5,8 @@ carried into the port through ``repro_torch.convert`` as numpy arrays; the
 port's ``apply_transform``, ``QuantizedLinear.dequantize()`` and
 ``QuantizedLinear(x)`` must then match the reference at fp32.
 
-The ``*_numpy`` helpers here extract reference objects as the numpy trees
-``repro_torch.convert`` takes; the other port parity tests import them.
+The reference objects are extracted as numpy trees by the helpers in
+``torch_parity.py``.
 """
 from __future__ import annotations
 
@@ -15,49 +15,14 @@ import numpy as np
 import pytest
 import torch
 from conftest import make_hessian, make_weights
+from torch_parity import linear_numpy, transform_numpy
 
 from repro.core import incoherence as ref_inc
-from repro.core.quantizer import QuantizedLinear as RefLinear
 from repro.core.quantizer import QuipConfig, quantize_layer
 from repro_torch import convert
 from repro_torch.core import incoherence as inc
 
 RTOL = ATOL = 1e-5
-
-
-def _arr(x):
-    return None if x is None else np.asarray(x)
-
-
-def transform_numpy(t) -> dict:
-    return {"kind": t.kind, "n": t.n, "A": _arr(t.A), "B": _arr(t.B),
-            "signs": _arr(t.signs), "perm": _arr(t.perm)}
-
-
-def linear_numpy(ql) -> dict:
-    st = ql.state
-    return {"packed": np.asarray(ql.packed), "s": np.asarray(st.s),
-            "D": _arr(st.D), "bits": ql.bits, "m": ql.m, "n": ql.n,
-            "maxq": st.maxq, "use_kernel": ql.use_kernel,
-            "U": transform_numpy(st.U), "V": transform_numpy(st.V)}
-
-
-def quantized_tree_numpy(qm) -> dict:
-    """A reference QuantizedModel as the numpy tree convert takes."""
-    blocks = []
-    for blk in qm.blocks:
-        out = {}
-        for name, val in blk.items():
-            if isinstance(val, RefLinear):
-                out[name] = linear_numpy(val)
-            elif isinstance(val, dict):
-                out[name] = {k: np.asarray(v) for k, v in val.items()}
-            else:
-                out[name] = np.asarray(val)
-        blocks.append(out)
-    return {"embed": {k: np.asarray(v) for k, v in qm.embed.items()},
-            "final_norm": {k: np.asarray(v) for k, v in qm.final_norm.items()},
-            "blocks": blocks}
 
 
 @pytest.mark.parametrize("kind,n,permute", [
@@ -103,6 +68,12 @@ def test_quantized_linear_matches_reference(transform, bits):
         want = np.asarray(ql_ref(jnp.asarray(x), use_kernel=uk))
         got = ql(torch.from_numpy(x), use_kernel=uk)
         np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    # the plain path (the oracle's) is the same arithmetic on the CPU
+    np.testing.assert_array_equal(ql.dequantize(plain=True).numpy(),
+                                  ql.dequantize().numpy())
+    np.testing.assert_array_equal(
+        ql(torch.from_numpy(x), plain=True).numpy(),
+        ql(torch.from_numpy(x), use_kernel=False).numpy())
 
 
 def test_quantized_linear_rejects_mismatched_packing():
