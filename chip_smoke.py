@@ -17,16 +17,23 @@ Phases, each printing its own lines:
      flushed), the plain version's time, the time of one library call
      computing the same function (a yardstick the port never calls; none
      for LDLQ, which no single PyTorch call computes) and the least time
-     the card could take (bytes over 3.35 TB/s or operations over the fp32
-     peak, whichever is larger).  Serving: quant_matmul, paged decode and
-     prefill; quantizing: the in-block LDLQ recurrence, the Kronecker and
+     the card could take (bytes over 3.35 TB/s or operations over the peak
+     of the unit that could do them, whichever is larger: the bf16 tensor
+     cores for attention, the fp32 cores for the rest).  Serving:
+     quant_matmul, paged decode (the kernel entry and the adapter's fused
+     entry with the token's own K/V) and prefill (grouped layout, and the
+     adapter's (B, C, H, hd) layout in q's dtype), with ragged cases (block
+     tables far longer than every context, G*C not a multiple of the row
+     tile); quantizing: the in-block LDLQ recurrence, the Kronecker and
      the Hadamard transforms;
   4. serve   — a seeded synthetic 2-bit ``qwen3-14b`` artifact at full width
      and depth, saved with the port's store and loaded back (SHA-256
      checked), served through the engine with ``--paged --paged-prefill``:
      8 requests of prompt 128 and gen 32 submitted at fixed engine ticks
      (four at once, then one every other tick), kernel launch counts read
-     around the run;
+     around the run; then ``torch.profiler`` over one prefill tick (8
+     admissions x 64-token chunks) and three decode ticks: device busy,
+     kernels per tick, and the attention kernels' share;
   5. check   — every emitted position re-run teacher-forced through the
      recompute oracle (``QuantizedModel.logits(plain=True)``: transforms
      and grid matmul as plain PyTorch on the card, no kernel) and compared
@@ -60,6 +67,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOP_S = 67e12  # H100 SXM fp32 outside the tensor cores
+TC_BF16_FLOP_S = 989e12  # H100 SXM bf16 tensor cores, dense
 L2_BYTES = 50 * 2**20
 DEV = "cuda"  # every tensor of the run lives on the card
 WORK_DIR = ROOT / "build" / "chip_smoke"
@@ -164,8 +172,9 @@ class Timer:
         return times[len(times) // 2]
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    tb, to = n_bytes / HBM_BYTES_S * 1e3, n_ops / FP32_FLOP_S * 1e3
+def bound_ms(n_bytes: float, n_ops: float,
+             flop_s: float = FP32_FLOP_S) -> tuple[float, str]:
+    tb, to = n_bytes / HBM_BYTES_S * 1e3, n_ops / flop_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -337,9 +346,12 @@ def _dense_kv(torch, kp, vp, ks, vs, bt, layer):
     return k, v
 
 
-def decode_cases(torch, timer) -> dict:
-    import torch.nn.functional as F
-
+def _decode_check(torch, g, kind, *, B, KV, G, hd, ps, Pa, layer,
+                  ctx_list):
+    """The decode kernel entry's (o, m, l) and the adapter's fused entry
+    (ops.paged_gqa_decode: (B, H, hd) queries and the token's own K/V in the
+    model dtype) against their plain versions.  Returns the operands, the
+    kernel's state and the errors."""
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention.kernel import paged_attention_kernel
     from repro_torch.kernels.paged_attention.ref import (
@@ -347,42 +359,63 @@ def decode_cases(torch, timer) -> dict:
         paged_gqa_decode_ref,
     )
 
+    ctx = torch.tensor(ctx_list, dtype=torch.int32, device=DEV)
+    kp, vp, ks, vs, bt = _pool(torch, g, kind=kind, B=B, Pa=Pa, ps=ps, KV=KV,
+                               hd=hd)
+    q = torch.randn(B, KV, G, hd, generator=g, device=DEV)
+    kw = dict(layer=layer, k_scale=ks, v_scale=vs)
+    o, m, l = paged_attention_kernel(q, kp, vp, bt, ctx, **kw)
+    o_r, m_r, l_r = paged_attention_stats_ref(q, kp, vp, bt, ctx, **kw)
+    live = ctx > 0
+    empty_ok = bool((m[~live] == m_r[~live]).all()
+                    and (l[~live] == 0).all() and (o[~live] == 0).all())
+    err = max(
+        float((o[live] / l[live] - o_r[live] / l_r[live]).abs().max()),
+        float((m[live] - m_r[live]).abs().max()),
+        float(((l[live] - l_r[live]) / l_r[live]).abs().max()),
+    )
+    dt = _model_dtype(torch, kind)
+    qh = q.reshape(B, KV * G, hd).to(dt)
+    k_new = torch.randn(B, KV, hd, generator=g, device=DEV).to(dt)
+    v_new = torch.randn(B, KV, hd, generator=g, device=DEV).to(dt)
+    got = pa_ops.paged_gqa_decode(qh, k_new, v_new, kp, vp, bt, ctx, **kw)
+    w_err, w_ok = _within(
+        torch, got, paged_gqa_decode_ref(qh, k_new, v_new, kp, vp, bt, ctx,
+                                         **kw))
+    w_ok = w_ok and got.dtype == dt and got.shape == qh.shape
+    ok = err <= ATTN_ATOL and empty_ok and w_ok
+    return dict(q=q, kp=kp, vp=vp, bt=bt, ctx=ctx, kw=kw, o=o, m=m, qh=qh,
+                k_new=k_new, v_new=v_new, err=err, empty_ok=empty_ok,
+                w_err=w_err, ok=ok, dt=dt)
+
+
+def decode_cases(torch, timer) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention.kernel import paged_attention_kernel
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_stats_ref,
+    )
+
     g = torch.Generator(device=DEV)
     g.manual_seed(12)
     B, KV, G, hd, ps, Pa, layer = 8, 8, 5, 128, 16, 128, 1
     ctx_list = [0, 1, 17, 100, 511, 1000, 1500, 2048]
-    ctx = torch.tensor(ctx_list, dtype=torch.int32, device=DEV)
     rep, worst = None, 0.0
     for kind in ("bf16", "fp32", "int8"):
-        kp, vp, ks, vs, bt = _pool(torch, g, kind=kind, B=B, Pa=Pa, ps=ps,
-                                   KV=KV, hd=hd)
-        q = torch.randn(B, KV, G, hd, generator=g, device=DEV)
-        kw = dict(layer=layer, k_scale=ks, v_scale=vs)
-        o, m, l = paged_attention_kernel(q, kp, vp, bt, ctx, **kw)
-        o_r, m_r, l_r = paged_attention_stats_ref(q, kp, vp, bt, ctx, **kw)
-        live = ctx > 0
-        empty_ok = bool((m[~live] == m_r[~live]).all()
-                        and (l[~live] == 0).all() and (o[~live] == 0).all())
-        err = max(
-            float((o[live] / l[live] - o_r[live] / l_r[live]).abs().max()),
-            float((m[live] - m_r[live]).abs().max()),
-            float(((l[live] - l_r[live]) / l_r[live]).abs().max()),
-        )
-        worst = max(worst, err)
-        # the wrapper as the adapter calls it: (B, H, hd) queries and the
-        # token's own K/V in the model dtype, the self token merged in
-        dt = _model_dtype(torch, kind)
-        qh = q.reshape(B, KV * G, hd).to(dt)
-        k_new = torch.randn(B, KV, hd, generator=g, device=DEV).to(dt)
-        v_new = torch.randn(B, KV, hd, generator=g, device=DEV).to(dt)
-        w_err, w_ok = _within(
-            torch, pa_ops.paged_gqa_decode(qh, k_new, v_new, kp, vp, bt, ctx,
-                                           **kw),
-            paged_gqa_decode_ref(qh, k_new, v_new, kp, vp, bt, ctx, **kw))
+        c = _decode_check(torch, g, kind, B=B, KV=KV, G=G, hd=hd, ps=ps,
+                          Pa=Pa, layer=layer, ctx_list=ctx_list)
+        q, kp, vp, bt, ctx, kw = (c[k] for k in ("q", "kp", "vp", "bt", "ctx",
+                                                  "kw"))
+        worst = max(worst, c["err"])
         t_k = timer(lambda: paged_attention_kernel(q, kp, vp, bt, ctx, **kw))
+        t_f = timer(lambda: pa_ops.paged_gqa_decode(
+            c["qh"], c["k_new"], c["v_new"], kp, vp, bt, ctx, **kw))
         t_p = timer(lambda: paged_attention_stats_ref(q, kp, vp, bt, ctx,
                                                       **kw))
-        kd, vd = _dense_kv(torch, kp, vp, ks, vs, bt, layer)
+        kd, vd = _dense_kv(torch, kp, vp, kw["k_scale"], kw["v_scale"], bt,
+                           layer)
         S = kd.shape[1]
         qs = q.reshape(B, KV * G, 1, hd).to(torch.bfloat16)
         kt, vt = kd.transpose(1, 2), vd.transpose(1, 2)  # (B, KV, S, hd)
@@ -391,32 +424,68 @@ def decode_cases(torch, timer) -> dict:
         t_l = timer(lambda: F.scaled_dot_product_attention(
             qs, kt, vt, attn_mask=mask, enable_gqa=True))
         n_bytes = (q.numel() * 4 + _kv_bytes(ctx_list, KV, hd, kind)
-                   + o.numel() * 4 + 2 * m.numel() * 4 + bt.numel() * 4)
+                   + c["o"].numel() * 4 + 2 * c["m"].numel() * 4
+                   + bt.numel() * 4)
         n_ops = 4.0 * sum(ctx_list) * KV * G * hd
-        bms, by = bound_ms(n_bytes, n_ops)
-        ok = err <= ATTN_ATOL and empty_ok and w_ok
+        bms, by = bound_ms(n_bytes, n_ops, TC_BF16_FLOP_S)
         log(f"[kernel] paged_decode {kind} pages B={B} KV={KV} G={G} hd={hd} "
-            f"ps={ps} ctx={ctx_list}: max_abs_err={err:.3e} (tol "
-            f"{ATTN_ATOL}) empty-lane {'OK' if empty_ok else 'FAIL'}; "
-            f"ops.paged_gqa_decode ({str(dt)[6:]} q/k/v) max_abs_err="
-            f"{w_err:.3e} (tol {ATTN_ATOL}"
-            f"{' + 1 bf16 ulp' if dt == torch.bfloat16 else ''}) "
-            f"{'OK' if ok else 'FAIL'} | kernel {t_k:.4f} ms, plain "
-            f"{t_p:.4f} ms, library(SDPA dense) {t_l:.4f} ms, bound "
-            f"{bms:.4f} ms ({by})")
-        if not ok:
+            f"ps={ps} ctx={ctx_list}: max_abs_err={c['err']:.3e} (tol "
+            f"{ATTN_ATOL}) empty-lane {'OK' if c['empty_ok'] else 'FAIL'}; "
+            f"ops.paged_gqa_decode (fused self token, {str(c['dt'])[6:]} "
+            f"q/k/v and out) max_abs_err={c['w_err']:.3e} (tol {ATTN_ATOL}"
+            f"{' + 1 bf16 ulp' if c['dt'] == torch.bfloat16 else ''}) "
+            f"{'OK' if c['ok'] else 'FAIL'} | kernel {t_k:.4f} ms, fused "
+            f"entry {t_f:.4f} ms, plain {t_p:.4f} ms, library(SDPA dense) "
+            f"{t_l:.4f} ms, bound {bms:.4f} ms ({by})")
+        if not c["ok"]:
             raise AssertionError(f"paged_decode ({kind}) disagrees")
         if kind == "bf16":
             rep = dict(case=f"bf16 pages B=8 ctx={ctx_list}", ms=t_k,
-                       plain_ms=t_p, library_ms=t_l, bound_ms=bms,
-                       bound_by=by)
+                       fused_ms=t_f, plain_ms=t_p, library_ms=t_l,
+                       bound_ms=bms, bound_by=by)
+    # a block table far longer than every context (Pa*ps = 8192 keys): the
+    # splits past each lane's ctx exit at once
+    wide = [0, 5, 64, 128, 129, 200, 255, 300]
+    for kind in ("bf16", "int8"):
+        c = _decode_check(torch, g, kind, B=B, KV=KV, G=G, hd=hd, ps=ps,
+                          Pa=512, layer=layer, ctx_list=wide)
+        worst = max(worst, c["err"])
+        q, kp, vp, bt, ctx, kw = (c[k] for k in ("q", "kp", "vp", "bt", "ctx",
+                                                  "kw"))
+        t_k = timer(lambda: paged_attention_kernel(q, kp, vp, bt, ctx, **kw))
+        log(f"[kernel] paged_decode {kind} pages, Pa*ps=8192 keys, ctx={wide}"
+            f": max_abs_err={c['err']:.3e} (tol {ATTN_ATOL}) empty-lane "
+            f"{'OK' if c['empty_ok'] else 'FAIL'}; ops.paged_gqa_decode "
+            f"max_abs_err={c['w_err']:.3e} {'OK' if c['ok'] else 'FAIL'} | "
+            f"kernel {t_k:.4f} ms")
+        if not c["ok"]:
+            raise AssertionError(f"paged_decode ({kind}, wide table) "
+                                 f"disagrees")
+        del c
+    # the kernel's other compiled shapes: head dims padded to 128 and two
+    # chunks of 128, group sizes off the exact buckets
+    for kind, hd_, G_ in (("bf16", 64, 8), ("fp32", 256, 3), ("int8", 96, 2)):
+        c = _decode_check(torch, g, kind, B=4, KV=2, G=G_, hd=hd_, ps=ps,
+                          Pa=24, layer=layer, ctx_list=[0, 1, 129, 384])
+        worst = max(worst, c["err"])
+        log(f"[kernel] paged_decode {kind} pages hd={hd_} G={G_}: "
+            f"max_abs_err={c['err']:.3e} (tol {ATTN_ATOL}); "
+            f"ops.paged_gqa_decode max_abs_err={c['w_err']:.3e} "
+            f"{'OK' if c['ok'] else 'FAIL'}")
+        if not c["ok"]:
+            raise AssertionError(f"paged_decode ({kind}, hd={hd_}, G={G_}) "
+                                 f"disagrees")
+        del c
     rep["max_abs_err"] = worst
     return rep
 
 
-def prefill_cases(torch, timer) -> dict:
-    import torch.nn.functional as F
-
+def _prefill_check(torch, g, kind, self_, *, B, KV, G, C, hd, ps, Pa,
+                   layer, ctx_list):
+    """The prefill kernel entry (grouped (B, KV, G, C, hd) fp32 queries, fp32
+    output) and the adapter's entry (ops.paged_gqa_prefill: (B, C, H, hd)
+    queries in the model dtype read in place, output in q's dtype) against
+    their plain versions."""
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention.kernel import paged_prefill_kernel
     from repro_torch.kernels.paged_attention.ref import (
@@ -424,42 +493,60 @@ def prefill_cases(torch, timer) -> dict:
         paged_prefill_grouped_ref,
     )
 
+    ctx = torch.tensor(ctx_list, dtype=torch.int32, device=DEV)
+    kp, vp, ks, vs, bt = _pool(torch, g, kind=kind, B=B, Pa=Pa, ps=ps, KV=KV,
+                               hd=hd)
+    dt = _model_dtype(torch, kind)
+    q = torch.randn(B, KV, G, C, hd, generator=g, device=DEV)
+    kc = torch.randn(B, C, KV, hd, generator=g, device=DEV).to(dt)
+    vc = torch.randn(B, C, KV, hd, generator=g, device=DEV).to(dt)
+    kw = dict(layer=layer, k_scale=ks, v_scale=vs)
+    if self_:
+        kw["k_self"] = (kc.float() + 0.1 * torch.randn(
+            kc.shape, generator=g, device=DEV)).to(dt)
+        kw["v_self"] = (vc.float() + 0.1 * torch.randn(
+            vc.shape, generator=g, device=DEV)).to(dt)
+    got = paged_prefill_kernel(q, kc, vc, kp, vp, bt, ctx, **kw)
+    want = paged_prefill_grouped_ref(q, kc, vc, kp, vp, bt, ctx, **kw)
+    err = float((got - want).abs().max())
+    qh = q.permute(0, 3, 1, 2, 4).reshape(B, C, KV * G, hd).to(dt)
+    out = pa_ops.paged_gqa_prefill(qh, kc, vc, kp, vp, bt, ctx, **kw)
+    w_err, w_ok = _within(torch, out, paged_gqa_prefill_ref(
+        qh, kc, vc, kp, vp, bt, ctx, **kw))
+    w_ok = w_ok and out.dtype == dt and out.shape == qh.shape
+    ok = err <= ATTN_ATOL and w_ok and got.dtype == torch.float32
+    return dict(q=q, kc=kc, vc=vc, kp=kp, vp=vp, bt=bt, ctx=ctx, kw=kw,
+                got=got, err=err, w_err=w_err, ok=ok, dt=dt)
+
+
+def prefill_cases(torch, timer) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention.kernel import paged_prefill_kernel
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_prefill_grouped_ref,
+    )
+
     g = torch.Generator(device=DEV)
     g.manual_seed(13)
     B, KV, G, C, hd, ps, Pa, layer = 8, 8, 5, 64, 128, 16, 64, 0
     ctx_list = [0, 16, 64, 100, 128, 300, 777, 1024]
-    ctx = torch.tensor(ctx_list, dtype=torch.int32, device=DEV)
     rep, worst = None, 0.0
     for kind in ("bf16", "fp32", "int8"):
-        kp, vp, ks, vs, bt = _pool(torch, g, kind=kind, B=B, Pa=Pa, ps=ps,
-                                   KV=KV, hd=hd)
-        dt = _model_dtype(torch, kind)
-        q = torch.randn(B, KV, G, C, hd, generator=g, device=DEV)
-        kc = torch.randn(B, C, KV, hd, generator=g, device=DEV).to(dt)
-        vc = torch.randn(B, C, KV, hd, generator=g, device=DEV).to(dt)
         for self_ in (False, True):
-            kw = dict(layer=layer, k_scale=ks, v_scale=vs)
-            if self_:
-                kw["k_self"] = (kc.float() + 0.1 * torch.randn(
-                    kc.shape, generator=g, device=DEV)).to(dt)
-                kw["v_self"] = (vc.float() + 0.1 * torch.randn(
-                    vc.shape, generator=g, device=DEV)).to(dt)
-            got = paged_prefill_kernel(q, kc, vc, kp, vp, bt, ctx, **kw)
-            want = paged_prefill_grouped_ref(q, kc, vc, kp, vp, bt, ctx, **kw)
-            err = float((got - want).abs().max())
-            worst = max(worst, err)
-            # the wrapper as the adapter calls it: (B, C, H, hd) queries
-            # in the model dtype
-            qh = q.permute(0, 3, 1, 2, 4).reshape(B, C, KV * G, hd).to(dt)
-            w_err, w_ok = _within(
-                torch, pa_ops.paged_gqa_prefill(qh, kc, vc, kp, vp, bt, ctx,
-                                                **kw),
-                paged_gqa_prefill_ref(qh, kc, vc, kp, vp, bt, ctx, **kw))
+            c = _prefill_check(torch, g, kind, self_, B=B, KV=KV, G=G, C=C,
+                               hd=hd, ps=ps, Pa=Pa, layer=layer,
+                               ctx_list=ctx_list)
+            q, kc, vc, kp, vp, bt, ctx, kw = (
+                c[k] for k in ("q", "kc", "vc", "kp", "vp", "bt", "ctx",
+                               "kw"))
+            worst = max(worst, c["err"])
             t_k = timer(lambda: paged_prefill_kernel(q, kc, vc, kp, vp, bt,
                                                      ctx, **kw))
             t_p = timer(lambda: paged_prefill_grouped_ref(q, kc, vc, kp, vp,
                                                           bt, ctx, **kw))
-            kd, vd = _dense_kv(torch, kp, vp, ks, vs, bt, layer)
+            kd, vd = _dense_kv(torch, kp, vp, kw["k_scale"], kw["v_scale"],
+                               bt, layer)
             S = kd.shape[1]
             kall = torch.cat([kd, kc.to(torch.bfloat16)], 1).transpose(1, 2)
             vall = torch.cat([vd, vc.to(torch.bfloat16)], 1).transpose(1, 2)
@@ -471,28 +558,58 @@ def prefill_cases(torch, timer) -> dict:
             mask = torch.cat([m_ctx, causal.expand(B, C, C)], -1)[:, None]
             t_l = timer(lambda: F.scaled_dot_product_attention(
                 qs, kall, vall, attn_mask=mask, enable_gqa=True))
+            del kd, vd, kall, vall, mask
             n_chunk = kc.numel() * kc.element_size() * (4 if self_ else 2)
             n_bytes = (q.numel() * 4 + _kv_bytes(ctx_list, KV, hd, kind)
-                       + n_chunk + got.numel() * 4 + bt.numel() * 4)
-            n_ops = sum(4.0 * G * C * hd * KV * (c + (C + 1) / 2)
-                        for c in ctx_list)
-            bms, by = bound_ms(n_bytes, n_ops)
-            ok = err <= ATTN_ATOL and w_ok
+                       + n_chunk + c["got"].numel() * 4 + bt.numel() * 4)
+            n_ops = sum(4.0 * G * C * hd * KV * (cl + (C + 1) / 2)
+                        for cl in ctx_list)
+            bms, by = bound_ms(n_bytes, n_ops, TC_BF16_FLOP_S)
             case = kind + (" +self" if self_ else "")
             log(f"[kernel] paged_prefill {case} pages B={B} C={C} KV={KV} "
-                f"G={G} hd={hd} ctx={ctx_list}: max_abs_err={err:.3e} (tol "
-                f"{ATTN_ATOL}); ops.paged_gqa_prefill ({str(dt)[6:]} q/k/v) "
-                f"max_abs_err={w_err:.3e} (tol {ATTN_ATOL}"
-                f"{' + 1 bf16 ulp' if dt == torch.bfloat16 else ''}) "
-                f"{'OK' if ok else 'FAIL'} | kernel {t_k:.4f} "
+                f"G={G} hd={hd} ctx={ctx_list}: max_abs_err={c['err']:.3e} "
+                f"(tol {ATTN_ATOL}); ops.paged_gqa_prefill ((B, C, H, hd) "
+                f"{str(c['dt'])[6:]} q/k/v in, {str(c['dt'])[6:]} out) "
+                f"max_abs_err={c['w_err']:.3e} (tol {ATTN_ATOL}"
+                f"{' + 1 bf16 ulp' if c['dt'] == torch.bfloat16 else ''}) "
+                f"{'OK' if c['ok'] else 'FAIL'} | kernel {t_k:.4f} "
                 f"ms, plain {t_p:.4f} ms, library(SDPA dense) {t_l:.4f} ms, "
                 f"bound {bms:.4f} ms ({by})")
-            if not ok:
+            if not c["ok"]:
                 raise AssertionError(f"paged_prefill ({case}) disagrees")
             if kind == "bf16" and not self_:
                 rep = dict(case=f"bf16 pages B=8 C=64 ctx={ctx_list}",
                            ms=t_k, plain_ms=t_p, library_ms=t_l,
                            bound_ms=bms, bound_by=by)
+            del c
+    # G*C = 85 rows: not a multiple of the kernel's 64-row tile, a row tile
+    # that spans two query heads, chunk keys past C masked
+    for kind in ("bf16", "fp32", "int8"):
+        c = _prefill_check(torch, g, kind, True, B=B, KV=KV, G=G, C=17,
+                           hd=hd, ps=ps, Pa=Pa, layer=layer,
+                           ctx_list=ctx_list)
+        worst = max(worst, c["err"])
+        log(f"[kernel] paged_prefill {kind} +self pages C=17 (G*C=85): "
+            f"max_abs_err={c['err']:.3e} (tol {ATTN_ATOL}); "
+            f"ops.paged_gqa_prefill max_abs_err={c['w_err']:.3e} "
+            f"{'OK' if c['ok'] else 'FAIL'}")
+        if not c["ok"]:
+            raise AssertionError(f"paged_prefill ({kind}, C=17) disagrees")
+        del c
+    # the other head-dim instantiations (64 and 256, padded from 48 and 200)
+    for kind, hd_, G_ in (("bf16", 48, 3), ("fp32", 256, 2), ("int8", 200, 4)):
+        c = _prefill_check(torch, g, kind, True, B=3, KV=2, G=G_, C=20,
+                           hd=hd_, ps=ps, Pa=16, layer=layer,
+                           ctx_list=[0, 33, 250])
+        worst = max(worst, c["err"])
+        log(f"[kernel] paged_prefill {kind} +self pages hd={hd_} G={G_} C=20: "
+            f"max_abs_err={c['err']:.3e} (tol {ATTN_ATOL}); "
+            f"ops.paged_gqa_prefill max_abs_err={c['w_err']:.3e} "
+            f"{'OK' if c['ok'] else 'FAIL'}")
+        if not c["ok"]:
+            raise AssertionError(f"paged_prefill ({kind}, hd={hd_}) "
+                                 f"disagrees")
+        del c
     rep["max_abs_err"] = worst
     return rep
 
@@ -922,7 +1039,7 @@ def phase_serve(torch, *, seed: int, layers: int) -> dict:
     # ---- phase 5: teacher-forced recompute oracle on the plain paths ----
     check_logits(torch, qm, prompts, reqs, atol=LOGIT_ATOL,
                  mean_atol=LOGIT_MEAN_ATOL)
-    profile_decode(torch, adapter, SERVE_ARGS, prompts)
+    profile_ticks(torch, adapter, SERVE_ARGS, prompts)
     shutil.rmtree(art, ignore_errors=True)
     return rec
 
@@ -1125,50 +1242,83 @@ def phase_quantize(torch, *, seed: int, layers: int, segments: int,
             "ppl": (ppl_fp, ppl_q), "check": chk, "tok_s": rec["tok_s"]}
 
 
-def profile_decode(torch, adapter, args, prompts, ticks: int = 3) -> None:
-    """Where a decode tick's time goes: ``torch.profiler`` over a few
-    decode-only ticks of a second, short workload (8 lanes, all prefilled
-    first).  Reports device-busy time against wall time and the kernels
-    launched per tick."""
+def _profile(torch, run, n_ticks: int):
+    """``torch.profiler`` around ``run()`` (n_ticks engine ticks): wall and
+    device-busy time per tick and the CUDA kernel events, or None when the
+    profiler recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n_ticks
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e6 / n_ticks
+    if not dev or busy == 0:
+        return None
+    return wall, busy, dev
+
+
+def _report_tick(tag, prof, n_ticks, names) -> None:
+    if prof is None:
+        log(f"[profile] {tag}: device time not measured (the profiler "
+            f"recorded no CUDA kernels)")
+        return
+    wall, busy, dev = prof
+    n = sum(e.count for e in dev) / n_ticks
+    log(f"[profile] {tag}: wall {wall * 1e3:.1f} ms, device busy "
+        f"{busy * 1e3:.1f} ms (idle share {1 - busy / wall:.0%}), {n:.0f} "
+        f"kernels per tick")
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"[profile]   {e.self_device_time_total / 1e3 / n_ticks:8.2f} ms "
+            f"{e.count / n_ticks:6.0f}x  {e.key[:90]}")
+    for name in names:
+        mine = [e for e in dev if name in e.key]
+        log(f"[profile] {name} per tick: "
+            f"{sum(e.self_device_time_total for e in mine) / 1e3 / n_ticks:.2f}"
+            f" ms device time over "
+            f"{sum(e.count for e in mine) / n_ticks:.0f} launches")
+
+
+def profile_ticks(torch, adapter, args, prompts, ticks: int = 3) -> None:
+    """Where a tick's time goes, from ``torch.profiler``: one prefill tick
+    of a fresh engine (8 admissions x 64-token chunks, the token budget),
+    then a few decode-only ticks of a second short workload (8 lanes, all
+    prefilled first).  Reports device-busy time against wall time, the
+    kernels launched per tick and the attention kernels' share."""
     from repro_torch.launch.serve import build_engine
+
+    attn = ("paged_prefill_kernel", "paged_decode_kernel",
+            "decode_merge_kernel")
+    engine = build_engine(adapter, max_seq_len=prompts.shape[1] + 2,
+                          args=args)
+    for p in prompts:
+        engine.submit(p, max_new=1)
+    _report_tick(f"prefill tick ({len(prompts)} admissions x "
+                 f"{args.prefill_chunk}-token chunks)",
+                 _profile(torch, engine.tick, 1), 1,
+                 attn[:1] + ("kron_mul_kernel", "qmm_kernel"))
+    engine.run()
 
     engine = build_engine(adapter, max_seq_len=prompts.shape[1] + ticks + 2,
                           args=args)
     reqs = [engine.submit(p, max_new=ticks + 2) for p in prompts]
     while any(not r.out_tokens for r in reqs):
         engine.tick()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def decode():
         for _ in range(ticks):
             engine.tick()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / ticks
+
+    _report_tick(f"decode tick ({len(prompts)} lanes, ctx "
+                 f"~{prompts.shape[1]})", _profile(torch, decode, ticks),
+                 ticks, attn[1:] + ("kron_mul_kernel", "qmm_kernel"))
     engine.run()
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in dev) / 1e6 / ticks
-    n = sum(e.count for e in dev) / ticks
-    if not dev or busy == 0:
-        log("[profile] decode tick: device time not measured (the profiler "
-            "recorded no CUDA kernels)")
-        return
-    log(f"[profile] decode tick (8 lanes, ctx ~{prompts.shape[1]}): wall "
-        f"{wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms (idle share "
-        f"{1 - busy / wall:.0%}), {n:.0f} kernels per tick")
-    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:6]:
-        log(f"[profile]   {e.self_device_time_total / 1e3 / ticks:8.2f} ms "
-            f"{e.count / ticks:6.0f}x  {e.key[:90]}")
-    for name in ("kron_mul_kernel", "qmm_kernel"):
-        mine = [e for e in dev if name in e.key]
-        log(f"[profile] {name} per tick: "
-            f"{sum(e.self_device_time_total for e in mine) / 1e3 / ticks:.2f}"
-            f" ms device time over "
-            f"{sum(e.count for e in mine) / ticks:.0f} launches")
 
 
 REPLACES = {

@@ -24,29 +24,66 @@ struct PagedPool {
   int P, ps, KV, hd, Pa, layer;
 };
 
-// Query rows a decode block holds, the largest head dim, and the fewest
-// context keys worth a decode split of their own.
+// Query rows a decode block holds, the largest head dim, and the context
+// keys one decode block walks (the fixed split of the context).
 constexpr int kMaxDecodeGroup = 8;
 constexpr int kMaxHeadDim = 256;
-constexpr int kMinSplitKeys = 64;
+constexpr int kDecodeSplitKeys = 128;
 
-// Decode: q (B, KV, G, hd) fp32 -> unnormalized o (B, KV, G, hd) and
-// running max m / normalizer l (B, KV, G), fp32.  The attended keys
-// (Pa * ps) are cut into `splits` spans walked by blocks of their own;
-// splits > 1 needs scratch o_part (splits, B, KV, G, hd) and m_part /
-// l_part (splits, B, KV, G) fp32.
-cudaError_t paged_decode_launch(const PagedPool& pool, const float* q,
-                                float* o, float* m, float* l, float* o_part,
-                                float* m_part, float* l_part, int splits,
-                                int B, int G, cudaStream_t stream);
+// Decode operands.  q: fp32 or bf16 (q_bf16), element (b, head, d) at
+// q[b*q_sb + head*q_sh + d] with head = kv*G + g.  Scratch o_part
+// (splits, B*KV*G, hd), m_part / l_part (splits, B*KV*G) fp32, splits =
+// ceil(Pa*ps / kDecodeSplitKeys).  Outputs, one of:
+//   stats: o (B*KV*G, hd), m, l (B*KV*G) fp32, unnormalized, context only;
+//   self:  out (B*KV*G, hd) of q's dtype (out_bf16), normalized over the
+//          context and the token's own k_new / v_new (B, KV, hd),
+//          fp32 or bf16 (new_bf16), contiguous.
+struct DecodeArgs {
+  const void* q;
+  int q_bf16;
+  long long q_sb, q_sh;
+  float* o_part;
+  float* m_part;
+  float* l_part;
+  int splits;
+  float* o;
+  float* m;
+  float* l;
+  const void* k_new;
+  const void* v_new;
+  int new_bf16;
+  void* out;
+  int out_bf16;
+  int B, G;
+};
 
-// Chunked prefill: q (B, KV, G*C, hd) fp32 (rows G-major, chunk position
-// minor); kc/vc and optional kself/vself (B, C, KV, hd) fp32 -> normalized
-// o (B, KV, G*C, hd) fp32.
-cudaError_t paged_prefill_launch(const PagedPool& pool, const float* q,
-                                 const float* kc, const float* vc,
-                                 const float* kself, const float* vself,
-                                 float* o, int B, int G, int C,
+// Decode: two launches (the split kernel, then the merge of the splits,
+// which in self mode also folds the token's own K/V in and normalizes).
+cudaError_t paged_decode_launch(const PagedPool& pool, const DecodeArgs& args,
+                                bool self, cudaStream_t stream);
+
+// Chunked-prefill operands.  q: fp32 or bf16, element (b, kv, g, c, d) at
+// q[b*q_sb + kv*q_skv + g*q_sg + c*q_sc + d]; k_chunk / v_chunk and the
+// optional k_self / v_self (B, C, KV, hd) contiguous, all fp32 or all bf16
+// (c_bf16); out, fp32 or bf16 (o_bf16), element (b, kv, g, c, d) at
+// out[b*o_sb + kv*o_skv + g*o_sg + c*o_sc + d].  Normalized.
+struct PrefillArgs {
+  const void* q;
+  int q_bf16;
+  long long q_sb, q_skv, q_sg, q_sc;
+  const void* kc;
+  const void* vc;
+  const void* kself;
+  const void* vself;
+  int c_bf16;
+  void* out;
+  int o_bf16;
+  long long o_sb, o_skv, o_sg, o_sc;
+  int B, G, C;
+};
+
+cudaError_t paged_prefill_launch(const PagedPool& pool,
+                                 const PrefillArgs& args,
                                  cudaStream_t stream);
 
 }  // namespace repro_torch

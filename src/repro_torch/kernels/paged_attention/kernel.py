@@ -3,14 +3,20 @@
 * :func:`paged_attention_kernel` — decode: the online-softmax state
   ``(o, m, l)`` of one grouped query token per lane over its context pages
   (``repro/kernels/paged_attention/kernel.py:paged_attention_kernel``);
+* :func:`paged_gqa_decode_kernel` — the same kernel in the adapter's
+  ``(B, H, hd)`` layout, its merge epilogue folding the token's own K/V in
+  and normalizing (what ``ops.paged_gqa_decode`` runs on the card);
 * :func:`paged_prefill_kernel` — chunked prefill: the normalized output of
   a ``C``-token chunk per lane over its paged prior context plus the chunk
-  itself, causally (``...:paged_prefill_kernel``).
+  itself, causally (``...:paged_prefill_kernel``);
+* :func:`paged_gqa_prefill_kernel` — the same kernel reading and writing
+  the adapter's ``(B, C, H, hd)`` layout in ``q.dtype``.
 
-Both validate their operands with the JAX package's checks and messages.
+All validate their operands with the JAX package's checks and messages.
 A CUDA tensor launches ``csrc/paged_attention.cu`` through the operators
-``torch.ops.repro_torch.paged_decode`` / ``paged_prefill`` (and raises if
-it cannot); a CPU tensor runs the plain version from ``ref.py``.
+``torch.ops.repro_torch.paged_decode`` / ``paged_decode_self`` /
+``paged_prefill`` / ``paged_prefill_bchd`` (and raises if it cannot); a
+CPU tensor runs the plain version from ``ref.py``.
 """
 from __future__ import annotations
 
@@ -21,16 +27,19 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_stats_ref,
+    paged_gqa_decode_ref,
+    paged_gqa_prefill_ref,
     paged_prefill_grouped_ref,
 )
 
-__all__ = ["paged_attention_kernel", "paged_prefill_kernel", "COUNTS"]
+__all__ = ["paged_attention_kernel", "paged_gqa_decode_kernel",
+           "paged_prefill_kernel", "paged_gqa_prefill_kernel", "COUNTS"]
 
 # launches of the CUDA kernels (chip_smoke.py reads and resets this)
 COUNTS = {"paged_decode": 0, "paged_prefill": 0}
 
 _MAX_G = 8  # query rows a decode block holds (csrc kMaxDecodeGroup)
-_MAX_HD = 256  # head dims: two per thread of a 128-thread block (kMaxHeadDim)
+_MAX_HD = 256  # largest head dim (csrc kMaxHeadDim)
 
 
 def _check_operands(q, k_pages, v_pages, block_tables, ctx_len, layer,
@@ -111,6 +120,12 @@ def _check_prefill_operands(q, k_chunk, v_chunk, k_pages, v_pages,
     )
 
 
+def _groups(H: int, KV: int) -> int:
+    if H % KV:
+        raise ValueError(f"n_heads {H} must be a multiple of n_kv_heads {KV}")
+    return H // KV
+
+
 def _limits(G: int, hd: int, decode: bool) -> None:
     if hd > _MAX_HD:
         raise ValueError(f"head_dim {hd} exceeds the kernel's {_MAX_HD}")
@@ -150,6 +165,48 @@ def paged_attention_kernel(
     if q.shape[0]:
         COUNTS["paged_decode"] += 1
     return o, m, l
+
+
+def paged_gqa_decode_kernel(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,
+    ctx_len: torch.Tensor,
+    *,
+    layer: int,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Decode attention in the adapter's layout, the token's own K/V folded
+    in: q (B, H, hd); k_new/v_new (B, KV, hd) not yet in the pool; pool,
+    tables and scales as for :func:`paged_attention_kernel`.  Returns the
+    normalized (B, H, hd) in q.dtype (two launches on the card: the split
+    kernel and its merge epilogue)."""
+    B, H, hd = q.shape
+    KV = k_new.shape[1]
+    qg = q.reshape(B, KV, _groups(H, KV), hd)
+    _check_operands(qg, k_pages, v_pages, block_tables, ctx_len, layer,
+                    k_scale, v_scale)
+    if tuple(k_new.shape) != (B, KV, hd) or v_new.shape != k_new.shape:
+        raise ValueError(
+            f"k_new/v_new must both be (B={B}, KV={KV}, hd={hd}); got k_new "
+            f"{tuple(k_new.shape)}, v_new {tuple(v_new.shape)}"
+        )
+    if not q.is_cuda:
+        return paged_gqa_decode_ref(
+            q, k_new, v_new, k_pages, v_pages, block_tables, ctx_len,
+            layer=layer, k_scale=k_scale, v_scale=v_scale,
+        )
+    _limits(qg.shape[2], hd, decode=True)
+    out = _build.ops().paged_decode_self(
+        q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, block_tables,
+        ctx_len, layer)
+    if B:
+        COUNTS["paged_decode"] += 1
+    return out
 
 
 def paged_prefill_kernel(
@@ -192,3 +249,42 @@ def paged_prefill_kernel(
     if q.shape[0] and q.shape[3]:
         COUNTS["paged_prefill"] += 1
     return o
+
+
+def paged_gqa_prefill_kernel(
+    q: torch.Tensor,
+    k_chunk: torch.Tensor,
+    v_chunk: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,
+    ctx_len: torch.Tensor,
+    *,
+    layer: int,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    k_self: Optional[torch.Tensor] = None,
+    v_self: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`paged_prefill_kernel` in the adapter's layout: q (B, C, H, hd)
+    read in place, the normalized output written as (B, C, H, hd) in
+    q.dtype (no permuted copies on either side)."""
+    B, C, H, hd = q.shape
+    KV = k_chunk.shape[2]
+    qg = q.reshape(B, C, KV, _groups(H, KV), hd).permute(0, 2, 3, 1, 4)
+    _check_prefill_operands(qg, k_chunk, v_chunk, k_pages, v_pages,
+                            block_tables, ctx_len, layer, k_scale, v_scale,
+                            k_self, v_self)
+    if not q.is_cuda:
+        return paged_gqa_prefill_ref(
+            q, k_chunk, v_chunk, k_pages, v_pages, block_tables, ctx_len,
+            layer=layer, k_scale=k_scale, v_scale=v_scale, k_self=k_self,
+            v_self=v_self,
+        )
+    _limits(qg.shape[2], hd, decode=False)
+    out = _build.ops().paged_prefill_bchd(
+        q, k_chunk, v_chunk, k_pages, v_pages, k_scale, v_scale, k_self,
+        v_self, block_tables, ctx_len, layer)
+    if B and C:
+        COUNTS["paged_prefill"] += 1
+    return out

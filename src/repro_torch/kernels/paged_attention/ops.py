@@ -4,14 +4,15 @@
 per layer per step; ``paged_gqa_prefill`` is its chunked-prefill sibling
 and ``paged_gqa_verify`` the same kernel as a speculative verifier.  A CUDA
 tensor goes to the hand-written kernels, a CPU tensor to the plain
-versions.  For decode the kernel accumulates only over context pages and
-returns ``(o, m, l)``; the token's own (K, V), never read back from the
-pool, is folded in analytically:
+versions.  For decode the kernel accumulates only over context pages; the
+token's own (K, V), never read back from the pool, is folded in
+analytically by the kernel's merge epilogue:
 
     m' = max(m, s_self);  o' = o·e^{m−m'} + v_self·e^{s_self−m'}
     l' = l·e^{m−m'} + e^{s_self−m'};      out = o' / l'
 
-which equals the softmax over [context, self] up to fp reassociation.
+which equals the softmax over [context, self] up to fp reassociation
+(``ref.fold_self_token`` is the same formula in plain PyTorch).
 """
 from __future__ import annotations
 
@@ -20,19 +21,13 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.paged_attention.kernel import (
-    paged_attention_kernel,
-    paged_prefill_kernel,
+    paged_gqa_decode_kernel,
+    paged_gqa_prefill_kernel,
 )
 from repro_torch.kernels.paged_attention.ref import (
     paged_gqa_decode_ref,
     paged_gqa_prefill_ref,
 )
-
-
-def _groups(H: int, KV: int) -> int:
-    if H % KV:
-        raise ValueError(f"n_heads {H} must be a multiple of n_kv_heads {KV}")
-    return H // KV
 
 
 def paged_gqa_decode(
@@ -60,26 +55,10 @@ def paged_gqa_decode(
             q, k_new, v_new, k_pages, v_pages, block_tables, ctx_len,
             layer=layer, k_scale=k_scale, v_scale=v_scale,
         )
-    B, H, hd = q.shape
-    KV = k_new.shape[1]
-    qg = q.reshape(B, KV, _groups(H, KV), hd)
-    o, m, l = paged_attention_kernel(
-        qg, k_pages, v_pages, block_tables, ctx_len, layer=layer,
-        k_scale=k_scale, v_scale=v_scale,
+    return paged_gqa_decode_kernel(
+        q, k_new, v_new, k_pages, v_pages, block_tables, ctx_len,
+        layer=layer, k_scale=k_scale, v_scale=v_scale,
     )
-    qf = qg.to(torch.float32)
-    s_self = torch.einsum(
-        "bkgd,bkd->bkg", qf, k_new.to(torch.float32)) * (hd**-0.5)
-    m0, l0 = m[..., 0], l[..., 0]
-    m_tot = torch.maximum(m0, s_self)
-    a_ctx = torch.exp(m0 - m_tot)
-    a_self = torch.exp(s_self - m_tot)
-    num = o * a_ctx[..., None] + (
-        v_new.to(torch.float32)[:, :, None, :] * a_self[..., None]
-    )
-    den = l0 * a_ctx + a_self
-    out = num / den[..., None]
-    return out.reshape(B, H, hd).to(q.dtype)
 
 
 def paged_gqa_prefill(
@@ -111,16 +90,11 @@ def paged_gqa_prefill(
             layer=layer, k_scale=k_scale, v_scale=v_scale,
             k_self=k_self, v_self=v_self,
         )
-    B, C, H, hd = q.shape
-    KV = k_chunk.shape[2]
-    G = _groups(H, KV)
-    qg = q.reshape(B, C, KV, G, hd).permute(0, 2, 3, 1, 4)
-    o = paged_prefill_kernel(
-        qg, k_chunk, v_chunk, k_pages, v_pages, block_tables, ctx_len,
+    return paged_gqa_prefill_kernel(
+        q, k_chunk, v_chunk, k_pages, v_pages, block_tables, ctx_len,
         layer=layer, k_scale=k_scale, v_scale=v_scale,
         k_self=k_self, v_self=v_self,
-    )  # (B, KV, G, C, hd) normalized fp32
-    return o.permute(0, 3, 1, 2, 4).reshape(B, C, H, hd).to(q.dtype)
+    )
 
 
 def paged_gqa_verify(q, k_chunk, v_chunk, k_pages, v_pages, block_tables,
