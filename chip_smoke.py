@@ -19,9 +19,12 @@ Phases, each printing its own lines:
      for LDLQ, which no single PyTorch call computes) and the least time
      the card could take (bytes over 3.35 TB/s or operations over the peak
      of the unit that could do them, whichever is larger: the bf16 tensor
-     cores for attention, the fp32 cores for the rest).  Serving:
-     quant_matmul, paged decode (the kernel entry and the adapter's fused
-     entry with the token's own K/V) and prefill (grouped layout, and the
+     cores for attention and quant_matmul, the fp32 cores for the rest).
+     Serving: quant_matmul (the grid-sum entry and the fused entry with the
+     dequant epilogue, two launches bit-identical, and an fp32 matmul on
+     the dequantized W as a second yardstick), paged decode (the kernel
+     entry and the adapter's fused entry with the token's own K/V; G 5 and
+     12) and prefill (grouped layout, and the
      adapter's (B, C, H, hd) layout in q's dtype), with ragged cases (block
      tables far longer than every context, G*C not a multiple of the row
      tile); quantizing: the in-block LDLQ recurrence, the Kronecker and
@@ -100,14 +103,15 @@ QUANT_KERNELS = ("ldlq", "kron_mul")
 # quant_matmul (K, M, B, bits): the qwen3-14b projections at decode (B 1,
 # 8) and prefill (64, 512) rows; 3 and 4 bits; and ragged shapes -- K
 # ending in a partial packed word, M not a multiple of the 256-column tile,
-# B not a multiple of the row block
+# B not a multiple of the row block -- through both kernels (B <= 16 and
+# B > 16) at every bit width
 QMM_CASES = (
     [(K, M, B, 2) for (K, M) in ((5120, 5120), (5120, 1024), (5120, 17408),
                                  (17408, 5120))
      for B in (1, 8, 64, 512)]
     + [(5120, 5120, 8, 3), (5120, 5120, 8, 4)]
-    + [(5121, 1000, 5, bits) for bits in (2, 3, 4)]
-    + [(17, 300, 3, 8)]
+    + [(5121, 1000, B, bits) for B in (5, 70) for bits in (2, 3, 4)]
+    + [(17, 300, 3, 8), (17, 300, 20, 8)]
 )
 # ldlq (m, n, bits, stochastic): the qwen3-14b linears' (rows, columns) —
 # attn.wk/wv, attn.wq/wo, mlp.wi/wg, mlp.wo — at 2 and 4 bits, a ragged
@@ -233,8 +237,12 @@ def phase_build() -> None:
 
 def qmm_cases(torch, timer) -> dict:
     from repro_torch.core import packing
+    from repro_torch.core.incoherence import from_grid
     from repro_torch.kernels.quant_matmul import ops as qmm_ops
-    from repro_torch.kernels.quant_matmul.kernel import quant_matmul_kernel
+    from repro_torch.kernels.quant_matmul.kernel import (
+        quant_matmul_kernel,
+        x_terms,
+    )
     from repro_torch.kernels.quant_matmul.ref import (
         grid_matmul_ref,
         quant_matmul_ref,
@@ -242,7 +250,7 @@ def qmm_cases(torch, timer) -> dict:
 
     g = torch.Generator(device=DEV)
     g.manual_seed(11)
-    rep = None
+    rep, pre = None, None
     worst = 0.0
     for K, M, B, bits in QMM_CASES:
         maxq = 2**bits - 1
@@ -252,45 +260,71 @@ def qmm_cases(torch, timer) -> dict:
         x = torch.randn(B, K, generator=g, device=DEV)
         # the kernel: fp32 sums in any order, |err| <= K eps sum_k |x_k q_k|
         bound = K * EPS32 * grid_matmul_ref(x.abs(), packed, bits, K)
-        ok, err = True, 0.0
+        ok, err, same = True, 0.0, True
         for xin in (x, x.to(torch.bfloat16)):
             got = quant_matmul_kernel(xin, packed, bits=bits)
             d = (got - grid_matmul_ref(xin.float(), packed, bits, K)).abs()
             ok = ok and bool((d <= bound).all())
             err = max(err, float(d.max()))
-        # the wrapper (kernel + affine epilogue) with fp32 activations, as
-        # QuantizedLinear calls it, against the plain dequantize-then-matmul:
-        # the kernel's sum scaled by 2s/maxq (2K eps), the row sum (K eps)
-        # and the plain matmul (K eps), each times s sum|x|, plus 8 roundings
+            # deterministic: a second launch is bit-identical
+            same = same and torch.equal(
+                got, quant_matmul_kernel(xin, packed, bits=bits))
+        # the wrapper (one launch: kernel + affine epilogue) with fp32
+        # activations, as QuantizedLinear calls it, against the plain
+        # dequantize-then-matmul: the kernel's sum scaled by 2s/maxq (2K
+        # eps), the row sum (K eps) and the plain matmul (K eps), each times
+        # s sum|x|, plus 8 roundings
         s_ = torch.tensor(1.3 / K**0.5, device=DEV)
-        dz = (qmm_ops.quant_matmul(x, packed, bits, K, s_, maxq)
-              - quant_matmul_ref(x, packed, bits, K, s_, maxq)).abs()
+        z = qmm_ops.quant_matmul(x, packed, bits, K, s_, maxq)
+        dz = (z - quant_matmul_ref(x, packed, bits, K, s_, maxq)).abs()
         wbound = (4 * K + 8) * EPS32 * s_ * x.abs().sum(-1, keepdim=True)
-        ok_w = bool((dz <= wbound).all())
+        ok_w = bool((dz <= wbound).all()) and z.dtype == x.dtype
+        same = same and torch.equal(
+            z, qmm_ops.quant_matmul(x, packed, bits, K, s_, maxq))
         t_k = timer(lambda: quant_matmul_kernel(x, packed, bits=bits))
+        t_f = timer(lambda: qmm_ops.quant_matmul(x, packed, bits, K, s_,
+                                                 maxq))
         t_p = timer(lambda: grid_matmul_ref(x, packed, bits, K))
         W = codes.to(torch.bfloat16)
         xb = x.to(torch.bfloat16)
         t_l = timer(lambda: torch.matmul(xb, W.T))
+        del W
+        # the same function at the kernel's precision: fp32 x times the
+        # fp32 dequantized W, TF32 off
+        Wd = from_grid(codes.float(), s_, maxq)
+        t_l32 = timer(lambda: torch.matmul(x, Wd.T))
+        del Wd
         Kp = packed.shape[0]
         n_bytes = B * K * 4 + Kp * M * 4 + B * M * 4
-        bms, by = bound_ms(n_bytes, 2.0 * B * K * M)
+        # one product per multiply-add at the bf16 tensor cores' peak (the
+        # kernel does x_terms of them)
+        bms, by = bound_ms(n_bytes, 2.0 * B * K * M, TC_BF16_FLOP_S)
+        terms = x_terms(K, x.dtype)
         worst = max(worst, err)
         log(f"[kernel] quant_matmul K={K} M={M} B={B} bits={bits}: "
             f"max_abs_err={err:.3e} (bound max {float(bound.max()):.3e}, "
             f"fp32 and bf16 x) {'OK' if ok else 'FAIL'}; ops.quant_matmul "
             f"max_abs_err={float(dz.max()):.3e} (bound max "
-            f"{float(wbound.max()):.3e}) {'OK' if ok_w else 'FAIL'}"
-            f" | kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-            f"library(bf16 matmul) {t_l:.4f} ms, bound {bms:.4f} ms ({by})")
-        if not (ok and ok_w):
+            f"{float(wbound.max()):.3e}) {'OK' if ok_w else 'FAIL'}; "
+            f"two launches bit-identical {'yes' if same else 'NO'}"
+            f" | kernel {t_k:.4f} ms, ops.quant_matmul (fused) {t_f:.4f} ms,"
+            f" plain {t_p:.4f} ms, library(bf16 matmul) {t_l:.4f} ms, "
+            f"library(fp32 matmul, dequantized W) {t_l32:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}; fp32 x in {terms} bf16 terms)")
+        if not (ok and ok_w and same):
             raise AssertionError(f"quant_matmul disagrees at K={K} M={M} "
                                  f"B={B} bits={bits}")
+        row = dict(ms=t_k, fused_ms=t_f, plain_ms=t_p, library_ms=t_l,
+                   library_fp32_ms=t_l32, bound_ms=bms, bound_by=by,
+                   terms=terms)
         if (K, M, B, bits) == (5120, 17408, 8, 2):
             rep = dict(case="K=5120 M=17408 B=8 bits=2 (decode mlp.wi)",
-                       ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bms,
-                       bound_by=by)
+                       **row)
+        if (K, M, B, bits) == (5120, 17408, 512, 2):
+            pre = dict(case="K=5120 M=17408 B=512 bits=2 (prefill mlp.wi)",
+                       **row)
     rep["max_abs_err"] = worst
+    rep["prefill"] = pre
     return rep
 
 
@@ -461,6 +495,26 @@ def decode_cases(torch, timer) -> dict:
         if not c["ok"]:
             raise AssertionError(f"paged_decode ({kind}, wide table) "
                                  f"disagrees")
+        del c
+    # G = 12 (mistral-large-123b 96/8, starcoder2-15b 48/4): more query
+    # rows than a decode block holds, two row slices of 6 per kv head
+    for kind in ("bf16", "int8"):
+        c = _decode_check(torch, g, kind, B=B, KV=KV, G=12, hd=hd, ps=ps,
+                          Pa=Pa, layer=layer, ctx_list=ctx_list)
+        worst = max(worst, c["err"])
+        q, kp, vp, bt, ctx, kw = (c[k] for k in ("q", "kp", "vp", "bt", "ctx",
+                                                  "kw"))
+        t_k = timer(lambda: paged_attention_kernel(q, kp, vp, bt, ctx, **kw))
+        t_f = timer(lambda: pa_ops.paged_gqa_decode(
+            c["qh"], c["k_new"], c["v_new"], kp, vp, bt, ctx, **kw))
+        log(f"[kernel] paged_decode {kind} pages B={B} KV={KV} G=12 hd={hd} "
+            f"ctx={ctx_list}: max_abs_err={c['err']:.3e} (tol {ATTN_ATOL}) "
+            f"empty-lane {'OK' if c['empty_ok'] else 'FAIL'}; "
+            f"ops.paged_gqa_decode max_abs_err={c['w_err']:.3e} "
+            f"{'OK' if c['ok'] else 'FAIL'} | kernel {t_k:.4f} ms, fused "
+            f"entry {t_f:.4f} ms")
+        if not c["ok"]:
+            raise AssertionError(f"paged_decode ({kind}, G=12) disagrees")
         del c
     # the kernel's other compiled shapes: head dims padded to 128 and two
     # chunks of 128, group sizes off the exact buckets
@@ -1264,6 +1318,10 @@ def _profile(torch, run, n_ticks: int):
     return wall, busy, dev
 
 
+# the prefix of quant_matmul's CUDA kernels' names (csrc/quant_matmul.cu)
+QMM_PREFIX = "qmm_"
+
+
 def _report_tick(tag, prof, n_ticks, names) -> None:
     if prof is None:
         log(f"[profile] {tag}: device time not measured (the profiler "
@@ -1278,8 +1336,11 @@ def _report_tick(tag, prof, n_ticks, names) -> None:
         log(f"[profile]   {e.self_device_time_total / 1e3 / n_ticks:8.2f} ms "
             f"{e.count / n_ticks:6.0f}x  {e.key[:90]}")
     for name in names:
+        # a family's kernels share a name prefix (qmm_rows16_kernel and
+        # qmm_tiled_kernel are quant_matmul's)
         mine = [e for e in dev if name in e.key]
-        log(f"[profile] {name} per tick: "
+        log(f"[profile] {QMM_PREFIX + '*' if name == QMM_PREFIX else name} "
+            f"per tick: "
             f"{sum(e.self_device_time_total for e in mine) / 1e3 / n_ticks:.2f}"
             f" ms device time over "
             f"{sum(e.count for e in mine) / n_ticks:.0f} launches")
@@ -1302,7 +1363,7 @@ def profile_ticks(torch, adapter, args, prompts, ticks: int = 3) -> None:
     _report_tick(f"prefill tick ({len(prompts)} admissions x "
                  f"{args.prefill_chunk}-token chunks)",
                  _profile(torch, engine.tick, 1), 1,
-                 attn[:1] + ("kron_mul_kernel", "qmm_kernel"))
+                 attn[:1] + ("kron_mul_kernel", QMM_PREFIX))
     engine.run()
 
     engine = build_engine(adapter, max_seq_len=prompts.shape[1] + ticks + 2,
@@ -1317,7 +1378,7 @@ def profile_ticks(torch, adapter, args, prompts, ticks: int = 3) -> None:
 
     _report_tick(f"decode tick ({len(prompts)} lanes, ctx "
                  f"~{prompts.shape[1]})", _profile(torch, decode, ticks),
-                 ticks, attn[1:] + ("kron_mul_kernel", "qmm_kernel"))
+                 ticks, attn[1:] + ("kron_mul_kernel", QMM_PREFIX))
     engine.run()
 
 
@@ -1384,8 +1445,9 @@ def main(argv=None) -> int:
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
             "case": rep["case"],
-            **({"codes_differ_frac": rep["codes_differ_frac"]}
-               if "codes_differ_frac" in rep else {}),
+            **{k: rep[k] for k in ("codes_differ_frac", "fused_ms",
+                                   "library_fp32_ms", "terms", "prefill")
+               if k in rep},
             "launches_by_path": {p: c[name] for p, c in paths.items()},
         })
     shutil.rmtree(WORK_DIR, ignore_errors=True)

@@ -53,9 +53,13 @@ class ArchConfig:
     @classmethod
     def from_dict(cls, d: dict) -> "ArchConfig":
         """Build from a manifest's ``arch_config``; fields this schema does
-        not model (other families, training knobs) are dropped."""
+        not model (other families, training knobs) are dropped.  A field
+        that would change what the dense path computes — the biases, bf16
+        attention probabilities, the JAX package's in-model packed weights
+        (``weight_bits``) — raises at any value but its default."""
         names = {f.name for f in dataclasses.fields(cls)}
-        for flag in ("qkv_bias", "mlp_bias"):
+        for flag in ("qkv_bias", "mlp_bias", "attn_bf16_probs", "weight_bits"):
             if d.get(flag):
-                raise ValueError(f"{flag}=True is not supported by the port")
+                raise ValueError(f"{flag}={d[flag]!r} is not supported by "
+                                 f"the port")
         return cls(**{k: v for k, v in d.items() if k in names})

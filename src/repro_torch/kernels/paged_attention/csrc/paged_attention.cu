@@ -103,7 +103,7 @@ constexpr int THREADS = 128;              // every kernel: 4 warps
 constexpr int PREFILL_RT = 64;            // query rows per prefill block
 constexpr int DEC_SPLIT = repro_torch::kDecodeSplitKeys;
 constexpr int DEC_KT = 32;                // decode keys per ring stage
-constexpr int DEC_MAXG = repro_torch::kMaxDecodeGroup;
+constexpr int DEC_MAXG = repro_torch::kDecodeRows;
 
 // ---------------------------------------------------------------------------
 // PTX helpers
@@ -842,19 +842,21 @@ __host__ __device__ inline int dec_smem_bytes(int hd, int elt, int stages) {
          DEC_MAXG * 32 * 4 * 4 + DEC_SPLIT * 8;
 }
 
-// The G query rows of (b, kv head h) -> q_s (G, hd) fp32; every load in
-// flight before the first store.
+// The G query rows g0 .. g0+G-1 of (b, kv head h) -> q_s (G, hd) fp32;
+// every load in flight before the first store.
 template <typename T>
 __device__ __forceinline__ void load_q_group(const DecodeArgs& a, int b,
-                                             int h, int hd, float* q_s) {
+                                             int h, int g0, int G, int hd,
+                                             float* q_s) {
   constexpr int PER = DEC_MAXG * repro_torch::kMaxHeadDim / THREADS;
-  const int n = a.G * hd;
+  const int n = G * hd;
   float x[PER];
 #pragma unroll
   for (int j = 0; j < PER; ++j) {
     const int i = threadIdx.x + j * THREADS, g = i / hd;
     x[j] = i < n ? ldf<T>(a.q, b * a.q_sb +
-                                   (long long)(h * a.G + g) * a.q_sh + i - g * hd)
+                                   (long long)(h * a.G + g0 + g) * a.q_sh +
+                                   i - g * hd)
                  : 0.f;
   }
 #pragma unroll
@@ -898,8 +900,8 @@ __device__ __forceinline__ void load8(const unsigned char* row, int d, int hd,
   }
 }
 
-// One block per (kv head, lane, split of DEC_SPLIT keys): the online-
-// softmax state of the G query rows over the split's keys, written to
+// One block per (kv head and row slice, lane, split of DEC_SPLIT keys): the
+// online-softmax state of the slice's query rows over the split's keys, written to
 // (o, m, l)_part[split].  A split that starts past the lane's context
 // exits (the merge reads only the splits a lane has).  Lane l of warp w
 // owns the 8 head dims c*128 + w*32 + (l%4)*8 .. +8 (NCH chunks of 128)
@@ -916,13 +918,16 @@ __global__ void __launch_bounds__(THREADS, DEC_BLOCKS_PER_SM)
 paged_decode_kernel(Pool pl, DecodeArgs a) {
   constexpr int NST = dec_stages<KVT>();
   extern __shared__ __align__(16) unsigned char smem[];
-  const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int h = blockIdx.x / a.g_slices, b = blockIdx.y, split = blockIdx.z;
+  // the slice's rows g0 .. g0+G-1 of the group (all of it when G <= 8)
+  const int g0 = (blockIdx.x - h * a.g_slices) * a.g_rows;
+  const int G = min(a.g_rows, a.G - g0);
   const int n_ctx = min(pl.ctx[b], pl.Pa * pl.ps);
   const int k_begin = split * DEC_SPLIT;
   if (k_begin >= n_ctx) return;
   const int k_end = min(n_ctx, k_begin + DEC_SPLIT);
   const int n_st = (k_end - k_begin + DEC_KT - 1) / DEC_KT;
-  const int hd = pl.hd, G = a.G;
+  const int hd = pl.hd;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int quad = lane >> 2, sub = lane & 3;
   const int RB = dec_row_bytes(hd, sizeof(KVT));
@@ -950,9 +955,9 @@ paged_decode_kernel(Pool pl, DecodeArgs a) {
     cp_commit();
   }
   if (a.q_bf16)
-    load_q_group<bf16>(a, b, h, hd, q_s);
+    load_q_group<bf16>(a, b, h, g0, G, hd, q_s);
   else
-    load_q_group<float>(a, b, h, hd, q_s);
+    load_q_group<float>(a, b, h, g0, G, hd, q_s);
   __syncthreads();
   float qr[NCH][GT][8], o[NCH][GT][8];
   float m[GT], lsum[GT];
@@ -1069,7 +1074,7 @@ paged_decode_kernel(Pool pl, DecodeArgs a) {
     }
   }
   // combine the eight quads (each summed over its own keys) and write
-  const size_t rows = (size_t)a.B * pl.KV * G;
+  const size_t rows = (size_t)a.B * pl.KV * a.G;
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
     if (g >= G) break;
@@ -1077,7 +1082,7 @@ paged_decode_kernel(Pool pl, DecodeArgs a) {
 #pragma unroll
     for (int off = 4; off < 32; off <<= 1)
       lt += __shfl_xor_sync(0xffffffffu, lt, off);
-    const size_t sr = split * rows + ((size_t)b * pl.KV + h) * G + g;
+    const size_t sr = split * rows + ((size_t)b * pl.KV + h) * a.G + g0 + g;
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
       const int d0 = c * 128 + warp * 32 + sub * 8;
@@ -1209,16 +1214,18 @@ cudaError_t decode_split(const Pool& pl, const DecodeArgs& a, cudaStream_t s) {
   if (err != cudaSuccess) return err;
   const int bytes = dec_smem_bytes(pl.hd, sizeof(KVT), NST);
   paged_decode_kernel<KVT, NCH, GT>
-      <<<dim3(pl.KV, a.B, a.splits), THREADS, bytes, s>>>(pl, a);
+      <<<dim3(pl.KV * a.g_slices, a.B, a.splits), THREADS, bytes, s>>>(pl,
+                                                                      a);
   return cudaGetLastError();
 }
 
-// query rows per block, rounded up to a compiled bucket: exact at the
-// common group sizes (1, 2, 4, 5, 8), one bucket for 128 < hd <= 256
+// query rows per block (a slice of a group larger than DEC_MAXG), rounded
+// up to a compiled bucket: exact at the common group sizes (1, 2, 4, 5, 8),
+// one bucket for 128 < hd <= 256
 template <typename KVT>
 cudaError_t decode_rows(const Pool& pl, const DecodeArgs& a, cudaStream_t s) {
   if (pl.hd > 128) return decode_split<KVT, 2, DEC_MAXG>(pl, a, s);
-  switch (a.G) {
+  switch (a.g_rows) {
     case 1: return decode_split<KVT, 1, 1>(pl, a, s);
     case 2: return decode_split<KVT, 1, 2>(pl, a, s);
     case 3:
@@ -1265,11 +1272,16 @@ cudaError_t prefill_hd(const Pool& pl, const PrefillArgs& a, cudaStream_t s) {
 
 namespace repro_torch {
 
-cudaError_t paged_decode_launch(const PagedPool& pool, const DecodeArgs& args,
+cudaError_t paged_decode_launch(const PagedPool& pool, const DecodeArgs& a,
                                 bool self, cudaStream_t stream) {
-  if (args.G < 1 || args.G > kMaxDecodeGroup || pool.hd > kMaxHeadDim ||
-      args.splits < 1)
+  if (a.G < 1 || a.G > kMaxDecodeGroup || pool.hd > kMaxHeadDim ||
+      a.splits < 1)
     return cudaErrorInvalidValue;
+  // a group of more than kDecodeRows rows is cut into balanced row slices
+  // (12 -> 6 + 6), each its own block reading the same keys
+  DecodeArgs args = a;
+  args.g_slices = (a.G + kDecodeRows - 1) / kDecodeRows;
+  args.g_rows = (a.G + args.g_slices - 1) / args.g_slices;
   switch (pool.dtype) {
     case KVDtype::kFloat32: return decode_t<float>(pool, args, self, stream);
     case KVDtype::kBFloat16: return decode_t<bf16>(pool, args, self, stream);

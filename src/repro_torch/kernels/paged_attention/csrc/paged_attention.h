@@ -24,9 +24,12 @@ struct PagedPool {
   int P, ps, KV, hd, Pa, layer;
 };
 
-// Query rows a decode block holds, the largest head dim, and the context
-// keys one decode block walks (the fixed split of the context).
-constexpr int kMaxDecodeGroup = 8;
+// Query rows a decode block holds (a larger group is cut into row slices,
+// one block each), the largest group size a decode launch takes, the
+// largest head dim, and the context keys one decode block walks (the fixed
+// split of the context).
+constexpr int kDecodeRows = 8;
+constexpr int kMaxDecodeGroup = 128;
 constexpr int kMaxHeadDim = 256;
 constexpr int kDecodeSplitKeys = 128;
 
@@ -55,6 +58,9 @@ struct DecodeArgs {
   void* out;
   int out_bf16;
   int B, G;
+  // row slices of each group (ceil(G / kDecodeRows)) and the rows of a
+  // slice (ceil(G / g_slices)); set by paged_decode_launch
+  int g_slices, g_rows;
 };
 
 // Decode: two launches (the split kernel, then the merge of the splits,

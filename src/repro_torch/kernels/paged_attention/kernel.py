@@ -38,7 +38,7 @@ __all__ = ["paged_attention_kernel", "paged_gqa_decode_kernel",
 # launches of the CUDA kernels (chip_smoke.py reads and resets this)
 COUNTS = {"paged_decode": 0, "paged_prefill": 0}
 
-_MAX_G = 8  # query rows a decode block holds (csrc kMaxDecodeGroup)
+_MAX_G = 128  # largest decode group (csrc kMaxDecodeGroup)
 _MAX_HD = 256  # largest head dim (csrc kMaxHeadDim)
 
 
@@ -131,7 +131,7 @@ def _limits(G: int, hd: int, decode: bool) -> None:
         raise ValueError(f"head_dim {hd} exceeds the kernel's {_MAX_HD}")
     if decode and G > _MAX_G:
         raise ValueError(f"group size G={G} exceeds the decode kernel's "
-                         f"{_MAX_G} query rows per block")
+                         f"limit of {_MAX_G}")
 
 
 def paged_attention_kernel(

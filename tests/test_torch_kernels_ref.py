@@ -106,9 +106,11 @@ def _t(*arrs):
 
 
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("G", [1, 2, 4, 12])
 def test_paged_decode_matches_interpret_kernel(int8, G):
-    """Ragged contexts with an empty lane, page-straddling lengths."""
+    """Ragged contexts with an empty lane, page-straddling lengths; G = 12
+    is the group of mistral-large-123b and starcoder2-15b (more rows than
+    one CUDA decode block holds)."""
     q, kn, vn, kp, vp, bt, ks, vs = _setup(G=G, int8=int8, seed=G)
     cl = np.array([0, 5, 12], np.int32)
     for layer in (0, 1):
@@ -132,6 +134,26 @@ def test_paged_decode_matches_interpret_kernel(int8, G):
             _close(got_i, want_i)
         assert bool((g[1][0] == torch.finfo(torch.float32).min).all())
         assert bool((g[2][0] == 0).all() and (g[0][0] == 0).all())
+
+
+def test_paged_decode_g12_bf16_pages_matches_interpret_kernel():
+    """bf16 pages (the model's pool dtype) at G = 12, both entries."""
+    q, kn, vn, kp, vp, bt, _, _ = _setup(G=12, seed=12)
+    kp16, vp16 = (jnp.asarray(a, dtype=jnp.bfloat16) for a in (kp, vp))
+    tk, tv = (T(a).to(torch.bfloat16) for a in (kp, vp))
+    cl = np.array([0, 5, 12], np.int32)
+    want = ref_pa.paged_gqa_decode(*_j(q, kn, vn), kp16, vp16, *_j(bt, cl),
+                                   layer=1, interpret=True)
+    got = pa.paged_gqa_decode(*_t(q, kn, vn), tk, tv, *_t(bt, cl), layer=1)
+    _close(got, want)
+    B, H, hd = q.shape
+    qg = q.reshape(B, 2, H // 2, hd)
+    w = ref_pa_kernel.paged_attention_kernel(jnp.asarray(qg), kp16, vp16,
+                                             *_j(bt, cl), layer=1,
+                                             interpret=True)
+    g = pa.paged_attention_kernel(T(qg), tk, tv, *_t(bt, cl), layer=1)
+    for got_i, want_i in zip(g, w):
+        _close(got_i, want_i)
 
 
 def _setup_prefill(*, C=4, int8=False, seed=0, G=2):

@@ -122,3 +122,18 @@ def test_config_from_reference_manifest_dict():
     cfg = ArchConfig.from_dict(d)
     assert cfg == get_smoke_config("qwen3-14b")
     assert (cfg.q_dim, cfg.kv_dim) == (64, 32)
+
+
+@pytest.mark.parametrize("flag,value", [("attn_bf16_probs", True),
+                                        ("weight_bits", 2),
+                                        ("qkv_bias", True),
+                                        ("mlp_bias", True)])
+def test_config_from_dict_refuses_fields_it_does_not_model(flag, value):
+    """A reference config field that changes what the dense path computes
+    raises, naming the field, instead of being dropped."""
+    import dataclasses
+
+    d = dataclasses.asdict(ref_smoke("qwen3-14b"))
+    d[flag] = value
+    with pytest.raises(ValueError, match=f"^{flag}="):
+        ArchConfig.from_dict(d)
