@@ -19,7 +19,8 @@ Phases, each printing its own lines:
      for LDLQ, which no single PyTorch call computes) and the least time
      the card could take (bytes over 3.35 TB/s or operations over the peak
      of the unit that could do them, whichever is larger: the bf16 tensor
-     cores for attention and quant_matmul, the fp32 cores for the rest).
+     cores for attention and quant_matmul, the TF32 tensor cores for
+     kron_mul, the fp32 cores for the rest).
      Serving: quant_matmul (the grid-sum entry and the fused entry with the
      dequant epilogue, two launches bit-identical, and an fp32 matmul on
      the dequantized W as a second yardstick), paged decode (the kernel
@@ -27,8 +28,11 @@ Phases, each printing its own lines:
      12) and prefill (grouped layout, and the
      adapter's (B, C, H, hd) layout in q's dtype), with ragged cases (block
      tables far longer than every context, G*C not a multiple of the row
-     tile); quantizing: the in-block LDLQ recurrence, the Kronecker and
-     the Hadamard transforms;
+     tile); quantizing: the in-block LDLQ recurrence, the Kronecker
+     transform (alone, and through the fused entries QuantizedLinear and
+     the incoherence processing call: permutation, D, transposed
+     factors, both directions; two launches bit-identical) and the
+     Hadamard transform;
   4. serve   — a seeded synthetic 2-bit ``qwen3-14b`` artifact at full width
      and depth, saved with the port's store and loaded back (SHA-256
      checked), served through the engine with ``--paged --paged-prefill``:
@@ -36,7 +40,8 @@ Phases, each printing its own lines:
      (four at once, then one every other tick), kernel launch counts read
      around the run; then ``torch.profiler`` over one prefill tick (8
      admissions x 64-token chunks) and three decode ticks: device busy,
-     kernels per tick, and the attention kernels' share;
+     kernels per tick, the attention kernels', kron_mul's and
+     quant_matmul's share, and the ``index_select`` gathers left;
   5. check   — every emitted position re-run teacher-forced through the
      recompute oracle (``QuantizedModel.logits(plain=True)``: transforms
      and grid matmul as plain PyTorch on the card, no kernel) and compared
@@ -71,6 +76,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOP_S = 67e12  # H100 SXM fp32 outside the tensor cores
 TC_BF16_FLOP_S = 989e12  # H100 SXM bf16 tensor cores, dense
+TC_TF32_FLOP_S = 495e12  # H100 SXM TF32 tensor cores, dense
 L2_BYTES = 50 * 2**20
 DEV = "cuda"  # every tensor of the run lives on the card
 WORK_DIR = ROOT / "build" / "chip_smoke"
@@ -131,8 +137,11 @@ LDLQ_CASES = (
 # on correct runs, 3.1e-6 for the driver and 0 for one block
 LDLQ_DIFF_FRAC = 1e-4
 # kron_mul (n, N): the three qwen3-14b widths at decode rows, a prefill
-# chunk, and N = n (a Hessian)
-KRON_CASES = [(n, N) for n in (1024, 5120, 17408) for N in (8, 512, n)]
+# chunk, and N = n (a Hessian); then ragged factors: 50 x 60 (p not a
+# multiple of 16), 1 x 131 (p = 1, q odd), 63 x 65 (both odd) and
+# 128 x 160 (the largest, in column slices at any N)
+KRON_CASES = ([(n, N) for n in (1024, 5120, 17408) for N in (8, 512, n)]
+              + [(3000, 37), (131, 300), (4095, 9), (20480, 64)])
 # hadamard (n, N): 1024 (the power-of-two part of every qwen3-14b width) at
 # 8 rows of a 17-odd view and at an mlp.wo Hessian's 17408 x 17 rows; 128
 # and 16384
@@ -810,45 +819,90 @@ def kron_cases(torch, timer) -> dict:
 
     g = torch.Generator(device=DEV)
     g.manual_seed(15)
-    rep, worst = None, 0.0
+    rows, worst = {}, 0.0
     for n, N in KRON_CASES:
         p, q = kron_factors(n)
-        A = random_orthogonal(p, g, device=DEV)
+        A = random_orthogonal(p, g, device=DEV) if p > 1 else None
         B = random_orthogonal(q, g, device=DEV)
         x = torch.randn(N, n, generator=g, device=DEV)
-        got = kron_mul_kernel(x, A, B)
-        want = kron_mul_ref(x, A, B)
-        # two fp32 products of q then p terms on each side
-        bound = 2 * (p + q + 1) * EPS32 * kron_mul_ref(x.abs(), A.abs(),
-                                                       B.abs())
-        d = (got - want).abs()
-        ok = bool((d <= bound).all())
-        # the wrapper on a 3-D view with a transposed factor (the inverse
-        # transform's B^T) against the plain version
+        perm = torch.randperm(n, generator=g, device=DEV)
+        inv = torch.argsort(perm)
+        D = torch.rand(n, generator=g, device=DEV) + 0.5
+        Aa = None if A is None else A.abs()
+        # the three entries the port calls: the transform alone, the
+        # forward one of QuantizedLinear (gather and D folded in) and the
+        # inverse one (transposed factors, inverse permutation); each
+        # against the plain composition, two fp32 products of q then p
+        # terms on each side
+        entries = {
+            "plain": {},
+            "forward": dict(perm=perm, inv_perm=inv, scale=D),
+            "inverse": dict(perm=perm, inv_perm=inv, transpose=True),
+        }
+        errs, ok, same = {}, True, True
+        for name, kw in entries.items():
+            got = kron_mul_kernel(x, A, B, **kw)
+            d = (got - kron_mul_ref(x, A, B, **kw)).abs()
+            bound = 2 * (p + q + 1) * EPS32 * kron_mul_ref(x.abs(), Aa,
+                                                           B.abs(), **kw)
+            ok = ok and bool((d <= bound).all())
+            errs[name] = (float(d.max()), float((d / bound).max()))
+            # deterministic: a second launch is bit-identical
+            same = same and torch.equal(got, kron_mul_kernel(x, A, B, **kw))
+        # a row-strided x is read in place: the same bits
+        xs = torch.empty(N, n + 4, device=DEV)
+        xs[:, :n] = x
+        same = same and torch.equal(
+            kron_mul_kernel(xs[:, :n], A, B, **entries["forward"]),
+            kron_mul_kernel(x, A, B, **entries["forward"]))
+        del xs
+        # the wrapper on a 3-D view with transposed factor views (copied
+        # by the binding) against the plain version
         xw = x.reshape(N, 1, n)
-        dw = (kron_ops.kron_mul(xw, A.T, B.T) - kron_mul_ref(xw, A.T, B.T))
-        ok_w = bool((dw.abs().reshape(N, n) <= bound.max()).all())
-        err = float(d.max())
+        At = None if A is None else A.T
+        dw = (kron_ops.kron_mul(xw, At, B.T) - kron_mul_ref(xw, At, B.T))
+        ok_w = bool((dw.abs().reshape(N, n) <= 2 * (p + q + 1) * EPS32 *
+                     kron_mul_ref(x.abs(), Aa, B.abs()).max()).all())
+        err = max(e for e, _ in errs.values())
         worst = max(worst, err)
-        K = torch.kron(A, B)
+        fw = entries["forward"]
         t_k = timer(lambda: kron_mul_kernel(x, A, B))
+        t_f = timer(lambda: kron_mul_kernel(x, A, B, **fw))
         t_p = timer(lambda: kron_mul_ref(x, A, B))
+        t_pf = timer(lambda: kron_mul_ref(x, A, B, **fw))
+        K = B if A is None else torch.kron(A, B)
         t_l = timer(lambda: torch.matmul(x, K.T))
         del K
-        bms, by = bound_ms(2 * N * n * 4 + (p * p + q * q) * 4,
-                           2.0 * N * n * (p + q))
-        log(f"[kernel] kron_mul n={n}={p}x{q} N={N}: max_abs_err={err:.3e} "
-            f"(bound max {float(bound.max()):.3e}); ops.kron_mul (3-D, "
-            f"transposed factors) max_abs_err={float(dw.abs().max()):.3e} "
-            f"{'OK' if ok and ok_w else 'FAIL'} | kernel {t_k:.4f} ms, "
-            f"plain {t_p:.4f} ms, library(matmul with dense A⊗B) "
-            f"{t_l:.4f} ms, bound {bms:.4f} ms ({by})")
-        if not (ok and ok_w):
+        # x and y once, the factors once; operations counted once per
+        # multiply-add at the TF32 tensor cores' peak (the kernel runs
+        # three products per multiply-add); the fused forward entry also
+        # reads one int64 permutation and D
+        n_ops = 2.0 * N * n * (p + q)
+        n_bytes = 2 * N * n * 4 + (p * p + q * q) * 4
+        bms, by = bound_ms(n_bytes, n_ops, TC_TF32_FLOP_S)
+        bms_f, _ = bound_ms(n_bytes + n * 12, n_ops, TC_TF32_FLOP_S)
+        log(f"[kernel] kron_mul n={n}={p}x{q} N={N}: max_abs_err "
+            + ", ".join(f"{k} {e:.3e} ({r:.4f} of the gate)"
+                        for k, (e, r) in errs.items())
+            + f"; ops.kron_mul (3-D, transposed factor views) "
+            f"max_abs_err={float(dw.abs().max()):.3e}; two launches and a "
+            f"row-strided x bit-identical {'yes' if same else 'NO'} "
+            f"{'OK' if ok and ok_w and same else 'FAIL'} | kernel "
+            f"{t_k:.4f} ms, fused forward {t_f:.4f} ms, plain {t_p:.4f} ms, "
+            f"plain composition (divide, gather, two matmuls) {t_pf:.4f} ms, "
+            f"library(matmul with dense A⊗B) {t_l:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}; fused {bms_f:.4f})")
+        if not (ok and ok_w and same):
             raise AssertionError(f"kron_mul disagrees at n={n} N={N}")
-        if rep is None or (n, N) == (5120, 5120):
-            rep = dict(case="n=5120=64x80 N=5120 (a Hessian's rows)",
-                       ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bms,
-                       bound_by=by)
+        rows[(n, N)] = dict(ms=t_k, fused_ms=t_f, plain_ms=t_p,
+                            plain_fused_ms=t_pf, library_ms=t_l,
+                            bound_ms=bms, bound_by=by)
+    rep = dict(case="n=5120=64x80 N=5120 (a Hessian's rows)",
+               **rows[(5120, 5120)])
+    rep["decode"] = dict(case="n=17408=128x136 N=8 (decode mlp.wi/wg U)",
+                         **rows[(17408, 8)])
+    rep["prefill"] = dict(case="n=17408=128x136 N=512 (prefill mlp.wi/wg U)",
+                          **rows[(17408, 512)])
     rep["max_abs_err"] = worst
     return rep
 
@@ -1320,6 +1374,9 @@ def _profile(torch, run, n_ticks: int):
 
 # the prefix of quant_matmul's CUDA kernels' names (csrc/quant_matmul.cu)
 QMM_PREFIX = "qmm_"
+# PyTorch's index_select kernels (indexSelectSmallIndex/LargeIndex): the
+# permutation gathers the Kronecker transforms no longer launch
+INDEX_SELECT = "indexSelect"
 
 
 def _report_tick(tag, prof, n_ticks, names) -> None:
@@ -1339,8 +1396,9 @@ def _report_tick(tag, prof, n_ticks, names) -> None:
         # a family's kernels share a name prefix (qmm_rows16_kernel and
         # qmm_tiled_kernel are quant_matmul's)
         mine = [e for e in dev if name in e.key]
-        log(f"[profile] {QMM_PREFIX + '*' if name == QMM_PREFIX else name} "
-            f"per tick: "
+        label = {QMM_PREFIX: QMM_PREFIX + "*",
+                 INDEX_SELECT: "index_select"}.get(name, name)
+        log(f"[profile] {label} per tick: "
             f"{sum(e.self_device_time_total for e in mine) / 1e3 / n_ticks:.2f}"
             f" ms device time over "
             f"{sum(e.count for e in mine) / n_ticks:.0f} launches")
@@ -1363,7 +1421,7 @@ def profile_ticks(torch, adapter, args, prompts, ticks: int = 3) -> None:
     _report_tick(f"prefill tick ({len(prompts)} admissions x "
                  f"{args.prefill_chunk}-token chunks)",
                  _profile(torch, engine.tick, 1), 1,
-                 attn[:1] + ("kron_mul_kernel", QMM_PREFIX))
+                 attn[:1] + ("kron_mul_kernel", QMM_PREFIX, INDEX_SELECT))
     engine.run()
 
     engine = build_engine(adapter, max_seq_len=prompts.shape[1] + ticks + 2,
@@ -1378,7 +1436,8 @@ def profile_ticks(torch, adapter, args, prompts, ticks: int = 3) -> None:
 
     _report_tick(f"decode tick ({len(prompts)} lanes, ctx "
                  f"~{prompts.shape[1]})", _profile(torch, decode, ticks),
-                 ticks, attn[1:] + ("kron_mul_kernel", QMM_PREFIX))
+                 ticks, attn[1:] + ("kron_mul_kernel", QMM_PREFIX,
+                                    INDEX_SELECT))
     engine.run()
 
 
@@ -1446,7 +1505,8 @@ def main(argv=None) -> int:
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
             "case": rep["case"],
             **{k: rep[k] for k in ("codes_differ_frac", "fused_ms",
-                                   "library_fp32_ms", "terms", "prefill")
+                                   "plain_fused_ms", "library_fp32_ms",
+                                   "terms", "decode", "prefill")
                if k in rep},
             "launches_by_path": {p: c[name] for p, c in paths.items()},
         })

@@ -169,24 +169,26 @@ def seeded_transform(kind: TransformKind, n: int, seed: int, *,
 
 def apply_transform(
     t: OrthogonalTransform, x: torch.Tensor, *, inverse: bool = False,
-    plain: bool = False,
+    plain: bool = False, scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Apply y = T x (or T^T x with ``inverse``) along the last axis;
-    ``plain`` runs the kernels' plain versions on any device."""
+    """Apply y = T (x / scale) (or T^T x with ``inverse``) along the last
+    axis; ``plain`` runs the kernels' plain versions on any device.  The
+    Kronecker family is one ``kron_mul`` call: its kernel takes the
+    permutation, the division by ``scale`` and the transposed factors."""
+    if inverse and scale is not None:
+        raise ValueError("scale divides the input of the forward transform "
+                         "only")
+    if t.kind == "kronecker":
+        kron_mul_ = kron_mul_ref if plain else kron_mul
+        # (A ⊗ B) P (x / scale), or P^T (A^T ⊗ B^T) x
+        return kron_mul_(x, t.A, t.B, perm=t.perm, inv_perm=t.inv_perm,
+                         scale=scale, transpose=inverse)
+    if scale is not None:
+        x = x / scale
     if t.kind == "none":
         return x
     lead = x.shape[:-1]
-    kron_mul_ = kron_mul_ref if plain else kron_mul
     hadamard_ = hadamard_ref if plain else hadamard_transform
-    if t.kind == "kronecker":
-        if not inverse:
-            if t.perm is not None:
-                x = torch.index_select(x, -1, t.perm)
-            return kron_mul_(x, t.A, t.B)  # (A ⊗ B) P x
-        y = kron_mul_(x, None if t.A is None else t.A.T, t.B.T)
-        if t.inv_perm is not None:
-            y = torch.index_select(y, -1, t.inv_perm)
-        return y
     if t.kind != "hadamard":
         raise ValueError(f"unknown transform kind: {t.kind}")
     odd = 1 if t.A is None else t.A.shape[0]

@@ -127,10 +127,8 @@ class QuantizedLinear(nn.Module):
         """
         if plain:
             use_kernel = False
-        h = x.to(torch.float32)
-        if self.D is not None:
-            h = h / self.D
-        h = inc.apply_transform(self.transform("V"), h, plain=plain)
+        h = inc.apply_transform(self.transform("V"), x.to(torch.float32),
+                                plain=plain, scale=self.D)  # V D^-1 x
         z = self._matmul(h, use_kernel=use_kernel)
         y = inc.apply_transform(self.transform("U"), z, inverse=True,
                                 plain=plain)

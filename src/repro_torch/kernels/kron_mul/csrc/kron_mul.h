@@ -4,20 +4,38 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace repro_torch {
 
-// Largest factors the kernel takes (A, B and one row of x must fit one
-// block's shared memory together; qwen3-14b's widest is 128 x 136).
+// Largest factors the kernel takes (A, a slice of B and one row of x
+// must fit one block's shared memory; qwen3-14b's widest is 128 x 136).
 constexpr int kKronMaxP = 128;
 constexpr int kKronMaxQ = 160;
 
-// y[r] = (A kron B) x[r] for every row r of x (N, p*q) fp32 contiguous:
-// with X = x[r] as a row-major (p, q) matrix, y[r] = A X B^T.  A (p, p)
-// and B (q, q) fp32 row-major contiguous; y (N, p*q) fp32 contiguous.
+// The operands of one launch.  For every row r of x (N rows of n = p*q
+// fp32 values, row stride ldx, unit column stride), with the factors
+// read as stored (trans = 0) or transposed (trans = 1), y (N, n) fp32
+// contiguous is
+//   trans = 0:  y[r] = (A kron B) x'[r],  x'[r][k] = x[r][perm[k]] / scale[perm[k]]
+//   trans = 1:  y[r][perm[k]] = ((A^T kron B^T) x[r])[k]
+// A (p, p) and B (q, q) fp32 row-major contiguous; A = nullptr is p = 1.
+// perm and inv_perm (its inverse, both int64, n entries) are both given
+// or both nullptr; scale (n fp32) may be nullptr, and is nullptr when
+// trans = 1.
+struct KronArgs {
+  const float* x;
+  const float* A;
+  const float* B;
+  const int64_t* perm;
+  const int64_t* inv_perm;
+  const float* scale;
+  float* y;
+  int64_t ldx;
+  int N, p, q, trans;
+};
+
 // Returns the cudaError_t of the launch.
-cudaError_t kron_mul_launch(const float* x, const float* A, const float* B,
-                            float* y, int N, int p, int q,
-                            cudaStream_t stream);
+cudaError_t kron_mul_launch(const KronArgs& args, cudaStream_t stream);
 
 }  // namespace repro_torch

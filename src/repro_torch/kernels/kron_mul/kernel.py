@@ -2,12 +2,17 @@
 
 ``kron_mul_kernel(x, A, B)`` computes ``y = (A ⊗ B) x`` per row of x
 (N, p*q) — what the Pallas kernel
-``repro/kernels/kron_mul/kernel.py:kron_mul_kernel`` computes.  A CUDA
-tensor launches ``csrc/kron_mul.cu`` through
-``torch.ops.repro_torch.kron_mul`` (and raises if it cannot); a CPU tensor
-runs the plain version ``ref.kron_mul_ref``.
+``repro/kernels/kron_mul/kernel.py:kron_mul_kernel`` computes — with what
+surrounds it in the incoherence processing folded in: ``perm`` gathers the
+input (``transpose=False``) or scatters the output (``transpose=True``,
+which applies ``Aᵀ ⊗ Bᵀ``, the inverse), and ``scale`` divides the input
+(see ``ref.kron_mul_ref``).  A CUDA tensor launches ``csrc/kron_mul.cu``
+through ``torch.ops.repro_torch.kron_mul`` (and raises if it cannot); a
+CPU tensor runs the plain version ``ref.kron_mul_ref``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -21,27 +26,38 @@ COUNTS = {"kron_mul": 0}
 MAX_P, MAX_Q = 128, 160  # csrc/kron_mul.h kKronMaxP / kKronMaxQ
 
 
-def kron_mul_kernel(x: torch.Tensor, A: torch.Tensor,
-                    B: torch.Tensor) -> torch.Tensor:
-    """x (N, p*q), A (p, p), B (q, q), fp32 -> (N, p*q) fp32."""
-    if A.ndim != 2 or B.ndim != 2 or A.shape[0] != A.shape[1] or \
-            B.shape[0] != B.shape[1]:
+def kron_mul_kernel(x: torch.Tensor, A: Optional[torch.Tensor],
+                    B: torch.Tensor, *, perm: Optional[torch.Tensor] = None,
+                    inv_perm: Optional[torch.Tensor] = None,
+                    scale: Optional[torch.Tensor] = None,
+                    transpose: bool = False) -> torch.Tensor:
+    """x (N, p*q), A (p, p) or None (p = 1), B (q, q), fp32 -> (N, p*q)
+    fp32; ``perm``/``inv_perm`` int64 (p*q,), ``scale`` fp32 (p*q,)."""
+    if B.ndim != 2 or B.shape[0] != B.shape[1] or (
+            A is not None and (A.ndim != 2 or A.shape[0] != A.shape[1])):
         raise ValueError(
-            f"A and B must be square, got {tuple(A.shape)} and "
-            f"{tuple(B.shape)}")
-    p, q = A.shape[0], B.shape[0]
+            f"A and B must be square, got "
+            f"{None if A is None else tuple(A.shape)} and {tuple(B.shape)}")
+    p, q = (1 if A is None else A.shape[0]), B.shape[0]
     if x.ndim != 2 or x.shape[1] != p * q:
         raise ValueError(
             f"x feature dim {x.shape[-1]} != p*q = {p}*{q} = {p * q}")
+    if transpose and scale is not None:
+        raise ValueError("scale divides the input of the forward transform "
+                         "only (transpose=False)")
     if not x.is_cuda:
-        return kron_mul_ref(x, A, B)
-    if any(t.dtype != torch.float32 for t in (x, A, B)):
+        return kron_mul_ref(x, A, B, perm=perm, inv_perm=inv_perm,
+                            scale=scale, transpose=transpose)
+    if any(t is not None and t.dtype != torch.float32
+           for t in (x, A, B, scale)):
         raise ValueError("the kron_mul kernel takes float32 operands only")
     if p > MAX_P or q > MAX_Q:
         raise ValueError(
             f"kron_mul factors {p} x {q} exceed the kernel's {MAX_P} x "
             f"{MAX_Q}")
-    y = _build.ops().kron_mul(x, A, B)
+    if perm is not None and inv_perm is None:
+        inv_perm = torch.argsort(perm)
+    y = _build.ops().kron_mul(x, A, B, perm, inv_perm, scale, transpose)
     if x.shape[0]:
         COUNTS["kron_mul"] += 1
     return y

@@ -1,8 +1,11 @@
 """Public wrapper of the Kronecker-transform kernel.
 
-``kron_mul(x, A, B)`` applies ``y = (A ⊗ B) x`` along the last axis of x
-with any leading dims; ``A=None`` is the p = 1 case.  A CUDA tensor goes to
-the hand-written kernel, a CPU tensor to the plain version.
+``kron_mul(x, A, B, perm=, inv_perm=, scale=, transpose=)`` applies
+``y = (A ⊗ B)·(x / scale)[perm]`` (or, transposed, ``y[perm] = (Aᵀ ⊗ Bᵀ)·x``)
+along the last axis of x with any leading dims; ``A=None`` is the p = 1
+case.  A CUDA tensor goes to the hand-written kernel (one launch: the
+gather, the division and the scatter are in it), a CPU tensor to the plain
+version.
 """
 from __future__ import annotations
 
@@ -16,13 +19,15 @@ from repro_torch.kernels.kron_mul.ref import kron_mul_ref
 __all__ = ["kron_mul"]
 
 
-def kron_mul(x: torch.Tensor, A: Optional[torch.Tensor],
-             B: torch.Tensor) -> torch.Tensor:
-    """y = (A ⊗ B) x along the last axis; x (..., p*q)."""
+def kron_mul(x: torch.Tensor, A: Optional[torch.Tensor], B: torch.Tensor,
+             *, perm: Optional[torch.Tensor] = None,
+             inv_perm: Optional[torch.Tensor] = None,
+             scale: Optional[torch.Tensor] = None,
+             transpose: bool = False) -> torch.Tensor:
+    """The transform along the last axis; x (..., p*q)."""
+    kw = dict(perm=perm, inv_perm=inv_perm, scale=scale, transpose=transpose)
     if not x.is_cuda:
-        return kron_mul_ref(x, A, B)
-    if A is None:
-        A = torch.ones((1, 1), dtype=B.dtype, device=B.device)
-    n = A.shape[0] * B.shape[0]
+        return kron_mul_ref(x, A, B, **kw)
+    n = x.shape[-1]
     lead = x.shape[:-1]
-    return kron_mul_kernel(x.reshape(-1, n), A, B).reshape(*lead, n)
+    return kron_mul_kernel(x.reshape(-1, n), A, B, **kw).reshape(*lead, n)
