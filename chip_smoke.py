@@ -28,11 +28,13 @@ Phases, each printing its own lines:
      12) and prefill (grouped layout, and the
      adapter's (B, C, H, hd) layout in q's dtype), with ragged cases (block
      tables far longer than every context, G*C not a multiple of the row
-     tile); quantizing: the in-block LDLQ recurrence, the Kronecker
-     transform (alone, and through the fused entries QuantizedLinear and
-     the incoherence processing call: permutation, D, transposed
-     factors, both directions; two launches bit-identical) and the
-     Hadamard transform;
+     tile); quantizing: the in-block LDLQ recurrence (also bit for bit
+     against the plain emulation of its own summation order), the
+     Kronecker transform (alone, and through the fused
+     entries QuantizedLinear and the incoherence processing call:
+     permutation, D, transposed factors, both directions) and the
+     Hadamard transform (bit for bit against its plain version); two
+     launches of each bit-identical;
   4. serve   — a seeded synthetic 2-bit ``qwen3-14b`` artifact at full width
      and depth, saved with the port's store and loaded back (SHA-256
      checked), served through the engine with ``--paged --paged-prefill``:
@@ -143,10 +145,11 @@ LDLQ_DIFF_FRAC = 1e-4
 KRON_CASES = ([(n, N) for n in (1024, 5120, 17408) for N in (8, 512, n)]
               + [(3000, 37), (131, 300), (4095, 9), (20480, 64)])
 # hadamard (n, N): 1024 (the power-of-two part of every qwen3-14b width) at
-# 8 rows of a 17-odd view and at an mlp.wo Hessian's 17408 x 17 rows; 128
-# and 16384
+# 8 rows of a 17-odd view and at an mlp.wo Hessian's 17408 x 17 rows; 128;
+# 8 (16 rows per warp, the last warp ragged) and 2048 (the widest row in
+# one warp's registers); 4096 and 16384 (the shared-memory kernel)
 HADAMARD_CASES = [(1024, 8 * 17), (1024, 17408 * 17), (128, 4096),
-                  (16384, 64)]
+                  (8, 1001), (2048, 300), (4096, 32), (16384, 64)]
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -717,7 +720,8 @@ def ldlq_cases(torch, timer) -> dict:
     from repro_torch.core.methods import pick_block, round_weights
     from repro_torch.kernels.ldlq import ops as ldlq_ops
     from repro_torch.kernels.ldlq.kernel import COUNTS, ldlq_block_kernel
-    from repro_torch.kernels.ldlq.ref import ldlq_block_ref
+    from repro_torch.kernels.ldlq.ref import (ldlq_block_ref,
+                                              ldlq_block_seq_ref)
 
     g = torch.Generator(device=DEV)
     g.manual_seed(14)
@@ -769,6 +773,13 @@ def ldlq_cases(torch, timer) -> dict:
         Qb, Eb = ldlq_block_kernel(Wb, base, Ub, maxq=maxq, noise=nz)
         Qr, Er = ldlq_block_ref(Wb, base, Ub, maxq=maxq, noise=nz)
         e_ok = bool(torch.equal(Eb, Wb - Qb))
+        # bit for bit: the kernel's own summation order emulated in plain
+        # PyTorch, and a second launch
+        Qs, Es = ldlq_block_seq_ref(Wb, base, Ub, maxq=maxq, noise=nz)
+        seq_ok = bool(torch.equal(Qb, Qs) and torch.equal(Eb, Es))
+        Q2, E2 = ldlq_block_kernel(Wb, base, Ub, maxq=maxq, noise=nz)
+        same = bool(torch.equal(Q2, Qb) and torch.equal(E2, Eb))
+        del Qs, Es, Q2, E2
         t_k = timer(lambda: ldlq_block_kernel(Wb, base, Ub, maxq=maxq,
                                               noise=nz))
         t_p = timer(lambda: ldlq_block_ref(Wb, base, Ub, maxq=maxq,
@@ -781,7 +792,7 @@ def ldlq_cases(torch, timer) -> dict:
         worst = max(worst, blk_err)
         worst_frac = max(worst_frac, frac, blk_frac)
         ok = (unexplained == 0 and e_ok and reg_ok and frac <= LDLQ_DIFF_FRAC
-              and blk_frac <= LDLQ_DIFF_FRAC)
+              and blk_frac <= LDLQ_DIFF_FRAC and seq_ok and same)
         log(f"[kernel] ldlq m={m} n={n} block={blk} bits={bits}"
             f"{' stochastic' if stoch else ''}: codes differing from the "
             f"plain driver {differ} of {Qk.numel()} ({frac:.2e}, tol "
@@ -789,7 +800,10 @@ def ldlq_cases(torch, timer) -> dict:
             f"not reproduce {miss}, of them away from a tie "
             f"{unexplained} (tol 0); E == W - Q {'yes' if e_ok else 'NO'}"
             f"{via}; block kernel vs plain block: {blk_frac:.2e} of codes "
-            f"differ (tol {LDLQ_DIFF_FRAC:g}), max |dQ|, |dE| {blk_err:g} "
+            f"differ (tol {LDLQ_DIFF_FRAC:g}), max |dQ|, |dE| {blk_err:g}; "
+            f"Q and E equal ldlq_block_seq_ref "
+            f"{'yes' if seq_ok else 'NO'}, second launch bit-identical "
+            f"{'yes' if same else 'NO'} "
             f"{'OK' if ok else 'FAIL'} | block (M={m}, nb={nb}) kernel "
             f"{t_k:.4f} ms, plain {t_p:.4f} ms, library none (no single "
             f"PyTorch call computes it), bound {bms:.4f} ms ({by}); whole "
@@ -925,12 +939,19 @@ def hadamard_cases(torch, timer) -> dict:
         # sum|x|/sqrt(n)
         bound = (2 * (math.log2(n) + 1) * EPS32
                  * x.abs().sum(-1, keepdim=True) / math.sqrt(n))
-        ok, err = True, 0.0
+        ok, err, exact, same = True, 0.0, True, True
         for tr in (False, True):
-            d = (hadamard_kernel(x, s, transpose=tr)
-                 - hadamard_ref(x, s, transpose=tr)).abs()
+            got = hadamard_kernel(x, s, transpose=tr)
+            want = hadamard_ref(x, s, transpose=tr)
+            d = (got - want).abs()
             ok = ok and bool((d <= bound).all())
             err = max(err, float(d.max()))
+            # the same additions in the same order: bit for bit, and a
+            # second launch too
+            exact = exact and bool(torch.equal(got, want))
+            same = same and bool(torch.equal(
+                got, hadamard_kernel(x, s, transpose=tr)))
+            del got, want, d
         odd = 17 if N % 17 == 0 else 1
         xw = x.reshape(N // odd, odd, n)
         ok_w = torch.equal(had_ops.hadamard_transform(xw, s),
@@ -943,13 +964,16 @@ def hadamard_cases(torch, timer) -> dict:
         del M
         bms, by = bound_ms(2 * N * n * 4 + n * 4, N * n * (math.log2(n) + 1))
         log(f"[kernel] hadamard n={n} N={N}: max_abs_err={err:.3e} (bound "
-            f"max {float(bound.max()):.3e}, H S x and S H x); "
+            f"max {float(bound.max()):.3e}, H S x and S H x); equal to "
+            f"hadamard_ref, both directions, {'yes' if exact else 'NO'}; "
+            f"second launch bit-identical {'yes' if same else 'NO'}; "
             f"ops.hadamard_transform on the (N/{odd}, {odd}, n) view equal "
-            f"{'yes' if ok_w else 'NO'} {'OK' if ok and ok_w else 'FAIL'} | "
+            f"{'yes' if ok_w else 'NO'} "
+            f"{'OK' if ok and ok_w and exact and same else 'FAIL'} | "
             f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library(matmul with "
             f"dense diag(s)H/sqrt(n)) {t_l:.4f} ms, bound {bms:.4f} ms "
             f"({by})")
-        if not (ok and ok_w):
+        if not (ok and ok_w and exact and same):
             raise AssertionError(f"hadamard disagrees at n={n} N={N}")
         if rep is None or (n, N) == (1024, 17408 * 17):
             rep = dict(case="n=1024 N=17408*17 (an mlp.wo Hessian's rows)",

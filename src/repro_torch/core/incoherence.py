@@ -26,6 +26,7 @@ from typing import Callable, Literal, Optional
 
 import torch
 
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels.hadamard.ops import hadamard_transform
 from repro_torch.kernels.hadamard.ref import hadamard_ref
 from repro_torch.kernels.kron_mul.ops import kron_mul
@@ -156,13 +157,14 @@ def make_transform(
 
 
 def seeded_transform(kind: TransformKind, n: int, seed: int, *,
-                     permute: bool = True, device="cpu",
+                     permute: bool = True, device=DEFAULT_DEVICE,
                      dtype=torch.float32) -> OrthogonalTransform:
     """:func:`make_transform` from a fresh generator seeded ``seed`` on
     ``device`` (the port's counterpart of the JAX package's
     ``make_transform(kind, n, seed)``; the factors differ, the
-    construction does not)."""
-    g = torch.Generator(device=device)
+    construction does not).  Raises without a card unless given
+    ``device="cpu"``."""
+    g = torch.Generator(device=resolve_device(device))
     g.manual_seed(seed)
     return make_transform(kind, n, g, permute=permute, dtype=dtype)
 

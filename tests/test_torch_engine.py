@@ -140,6 +140,7 @@ def _default_device_calls(tmp_path):
     import torch
 
     from repro_torch.configs import get_smoke_config
+    from repro_torch.core.incoherence import seeded_transform
     from repro_torch.models.transformer import init_decoder
     from repro_torch.serve.artifacts import load_quantized
     from repro_torch.serve.kv_cache import PagedKVPool
@@ -157,13 +158,14 @@ def _default_device_calls(tmp_path):
             lambda: synthetic_quantized_model(cfg, seed=0),
         "transform_from_numpy": lambda: convert.transform_from_numpy(t),
         "fp_params_from_numpy": lambda: convert.fp_params_from_numpy({}),
+        "seeded_transform": lambda: seeded_transform("kronecker", 8, 0),
     }
 
 
 @pytest.mark.parametrize("entry", [
     "load_quantized", "PagedKVPool", "init_decoder",
     "synthetic_quantized_model", "transform_from_numpy",
-    "fp_params_from_numpy",
+    "fp_params_from_numpy", "seeded_transform",
 ])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """With no device given, tensors go to the card: without one, the call

@@ -105,7 +105,7 @@ def test_hadamard_rejects_non_power_of_two(n):
     ("hadamard", 48, True), ("hadamard", 64, False), ("none", 10, True),
 ])
 def test_make_transform_construction(kind, n, permute):
-    t = inc.seeded_transform(kind, n, 7, permute=permute)
+    t = inc.seeded_transform(kind, n, 7, permute=permute, device="cpu")
     r = ref_inc.make_transform(kind, n, 7, permute=permute)
     for key in ("A", "B", "signs", "perm"):
         a, b = getattr(r, key), getattr(t, key)
@@ -121,14 +121,15 @@ def test_make_transform_construction(kind, n, permute):
         assert set(t.signs.tolist()) <= {-1.0, 1.0}
     if t.perm is not None:
         assert sorted(t.perm.tolist()) == list(range(n))
-    again = inc.seeded_transform(kind, n, 7, permute=permute)
+    again = inc.seeded_transform(kind, n, 7, permute=permute,
+                                 device="cpu")
     for key, val in t.tensors().items():
         assert torch.equal(val, again.tensors()[key])
 
 
 def test_hadamard_transform_needs_even_dim():
     with pytest.raises(ValueError, match="even dim"):
-        inc.seeded_transform("hadamard", 15, 0)
+        inc.seeded_transform("hadamard", 15, 0, device="cpu")
     with pytest.raises(ValueError, match="needs a torch.Generator"):
         inc.make_transform("kronecker", 8, None)
 
