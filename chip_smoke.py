@@ -56,7 +56,23 @@ Phases, each printing its own lines:
      every linear, (c) a Hadamard-transformed linear through the hadamard
      kernel against its dense product dequantized in plain PyTorch, (d)
      every kernel of the path launched; then the artifact is saved, loaded
-     back and served as in phases 4 and 5.
+     back and served as in phases 4 and 5;
+  7. dense family — the other dense configs at full width, each served
+     through the engine and held to the recompute oracle as in phases 4
+     and 5: (a) a synthetic 2-bit ``starcoder2-15b`` (GeLU MLP, G = 12) at
+     full depth, phase 4's request schedule, with its tick profile; (b)
+     ``starcoder2-15b`` quantized in process by the function
+     ``launch/serve.py --quantize`` calls (depth cut to ``SC_QUANT_LAYERS``
+     blocks: LDLQ over 24576 columns, kron_mul on the 24576-wide Hessian),
+     then served; (c) synthetic ``llama2-70b``, ``qwen2-72b`` and
+     ``mistral-large-123b`` (depth cut to ``BIG_LAYERS``: d_ff 28672 =
+     128 x 224 and 29568 = 168 x 176, d_model 12288 = 96 x 128 through
+     kron_mul, G = 12), each served.  Kernel launches are read per path.
+
+Phase 3 also runs kron_mul at every dense width's factors (16 x 32 to
+168 x 176, and 192 x 256, the largest the kernel takes), quant_matmul at
+the widest starcoder2-15b and llama2-70b projections, and paged prefill at
+G = 12.
 
 The next-to-last line is a JSON record of the six kernels; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
@@ -96,6 +112,23 @@ LOGIT_MEAN_ATOL = 0.006
 # (0.0304) and mean (0.0045) |diff| read on correct runs
 QUANT_LOGIT_ATOL = 0.06
 QUANT_LOGIT_MEAN_ATOL = 0.009
+# phase 7's depths (width is never cut): starcoder2-15b served whole, one
+# block of it quantized in process, llama2-70b, qwen2-72b and
+# mistral-large-123b served at 2 of their 80 and 88 layers
+SC_LAYERS, SC_QUANT_LAYERS, BIG_LAYERS = 40, 1, 2
+# phase 7's models (max, mean |diff|): llama2-70b and qwen2-72b read about
+# what qwen3-14b reads (0.0242 / 0.00373 and 0.0252 / 0.00371) and keep
+# phase 5's gate; starcoder2-15b reads less and gets its own, about twice
+# its reading: 0.0049 / 0.00066 at full depth, 0.0185 / 0.00280 for the
+# block it quantizes itself (measured on one H100, every kernel check
+# passed)
+DENSE_LOGIT_GATES = {
+    "starcoder2-15b": (0.01, 0.0013),
+    "llama2-70b": (LOGIT_ATOL, LOGIT_MEAN_ATOL),
+    "qwen2-72b": (LOGIT_ATOL, LOGIT_MEAN_ATOL),
+    "mistral-large-123b": (LOGIT_ATOL, LOGIT_MEAN_ATOL),
+    "starcoder2-15b quantized": (0.04, 0.006),
+}
 # phase 6's fp weights: sparse outliers on the init_decoder draw
 OUTLIER_FRAC, OUTLIER_SCALE = 0.005, 25.0
 # a hadamard-transformed QuantizedLinear vs x @ dequantize(plain=True).T,
@@ -109,14 +142,18 @@ SERVE_KERNELS = ("quant_matmul", "paged_decode", "paged_prefill", "kron_mul")
 QUANT_KERNELS = ("ldlq", "kron_mul")
 
 # quant_matmul (K, M, B, bits): the qwen3-14b projections at decode (B 1,
-# 8) and prefill (64, 512) rows; 3 and 4 bits; and ragged shapes -- K
-# ending in a partial packed word, M not a multiple of the 256-column tile,
-# B not a multiple of the row block -- through both kernels (B <= 16 and
-# B > 16) at every bit width
+# 8) and prefill (64, 512) rows; the widest projections of starcoder2-15b
+# (mlp.wi, mlp.wo) and llama2-70b (mlp.wi) at 8 and 512 rows; 3 and 4 bits;
+# and ragged shapes -- K ending in a partial packed word, M not a multiple
+# of the 256-column tile, B not a multiple of the row block -- through both
+# kernels (B <= 16 and B > 16) at every bit width
 QMM_CASES = (
     [(K, M, B, 2) for (K, M) in ((5120, 5120), (5120, 1024), (5120, 17408),
                                  (17408, 5120))
      for B in (1, 8, 64, 512)]
+    + [(K, M, B, 2) for (K, M) in ((6144, 24576), (24576, 6144),
+                                   (8192, 28672))
+       for B in (8, 512)]
     + [(5120, 5120, 8, 3), (5120, 5120, 8, 4)]
     + [(5121, 1000, B, bits) for B in (5, 70) for bits in (2, 3, 4)]
     + [(17, 300, 3, 8), (17, 300, 20, 8)]
@@ -141,9 +178,18 @@ LDLQ_DIFF_FRAC = 1e-4
 # kron_mul (n, N): the three qwen3-14b widths at decode rows, a prefill
 # chunk, and N = n (a Hessian); then ragged factors: 50 x 60 (p not a
 # multiple of 16), 1 x 131 (p = 1, q odd), 63 x 65 (both odd) and
-# 128 x 160 (the largest, in column slices at any N)
+# 128 x 160 (column slices at any N); then the other dense widths at decode
+# and prefill rows -- 512 = 16 x 32 and 6144 = 64 x 96 (starcoder2-15b),
+# 8192 = 64 x 128 (llama2-70b, qwen2-72b), 12288 = 96 x 128
+# (mistral-large-123b), 24576 = 128 x 192, 28672 = 128 x 224 and
+# 29568 = 168 x 176 (A read from global memory) -- and N = n for 24576 and
+# 29568; 131 x 137 (both odd, A from global memory) and 192 x 256 (the
+# largest the kernel takes)
 KRON_CASES = ([(n, N) for n in (1024, 5120, 17408) for N in (8, 512, n)]
-              + [(3000, 37), (131, 300), (4095, 9), (20480, 64)])
+              + [(3000, 37), (131, 300), (4095, 9), (20480, 64)]
+              + [(n, N) for n in (512, 6144, 8192, 12288, 24576, 28672,
+                                  29568) for N in (8, 512)]
+              + [(24576, 24576), (29568, 29568), (17947, 37), (49152, 9)])
 # hadamard (n, N): 1024 (the power-of-two part of every qwen3-14b width) at
 # 8 rows of a 17-odd view and at an mlp.wo Hessian's 17408 x 17 rows; 128;
 # 8 (16 rows per warp, the last warp ragged) and 2048 (the widest row in
@@ -662,6 +708,22 @@ def prefill_cases(torch, timer) -> dict:
         if not c["ok"]:
             raise AssertionError(f"paged_prefill ({kind}, C=17) disagrees")
         del c
+    # G = 12 (starcoder2-15b 48/4, mistral-large-123b 96/8), as those
+    # engines' prefill ticks run it: 768 query rows per kv head
+    for KV_ in (4, 8):
+        for kind in ("bf16", "int8"):
+            c = _prefill_check(torch, g, kind, False, B=B, KV=KV_, G=12, C=C,
+                               hd=hd, ps=ps, Pa=Pa, layer=layer,
+                               ctx_list=ctx_list)
+            worst = max(worst, c["err"])
+            log(f"[kernel] paged_prefill {kind} pages B={B} C={C} KV={KV_} "
+                f"G=12 hd={hd}: max_abs_err={c['err']:.3e} (tol "
+                f"{ATTN_ATOL}); ops.paged_gqa_prefill max_abs_err="
+                f"{c['w_err']:.3e} {'OK' if c['ok'] else 'FAIL'}")
+            if not c["ok"]:
+                raise AssertionError(f"paged_prefill ({kind}, KV={KV_}, "
+                                     f"G=12) disagrees")
+            del c
     # the other head-dim instantiations (64 and 256, padded from 48 and 200)
     for kind, hd_, G_ in (("bf16", 48, 3), ("fp32", 256, 2), ("int8", 200, 4)):
         c = _prefill_check(torch, g, kind, True, B=3, KV=2, G=G_, C=20,
@@ -917,6 +979,11 @@ def kron_cases(torch, timer) -> dict:
                          **rows[(17408, 8)])
     rep["prefill"] = dict(case="n=17408=128x136 N=512 (prefill mlp.wi/wg U)",
                           **rows[(17408, 512)])
+    # the other dense widths' factor pairs (PERF.md's kron_mul rows)
+    rep["dense_widths"] = {
+        f"n={n}={'x'.join(map(str, kron_factors(n)))} N={N}": row
+        for (n, N), row in rows.items()
+        if n in (512, 6144, 8192, 12288, 24576, 28672, 29568)}
     rep["max_abs_err"] = worst
     return rep
 
@@ -1374,6 +1441,128 @@ def phase_quantize(torch, *, seed: int, layers: int, segments: int,
             "ppl": (ppl_fp, ppl_q), "check": chk, "tok_s": rec["tok_s"]}
 
 
+def _serve_synthetic(torch, arch: str, *, layers: int, seed: int,
+                     prompt_len: int, gen: int, arrive, profile: bool = False
+                     ) -> dict:
+    """Serve a seeded synthetic 2-bit ``arch`` (Kronecker transforms) at full
+    width, depth ``layers``, with ``--paged --paged-prefill``, hold the
+    engine's logits to the recompute oracle within the model's gate, and
+    with ``profile`` time a prefill tick and decode ticks."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_calibration
+    from repro_torch.serve.synthetic import synthetic_quantized_model
+
+    cfg = get_config(arch)
+    if layers != cfg.n_layers:
+        log(f"[{arch}] DEPTH CUT: {layers} of {cfg.n_layers} layers (full "
+            f"width kept)")
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    t0 = time.perf_counter()
+    qm = synthetic_quantized_model(cfg, seed=seed, device=DEV)
+    torch.cuda.synchronize()
+    log(f"[{arch}] synthetic 2-bit {cfg.name}: {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, d_ff {cfg.d_ff} (mlp {cfg.mlp}), heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} (G = "
+        f"{cfg.n_heads // cfg.n_kv_heads}), vocab {cfg.vocab}, {cfg.dtype}; "
+        f"built on the card in {time.perf_counter() - t0:.1f}s")
+    prompts = make_calibration(cfg.vocab, n_segments=len(arrive),
+                               seg_len=prompt_len, seed=seed + 3)
+    adapter, reqs, rec = serve_requests(torch, qm, prompts, gen=gen,
+                                        arrive=arrive, args=SERVE_ARGS)
+    atol, mean_atol = DENSE_LOGIT_GATES[arch]
+    rec["check"] = check_logits(torch, qm, prompts, reqs, atol=atol,
+                                mean_atol=mean_atol, tag=f"{arch}-check")
+    if profile:
+        profile_ticks(torch, adapter, SERVE_ARGS, prompts)
+    del qm, adapter, reqs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_dense_family(torch, *, seed: int) -> dict:
+    """Phase 7: the rest of the dense family at full width.  (a) a synthetic
+    2-bit starcoder2-15b (GeLU MLP, G = 12, d_ff 24576 = 128 x 192) served
+    as in phase 4, with its tick profile; (b) starcoder2-15b quantized in
+    process by the function ``launch/serve.py --quantize`` calls (LDLQ over
+    24576 columns, kron_mul on its Hessian), then served; (c) synthetic
+    llama2-70b (d_ff 28672 = 128 x 224) and qwen2-72b (d_ff 29568 =
+    168 x 176, kron_mul's layout that reads A from global memory) and
+    mistral-large-123b (d_model 12288 = 96 x 128, G = 12) served.  Every
+    run is held to the recompute oracle.  Returns the launch counts of each
+    path."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_calibration
+    from repro_torch.kernels import reset_counts
+    from repro_torch.launch.serve import quantize_in_process
+    from repro_torch.models.transformer import init_decoder
+
+    paths = {}
+    # (a) the same request schedule as phase 4
+    paths["starcoder2_serve"] = _serve_synthetic(
+        torch, "starcoder2-15b", layers=SC_LAYERS, seed=seed,
+        prompt_len=128, gen=32, arrive=(0, 0, 0, 0, 3, 5, 7, 9),
+        profile=True)["launches"]
+
+    # (b) in-process quantization, as launch/serve.py --quantize runs it
+    full = get_config("starcoder2-15b")
+    cfg = dataclasses.replace(full, n_layers=SC_QUANT_LAYERS)
+    log(f"[starcoder2-15b quantize] DEPTH CUT: {SC_QUANT_LAYERS} of "
+        f"{full.n_layers} blocks (full width: d_model {cfg.d_model}, d_ff "
+        f"{cfg.d_ff})")
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    params = init_decoder(cfg, g, device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    qm = quantize_in_process(params, cfg, bits=2, seed=seed, verbose=True)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    launches = _counts()
+    paths["starcoder2_quantize"] = launches
+    log(f"[starcoder2-15b quantize] launch/serve.py quantize_in_process "
+        f"(--quantize --bits 2: ldlq, kronecker, 8 x 64 calibration tokens)"
+        f": {SC_QUANT_LAYERS} block(s) in {t_quant:.1f}s, peak "
+        f"torch.cuda.max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel "
+        f"launches {launches}")
+    for i, blk_stats in enumerate(qm.stats):
+        for name, st in blk_stats.items():
+            log(f"[starcoder2-15b quantize]   {i}/{name:8s} ({st['m']}x"
+                f"{st['n']}): proxy_rel {st['proxy_rel']:.4f}, mu_w "
+                f"{st['mu_w_pre']:.2f} -> {st['mu_w_post']:.2f}, wall_s "
+                f"{st['wall_s']:.1f}")
+    missing = [k for k in QUANT_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the in-process "
+                             f"quantize path: {missing}")
+    del params
+    prompts = make_calibration(cfg.vocab, n_segments=4, seg_len=128,
+                               seed=seed + 3)
+    _, reqs, rec = serve_requests(torch, qm, prompts, gen=16,
+                                  arrive=(0, 0, 0, 0), args=SERVE_ARGS)
+    atol, mean_atol = DENSE_LOGIT_GATES["starcoder2-15b quantized"]
+    check_logits(torch, qm, prompts, reqs, atol=atol, mean_atol=mean_atol,
+                 tag="starcoder2-15b-quantize-check")
+    paths["starcoder2_serve_quantized"] = rec["launches"]
+    del qm, reqs
+    torch.cuda.empty_cache()
+
+    # (c) the two widest d_ff, and the widest d_model (12288 = 96 x 128)
+    # with G = 12 through the engine
+    for arch in ("llama2-70b", "qwen2-72b", "mistral-large-123b"):
+        paths[arch.split("-")[0] + "_serve"] = _serve_synthetic(
+            torch, arch, layers=BIG_LAYERS, seed=seed, prompt_len=128,
+            gen=16, arrive=(0, 0, 0, 0))["launches"]
+    log(f"[dense family] kernel launches per path: {paths}")
+    return paths
+
+
 def _profile(torch, run, n_ticks: int):
     """``torch.profiler`` around ``run()`` (n_ticks engine ticks): wall and
     device-busy time per tick and the CUDA kernel events, or None when the
@@ -1508,12 +1697,14 @@ def main(argv=None) -> int:
     quant = phase_quantize(torch, seed=args.seed, layers=args.quant_layers,
                            segments=args.calib_segments,
                            seg_len=args.calib_len, chunk=args.calib_chunk)
+    torch.cuda.empty_cache()
+    dense = phase_dense_family(torch, seed=args.seed)
     # launches: each kernel on the path that runs it — the synthetic serve
     # for the serving kernels, the quantize run for ldlq and kron_mul, the
-    # hadamard linear for hadamard
+    # hadamard linear for hadamard; phase 7's paths beside them
     paths = {"serve": served["launches"], "quantize": quant["launches"],
              "hadamard_linear": quant["hadamard_launches"],
-             "serve_quantized": quant["serve_launches"]}
+             "serve_quantized": quant["serve_launches"], **dense}
     main_path = {"ldlq": "quantize", "kron_mul": "quantize",
                  "hadamard": "hadamard_linear"}
     kernels = []
@@ -1530,7 +1721,8 @@ def main(argv=None) -> int:
             "case": rep["case"],
             **{k: rep[k] for k in ("codes_differ_frac", "fused_ms",
                                    "plain_fused_ms", "library_fp32_ms",
-                                   "terms", "decode", "prefill")
+                                   "terms", "decode", "prefill",
+                                   "dense_widths")
                if k in rep},
             "launches_by_path": {p: c[name] for p, c in paths.items()},
         })

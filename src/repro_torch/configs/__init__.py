@@ -5,10 +5,18 @@ import importlib
 
 from repro_torch.configs.base import ArchConfig
 
-__all__ = ["ArchConfig", "get_config", "get_smoke_config"]
+__all__ = ["ArchConfig", "ARCHS", "get_config", "get_smoke_config"]
 
-# arch id -> module name
-_MODULES = {"qwen3-14b": "qwen3_14b"}
+# arch id -> module name (the JAX package's dense family)
+_MODULES = {
+    "qwen3-14b": "qwen3_14b",
+    "llama2-70b": "llama2_70b",
+    "mistral-large-123b": "mistral_large_123b",
+    "qwen2-72b": "qwen2_72b",
+    "starcoder2-15b": "starcoder2_15b",
+}
+
+ARCHS = tuple(_MODULES)
 
 
 def _module(arch: str):

@@ -1,9 +1,10 @@
 """Architecture config schema (dense decoder subset).
 
 The port serves the dense family only, so :class:`ArchConfig` keeps the
-fields that family reads.  ``from_dict`` accepts a full config dict as the
-JAX package writes it into artifact manifests and drops the fields of the
-other families.
+fields that family reads, the biases of qwen2-72b and starcoder2-15b
+included.  ``from_dict`` accepts a full config dict as the JAX package
+writes it into artifact manifests and drops the fields of the other
+families.
 """
 from __future__ import annotations
 
@@ -27,11 +28,13 @@ class ArchConfig:
 
     # attention options
     qk_norm: bool = False
+    qkv_bias: bool = False
     rope_theta: float = 1e6
     attn_q_chunk: int = 1024  # query-block size for full-sequence attention
 
     # mlp options
     mlp: Literal["swiglu", "gelu"] = "swiglu"
+    mlp_bias: bool = False
 
     # misc
     norm_eps: float = 1e-5
@@ -54,11 +57,11 @@ class ArchConfig:
     def from_dict(cls, d: dict) -> "ArchConfig":
         """Build from a manifest's ``arch_config``; fields this schema does
         not model (other families, training knobs) are dropped.  A field
-        that would change what the dense path computes — the biases, bf16
-        attention probabilities, the JAX package's in-model packed weights
+        that would change what the dense path computes — bf16 attention
+        probabilities, the JAX package's in-model packed weights
         (``weight_bits``) — raises at any value but its default."""
         names = {f.name for f in dataclasses.fields(cls)}
-        for flag in ("qkv_bias", "mlp_bias", "attn_bf16_probs", "weight_bits"):
+        for flag in ("attn_bf16_probs", "weight_bits"):
             if d.get(flag):
                 raise ValueError(f"{flag}={d[flag]!r} is not supported by "
                                  f"the port")

@@ -55,6 +55,14 @@
 //   - a persistent block also holds inv_perm (16-bit) and 1 / D where they
 //     fit, so no row waits on index loads;
 //   - the block's 8 warps all copy rows in and out.
+// Where A and a row do not fit one block's shared memory together (p > 128:
+// 168 x 176, qwen2-72b's d_ff, needs 242 KB), a second layout leaves A in
+// global memory and reads the second product's A fragments through the L1
+// (kron_mul_kernel<2, NTW, true>): shared memory then holds the row, T^T and
+// the B slice, and p pads to a multiple of 32 rows (two m-tiles per warp,
+// up to 8 warps of rows); the rows past p read zeros.  The host's plan takes
+// it only where no resident-A layout fits, so every shape that fitted keeps
+// its layout.
 // The mma's k slots (t, t+4) take the adjacent columns (2t, 2t+1), so
 // every fragment is one 8-byte shared load; row strides of 8 mod 16 words
 // keep those loads free of bank conflicts.  Operands are split into
@@ -70,17 +78,19 @@ namespace {
 using repro_torch::KronArgs;
 
 // The shared-memory layout and warp grid of one launch (host-computed).
-// Floats, in order: A (Pp rows of lda, when given), the B slice (rows_b
-// rows of ldb), the reciprocal scale (rs floats, when held), inv_perm as
-// 16-bit entries (is floats, when held), and nbuf row buffers of buf
-// floats (X, then T^T, then Y).
+// Floats, in order: A (Pp rows of lda, when given and held), the B slice
+// (rows_b rows of ldb), the reciprocal scale (rs floats, when held),
+// inv_perm as 16-bit entries (is floats, when held), and nbuf row buffers
+// of buf floats (X, then T^T, then Y).
 struct Layout {
   int S;       // column slices per row, of rows_b columns
   int rows_b;  // columns per item, 8 NTW wc
-  int wc;      // column groups of warps; warps = wc Pp / (16 MT)
+  int wc;      // column groups of warps; warps = wc pw / (16 MT)
+  int pw;      // rows of X, T and Y the warps cover (p padded to 16 MT)
+  int ag;      // 1: A is read from global memory, not held
   int lda;     // row stride of A (p padded, 8 mod 16)
   int ldb;     // row stride of the B slice (q padded, 8 mod 16)
-  int ldt;     // row stride of T^T (p padded, 8 mod 16)
+  int ldt;     // row stride of T^T (pw padded, 8 mod 16)
   int rs;      // floats of the reciprocal scale (0: not held)
   int is;      // floats of inv_perm held as 16-bit entries (0: not held)
   int buf;     // floats of one row buffer
@@ -173,6 +183,14 @@ __device__ __forceinline__ int index_at(const int64_t* perm, int j) {
 __device__ __forceinline__ int inv_at(const KronArgs& a, const uint16_t* Is,
                                       int j) {
   return Is != nullptr ? Is[j] : index_at(a.inv_perm, j);
+}
+
+// A'[r][k] (A, or A^T with trans) from global memory through the L1, zero
+// outside p x p: the second product's operand in the layout that does not
+// hold A
+__device__ __forceinline__ float a_at(const KronArgs& a, int r, int k) {
+  if (r >= a.p || k >= a.p) return 0.f;
+  return __ldg(a.A + (a.trans ? k * a.p + r : r * a.p + k));
 }
 
 // two adjacent floats of shared memory (8-byte aligned unless q is odd)
@@ -333,20 +351,21 @@ __device__ __forceinline__ void zero_pad(float* dst, int ld, int rows,
     dst[(e / w) * ld + cols + e % w] = 0.f;
 }
 
-// MT: m-tiles of 16 rows per warp; NTW: n-tiles of 8 columns per warp.
-// Block: 8 warps, of which the first wc * Pp / (16 MT) compute; compute
-// warp w takes rows 16 MT (w % WR).. of X, T and Y (WR = Pp / (16 MT)) and
+// MT: m-tiles of 16 rows per warp; NTW: n-tiles of 8 columns per warp;
+// AG: A read from global memory (L.ag), not held in shared memory.
+// Block: 8 warps, of which the first wc * pw / (16 MT) compute; compute
+// warp w takes rows 16 MT (w % WR).. of X, T and Y (WR = pw / (16 MT)) and
 // the slice's n-tiles w / WR + wc u, u < NTW.  Each fragment of the shared
 // operand (B', then T) is split once and used by the warp's MT m-tiles.
 // All 8 warps copy rows in and out.
-template <int MT, int NTW>
+template <int MT, int NTW, bool AG>
 __global__ void __launch_bounds__(kThreads)
 kron_mul_kernel(const KronArgs a, const Layout L) {
   extern __shared__ __align__(16) float sm[];
   const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   const int p = a.p, q = a.q, n = p * q;
   const int Pp = (p + 15) & ~15, Qp = (q + 7) & ~7;
-  const int WR = Pp / (16 * MT), warp = threadIdx.x >> 5;
+  const int WR = L.pw / (16 * MT), warp = threadIdx.x >> 5;
   const bool computes = warp < WR * L.wc;
   const int r0 = 16 * MT * (warp % WR), nt0 = warp / WR;
   const int rows_b = L.rows_b;
@@ -354,15 +373,16 @@ kron_mul_kernel(const KronArgs a, const Layout L) {
   const int c0 = (blockIdx.x % L.S) * rows_b;  // the block's slice
   const int cols = min(q - c0, rows_b);
   float* As = sm;                             // As[j * lda + i] = A'[j][i]
-  float* Bs = As + (has_a ? Pp * L.lda : 0);  // Bs[c * ldb + t] = B'[c0 + c][t]
+  // Bs[c * ldb + t] = B'[c0 + c][t]
+  float* Bs = As + (has_a && !AG ? Pp * L.lda : 0);
   float* Rs = Bs + rows_b * L.ldb;
   uint16_t* Is = L.is != 0 ? reinterpret_cast<uint16_t*>(Rs + L.rs) : nullptr;
   float* bufs = Rs + L.rs + L.is;
-  const int pad_end = Pp * q + 8;
+  const int pad_end = L.pw * q + 8;
 
   // The factors, resident for every item, zero-padded: A' = A or A^T and
   // B' = B or B^T (a transposed factor is read along its rows).
-  if (has_a) {
+  if (has_a && !AG) {
     copy_block(As, L.lda, a.A, p, p, p, a.trans);
     zero_pad(As, L.lda, p, p, Pp, Pp);
   }
@@ -457,12 +477,19 @@ kron_mul_kernel(const KronArgs a, const Layout L) {
         const int ao = (r0 + g) * L.lda + 2 * tq;
         const int to = (8 * nt0 + g) * L.ldt + 2 * tq,
                   tstep = 8 * L.wc * L.ldt;
-          for (int k0 = 0; k0 < Pp; k0 += 8) {
+        for (int k0 = 0; k0 < Pp; k0 += 8) {
           AFrag f[MT];
 #pragma unroll
           for (int m = 0; m < MT; ++m) {
-            const int o = ao + 16 * m * L.lda + k0;
-            f[m] = split_a(ld2(As + o), ld2(As + o + 8 * L.lda));
+            if constexpr (AG) {
+              const int r = r0 + 16 * m + g, k = k0 + 2 * tq;
+              f[m] = split_a(make_float2(a_at(a, r, k), a_at(a, r, k + 1)),
+                             make_float2(a_at(a, r + 8, k),
+                                         a_at(a, r + 8, k + 1)));
+            } else {
+              const int o = ao + 16 * m * L.lda + k0;
+              f[m] = split_a(ld2(As + o), ld2(As + o + 8 * L.lda));
+            }
           }
 #pragma unroll
           for (int u = 0; u < NTW; ++u) {
@@ -526,30 +553,38 @@ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 // 8-byte fragment loads of rows g = 0..3 then hit four disjoint bank groups
 constexpr int conflict_free_ld(int v) { return v % 16 == 8 ? v : v + 8; }
 
-// per-warp n-tile counts compiled (kron_mul_kernel<MT, NTW>)
+// per-warp n-tile counts compiled (kron_mul_kernel<MT, NTW, AG>)
 constexpr int kNtw[] = {9, 5, 4, 2, 1};
 
-template <int MT>
+template <int MT, bool AG>
 KernelFn kernel_for(int ntw) {
   switch (ntw) {
-    case 9: return kron_mul_kernel<MT, 9>;
-    case 5: return kron_mul_kernel<MT, 5>;
-    case 4: return kron_mul_kernel<MT, 4>;
-    case 2: return kron_mul_kernel<MT, 2>;
-    default: return kron_mul_kernel<MT, 1>;
+    case 9: return kron_mul_kernel<MT, 9, AG>;
+    case 5: return kron_mul_kernel<MT, 5, AG>;
+    case 4: return kron_mul_kernel<MT, 4, AG>;
+    case 2: return kron_mul_kernel<MT, 2, AG>;
+    default: return kron_mul_kernel<MT, 1, AG>;
   }
 }
 
-Layout layout_of(const KronArgs& a, int ntw, int wc) {
+// the layouts compiled: A held (MT 1 or 2), A from global memory (MT 2)
+KernelFn kernel_of(int MT, bool ag, int ntw) {
+  if (ag) return kernel_for<2, true>(ntw);
+  return MT == 2 ? kernel_for<2, false>(ntw) : kernel_for<1, false>(ntw);
+}
+
+Layout layout_of(const KronArgs& a, int ntw, int wc, int pw, bool ag) {
   const int Pp = round_up(a.p, 16), Qp = round_up(a.q, 8);
   Layout L;
   L.rows_b = 8 * ntw * wc;
   L.S = (Qp + L.rows_b - 1) / L.rows_b;
   L.wc = wc;
-  L.lda = conflict_free_ld(Pp);
+  L.pw = pw;
+  L.ag = ag ? 1 : 0;
+  L.lda = ag ? 0 : conflict_free_ld(Pp);
   L.ldb = conflict_free_ld(Qp);
-  L.ldt = L.lda;
-  const int x_words = Pp * a.q + 8, t_words = L.rows_b * L.ldt;
+  L.ldt = conflict_free_ld(pw);
+  const int x_words = pw * a.q + 8, t_words = L.rows_b * L.ldt;
   L.rs = 0;
   L.is = 0;
   L.buf = round_up(x_words > t_words ? x_words : t_words, 4);
@@ -558,8 +593,9 @@ Layout layout_of(const KronArgs& a, int ntw, int wc) {
 }
 
 size_t smem_bytes(const Layout& L, const KronArgs& a) {
-  const size_t a_words =
-      a.A != nullptr ? static_cast<size_t>(round_up(a.p, 16)) * L.lda : 0;
+  const size_t a_words = a.A != nullptr && !L.ag
+                             ? static_cast<size_t>(round_up(a.p, 16)) * L.lda
+                             : 0;
   return (a_words + static_cast<size_t>(L.rows_b) * L.ldb + L.rs + L.is +
           static_cast<size_t>(L.nbuf) * L.buf) *
          sizeof(float);
@@ -623,59 +659,63 @@ struct Plan {
 
 // Among the warp grids (two m-tiles per warp where 32 divides p padded,
 // one to eight column groups, NTW n-tiles per warp) whose slices waste at
-// most a quarter of the row's n-tiles and whose row buffer fits: the
-// fewest slices per
-// row whose items (rows x slices) give at least half the SMs one (else
-// the most slices), then two m-tiles per warp, then the most warps.  When the card holds every item
-// at once (decode) each gets its own block and one row buffer; otherwise a
-// persistent grid walks them, with two row buffers where they fit.  The
-// reciprocal scale is held where it fits.
+// most a quarter of the row's n-tiles and whose buffers fit: the fewest
+// slices per row whose items (rows x slices) give at least half the SMs
+// one (else the most slices), then two m-tiles per warp, then the most
+// warps.  The layouts that hold A come first; only where none fits, those
+// that read A from global memory (p padded to 32 rows).  When the card
+// holds every item at once (decode) each gets its own block and one row
+// buffer; otherwise a persistent grid walks them, with two row buffers
+// where they fit.  The reciprocal scale is held where it fits.
 cudaError_t plan(const KronArgs& a, Plan* out) {
   const int Pp = round_up(a.p, 16), nt = round_up(a.q, 8) / 8;
   bool found = false;
   long long best_key = 0;
-  for (int MT = Pp % 32 == 0 ? 2 : 1; MT >= 1; --MT) {
-    const int WR = Pp / (16 * MT);
-    for (int wc = 8 / WR; wc >= 1; wc /= 2)
-      for (int ntw : kNtw) {
-        Layout L = layout_of(a, ntw, wc);
-        if (4 * (L.S * ntw * wc - nt) > nt) continue;
-        const KernelFn fn = MT == 2 ? kernel_for<2>(ntw) : kernel_for<1>(ntw);
-        const int threads = kThreads, warps = WR * wc;  // computing warps
-        int blocks = 0, sms = 0;
-        const cudaError_t err =
-            resident(fn, smem_bytes(L, a), threads, &blocks, &sms);
-        if (err != cudaSuccess) return err;
-        if (blocks < L.S) continue;
-        const long long items = static_cast<long long>(a.N) * L.S;
-        // fewer slices first (more when items are short), then two
-        // m-tiles per warp, then more warps
-        const bool enough = 2 * items >= sms;
-        const long long key = (static_cast<long long>(!enough) << 40) |
-                              (static_cast<long long>(enough ? L.S
-                                                             : 64 - L.S)
-                               << 20) |
-                              ((MT == 2 ? 0 : 1) << 10) | (8 - warps);
-        if (found && key >= best_key) continue;
-        found = true;
-        best_key = key;
-        out->fn = fn;
-        out->L = L;
-        out->threads = threads;
-        out->grid = static_cast<int>(items);
-        if (items > blocks) {  // persistent: two buffers if they fit
-          int blocks2 = 0;
-          Layout L2 = L;
-          L2.nbuf = 2;
-          if (resident(fn, smem_bytes(L2, a), threads, &blocks2, &sms) ==
-                  cudaSuccess &&
-              blocks2 >= L.S) {
-            out->L = L2;
-            blocks = blocks2;
+  for (int ag = 0; ag < 2 && !found; ++ag) {
+    if (ag == 1 && a.A == nullptr) break;  // p = 1: nothing to hold
+    for (int MT = ag || Pp % 32 == 0 ? 2 : 1; MT >= 1 + ag; --MT) {
+      const int pw = round_up(a.p, 16 * MT), WR = pw / (16 * MT);
+      for (int wc = 8 / WR; wc >= 1; wc /= 2)
+        for (int ntw : kNtw) {
+          Layout L = layout_of(a, ntw, wc, pw, ag);
+          if (4 * (L.S * ntw * wc - nt) > nt) continue;
+          const KernelFn fn = kernel_of(MT, ag, ntw);
+          const int threads = kThreads, warps = WR * wc;  // computing warps
+          int blocks = 0, sms = 0;
+          const cudaError_t err =
+              resident(fn, smem_bytes(L, a), threads, &blocks, &sms);
+          if (err != cudaSuccess) return err;
+          if (blocks < L.S) continue;
+          const long long items = static_cast<long long>(a.N) * L.S;
+          // fewer slices first (more when items are short), then two
+          // m-tiles per warp, then more warps
+          const bool enough = 2 * items >= sms;
+          const long long key = (static_cast<long long>(!enough) << 40) |
+                                (static_cast<long long>(enough ? L.S
+                                                               : 64 - L.S)
+                                 << 20) |
+                                ((MT == 2 ? 0 : 1) << 10) | (8 - warps);
+          if (found && key >= best_key) continue;
+          found = true;
+          best_key = key;
+          out->fn = fn;
+          out->L = L;
+          out->threads = threads;
+          out->grid = static_cast<int>(items);
+          if (items > blocks) {  // persistent: two buffers if they fit
+            int blocks2 = 0;
+            Layout L2 = L;
+            L2.nbuf = 2;
+            if (resident(fn, smem_bytes(L2, a), threads, &blocks2, &sms) ==
+                    cudaSuccess &&
+                blocks2 >= L.S) {
+              out->L = L2;
+              blocks = blocks2;
+            }
+            out->grid = blocks / L.S * L.S;
           }
-          out->grid = blocks / L.S * L.S;
         }
-      }
+    }
   }
   if (!found) return cudaErrorInvalidValue;
   // For a persistent grid, extras filled once per block, each only while
@@ -689,7 +729,7 @@ cudaError_t plan(const KronArgs& a, Plan* out) {
     if (extra == 0 && a.inv_perm != nullptr)
       L2.is = round_up((n + 1) / 2, 4);
     else if (extra == 1 && a.scale != nullptr)
-      L2.rs = round_up(round_up(a.p, 16) * a.q + 8, 4);
+      L2.rs = round_up(L.pw * a.q + 8, 4);
     else
       continue;
     int blocks = 0, sms = 0;

@@ -8,10 +8,12 @@
 
 namespace repro_torch {
 
-// Largest factors the kernel takes (A, a slice of B and one row of x
-// must fit one block's shared memory; qwen3-14b's widest is 128 x 136).
-constexpr int kKronMaxP = 128;
-constexpr int kKronMaxQ = 160;
+// Largest factors the kernel takes: one row of x (p padded to 32 rows)
+// and a slice of B must fit one block's shared memory, with A beside them
+// up to p = 128 and read from global memory above.  The dense family's
+// widest are 128 x 224 (d_ff 28672) and 168 x 176 (d_ff 29568).
+constexpr int kKronMaxP = 192;
+constexpr int kKronMaxQ = 256;
 
 // The operands of one launch.  For every row r of x (N rows of n = p*q
 // fp32 values, row stride ldx, unit column stride), with the factors

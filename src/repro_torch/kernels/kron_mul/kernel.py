@@ -19,11 +19,20 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.kron_mul.ref import kron_mul_ref
 
-__all__ = ["kron_mul_kernel", "COUNTS", "MAX_P", "MAX_Q"]
+__all__ = ["kron_mul_kernel", "check_factors", "COUNTS", "MAX_P", "MAX_Q"]
 
 # launches of the CUDA kernel (chip_smoke.py reads and resets this)
 COUNTS = {"kron_mul": 0}
-MAX_P, MAX_Q = 128, 160  # csrc/kron_mul.h kKronMaxP / kKronMaxQ
+MAX_P, MAX_Q = 192, 256  # csrc/kron_mul.h kKronMaxP / kKronMaxQ
+
+
+def check_factors(p: int, q: int) -> None:
+    """Raise the named ``ValueError`` for factors the CUDA kernel does not
+    take (p > MAX_P or q > MAX_Q)."""
+    if p > MAX_P or q > MAX_Q:
+        raise ValueError(
+            f"kron_mul factors {p} x {q} exceed the kernel's {MAX_P} x "
+            f"{MAX_Q}")
 
 
 def kron_mul_kernel(x: torch.Tensor, A: Optional[torch.Tensor],
@@ -51,10 +60,7 @@ def kron_mul_kernel(x: torch.Tensor, A: Optional[torch.Tensor],
     if any(t is not None and t.dtype != torch.float32
            for t in (x, A, B, scale)):
         raise ValueError("the kron_mul kernel takes float32 operands only")
-    if p > MAX_P or q > MAX_Q:
-        raise ValueError(
-            f"kron_mul factors {p} x {q} exceed the kernel's {MAX_P} x "
-            f"{MAX_Q}")
+    check_factors(p, q)
     if perm is not None and inv_perm is None:
         inv_perm = torch.argsort(perm)
     y = _build.ops().kron_mul(x, A, B, perm, inv_perm, scale, transpose)

@@ -37,7 +37,6 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.hessian import HessianAccumulator
 from repro_torch.core.quantizer import QuipConfig, quantize_layer
@@ -121,27 +120,28 @@ def _quantized_block_forward(blk, x, cfg, positions, plain=False):
     h = L.norm_apply(blk["ln1"], x, cfg)
     x = x + _attn_forward_with_linears(blk, h, cfg, positions, plain)
     h = L.norm_apply(blk["ln2"], x, cfg)
-    up = lin("mlp.wi", h)
-    if cfg.mlp == "swiglu":
-        up = L.mlp_apply(up, lin("mlp.wg", h))
-    else:
-        up = F.gelu(up, approximate="tanh")
-    return x + lin("mlp.wo", up)
+    gate = lin("mlp.wg", h) if cfg.mlp == "swiglu" else None
+    return x + lin("mlp.wo", L.mlp_act(lin("mlp.wi", h), gate, cfg))
 
 
-def _dense(w: torch.Tensor) -> Callable:
-    return lambda x, plain=False: L.apply_w(w, x)  # plain PyTorch always
+def _dense(w: torch.Tensor, b: Optional[torch.Tensor] = None) -> Callable:
+    if b is None:
+        return lambda x, plain=False: L.apply_w(w, x)  # plain PyTorch always
+    return lambda x, plain=False: L.apply_w(w, x) + b
 
 
 def fp_blocks(params: dict, cfg) -> list[dict]:
     """Per-layer blocks of dense-weight callables from an fp param tree
     (``{"embed", "layers": [per-layer dict], "final_norm"}``, the JAX
-    package's ``unstack_layers`` layout)."""
+    package's ``unstack_layers`` layout).  Linear ``w<x>`` adds the bias
+    ``b<x>`` where the tree has one — ``bq bk bv`` and ``bi bo``, as the JAX
+    serving adapter adds them (``attn.wo`` and ``mlp.wg`` have none)."""
     blocks = []
     for lp in params["layers"]:
         blk = {"ln1": lp["ln1"], "ln2": lp["ln2"]}
         for name in _block_linears(cfg):
-            blk[name] = _dense(_get_path(lp, name))
+            grp, w = name.split(".")
+            blk[name] = _dense(lp[grp][w], lp[grp].get("b" + w[1:]))
         if cfg.qk_norm:
             blk["q_norm"] = lp["attn"]["q_norm"]
             blk["k_norm"] = lp["attn"]["k_norm"]
@@ -162,7 +162,13 @@ def fp_model(params: dict, cfg) -> QuantizedModel:
 
 
 def _block_taps(lp, x, cfg, positions):
-    """Run one fp block, returning the activation at each linear's input."""
+    """Run one fp block, returning the activation at each linear's input.
+
+    The biases are handled as the JAX package's ``_block_taps`` handles
+    them: the attention output and the residual include ``bq bk bv``
+    (through ``attention_full``), but the ``attn.wo`` tap recomputes q
+    without ``bq`` (its keys and values keep theirs), and the MLP's taps and
+    residual use neither ``bi`` nor ``bo``."""
     taps = {}
     h = L.norm_apply(lp["ln1"], x, cfg)
     taps["attn.wq"] = taps["attn.wk"] = taps["attn.wv"] = h
@@ -180,11 +186,9 @@ def _block_taps(lp, x, cfg, positions):
     x = x + a
     h2 = L.norm_apply(lp["ln2"], x, cfg)
     taps["mlp.wi"] = taps["mlp.wg"] = h2
-    up = L.apply_w(lp["mlp"]["wi"], h2)
-    if cfg.mlp == "swiglu":
-        up = L.mlp_apply(up, L.apply_w(lp["mlp"]["wg"], h2))
-    else:
-        up = F.gelu(up, approximate="tanh")
+    gate = (L.apply_w(lp["mlp"]["wg"], h2) if cfg.mlp == "swiglu"
+            else None)
+    up = L.mlp_act(L.apply_w(lp["mlp"]["wi"], h2), gate, cfg)
     taps["mlp.wo"] = up
     x = x + L.apply_w(lp["mlp"]["wo"], up)
     return x, taps
@@ -349,13 +353,13 @@ def perplexity(logits_fn, tokens, batch: int = 8) -> float:
 
 
 def main(argv=None):
-    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs import ARCHS, get_config, get_smoke_config
     from repro_torch.data.synthetic import make_calibration
     from repro_torch.device import resolve_device
     from repro_torch.models.transformer import init_decoder
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-14b")
+    ap.add_argument("--arch", default="qwen3-14b", choices=ARCHS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--bits", type=int, default=2)
     ap.add_argument("--method", default="ldlq")

@@ -4,6 +4,9 @@
     # how), then serve it:
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke \\
         --load-quantized /tmp/port_art --paged --paged-prefill --check
+    # or quantize in process first (QuIP, LDLQ, Kronecker transforms):
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-15b \\
+        --smoke --quantize --bits 2 --paged --paged-prefill --check
 
 Requests arrive staggered (``--arrival-gap``), join the decode batch while
 earlier requests are mid-generation, and decode through the KV-cached
@@ -26,11 +29,28 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.data.synthetic import make_calibration
 from repro_torch.device import resolve_device
 
-__all__ = ["resolve_device", "quantized_generate", "build_engine", "main"]
+__all__ = ["resolve_device", "quantized_generate", "quantize_in_process",
+           "build_engine", "main"]
+
+
+def quantize_in_process(params: dict, cfg, *, bits: int, seed: int,
+                        verbose: bool = False):
+    """``--quantize``: QuIP over fp params in this process, as the JAX
+    package's serve driver runs it — ``QuipConfig(bits, method="ldlq")``
+    (Kronecker transforms), 8 x 64 calibration tokens drawn with seed
+    ``seed + 7`` — returning the ``QuantizedModel`` to serve."""
+    from repro_torch.core.quantizer import QuipConfig
+    from repro_torch.launch.quantize import quantize_dense_model
+
+    calib = make_calibration(cfg.vocab, n_segments=8, seg_len=64,
+                             seed=seed + 7)
+    qcfg = QuipConfig(bits=bits, method="ldlq", use_kernel=False)
+    return quantize_dense_model(params, cfg, qcfg, calib, seed=seed,
+                                verbose=verbose)
 
 
 @torch.no_grad()
@@ -65,7 +85,7 @@ def build_engine(adapter, *, max_seq_len: int, args, record_logits=False):
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-14b")
+    ap.add_argument("--arch", default="qwen3-14b", choices=ARCHS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=6,
                     help="number of concurrent requests to serve")
@@ -73,9 +93,12 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--arrival-gap", type=float, default=0.02,
                     help="stagger between request arrivals (s)")
+    ap.add_argument("--quantize", action="store_true",
+                    help="run the QuIP pipeline in-process before serving")
     ap.add_argument("--load-quantized", default=None, metavar="DIR",
                     help="serve packed weights from a port artifact "
                          "(repro_torch.serve.artifacts format)")
+    ap.add_argument("--bits", type=int, default=2)
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--pages", type=int, default=None,
@@ -124,8 +147,17 @@ def main(argv=None):
             args.arch)
         g = torch.Generator(device=device)
         g.manual_seed(args.seed)
-        qm = fp_model(init_decoder(cfg, g, device=device), cfg)
-        label = "fp"
+        params = init_decoder(cfg, g, device=device)
+        if args.quantize:
+            # full fp32 products: TF32 would move the codes
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            qm = quantize_in_process(params, cfg, bits=args.bits,
+                                     seed=args.seed)
+            label = f"quip-{args.bits}bit"
+        else:
+            qm = fp_model(params, cfg)
+            label = "fp"
     adapter = CachedDecoder.from_quantized(qm)
 
     prompts = make_calibration(cfg.vocab, n_segments=args.requests,

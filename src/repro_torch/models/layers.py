@@ -24,6 +24,7 @@ __all__ = [
     "gqa_out",
     "embed",
     "lm_logits",
+    "mlp_act",
     "mlp_apply",
     "quantize_kv",
     "attend",
@@ -107,9 +108,26 @@ def lm_logits(p: dict, h: torch.Tensor) -> torch.Tensor:
     return matmul(h, w)
 
 
-def mlp_apply(up: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
-    """The swiglu nonlinearity between the up/gate and down projections."""
-    return F.silu(up) * gate
+def mlp_act(up: torch.Tensor, gate, cfg: ArchConfig) -> torch.Tensor:
+    """The nonlinearity between the up (and gate) and down projections:
+    swiglu's ``silu(up) · gate``, or GeLU in the tanh approximation (the
+    default of ``jax.nn.gelu``), which takes no gate (``gate=None``)."""
+    if cfg.mlp == "swiglu":
+        return F.silu(up) * gate
+    return F.gelu(up, approximate="tanh")
+
+
+def mlp_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The dense family's MLP from fp params (``wi wo``, ``wg`` for swiglu,
+    ``bi``/``bo`` with ``mlp_bias``)."""
+    h = apply_w(p["wi"], x)
+    if cfg.mlp_bias:
+        h = h + p["bi"]
+    gate = apply_w(p["wg"], x) if cfg.mlp == "swiglu" else None
+    out = apply_w(p["wo"], mlp_act(h, gate, cfg))
+    if cfg.mlp_bias:
+        out = out + p["bo"]
+    return out
 
 
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -147,11 +165,14 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig,
                 positions: torch.Tensor):
     """(q, k, v) of the dense family's attention from fp params: (B, S,
-    heads, hd) each, qk-normed and RoPE'd."""
+    heads, hd) each, biased (``qkv_bias``), qk-normed and RoPE'd."""
     B, S, _ = x.shape
-    q = apply_w(p["wq"], x).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = apply_w(p["wk"], x).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = apply_w(p["wv"], x).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q, k, v = (apply_w(p[w], x) for w in ("wq", "wk", "wv"))
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -163,7 +184,8 @@ def attention_full(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                    positions: torch.Tensor, causal: bool = True,
                    return_kv: bool = False):
     """Full-sequence self-attention of the dense family from fp params
-    (``wq wk wv wo`` as (in, out), ``q_norm``/``k_norm`` with qk-norm).
+    (``wq wk wv wo`` as (in, out), ``bq bk bv`` with ``qkv_bias``,
+    ``q_norm``/``k_norm`` with qk-norm).
 
     x: (B, S, D) -> (B, S, D), and the post-RoPE ``(k, v)`` (B, S, KV,
     hd) with ``return_kv``.

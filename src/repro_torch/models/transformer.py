@@ -3,8 +3,10 @@
 The tree is ``{"embed": {"tok", "head"}, "layers": [per-layer dict],
 "final_norm": {"scale"}}`` with (in, out) weights — the layout of the JAX
 package's ``init_decoder`` after ``unstack_layers``.  The scales are the
-JAX package's; the values come from a ``torch.Generator``, so they differ
-from ``jax.random``'s (tests convert the JAX package's params instead).
+JAX package's, and so are the biases (``bq bk bv`` with ``qkv_bias``,
+``bi bo`` with ``mlp_bias``): zeros.  The values come from a
+``torch.Generator``, so they differ from ``jax.random``'s (tests convert
+the JAX package's params instead).
 """
 from __future__ import annotations
 
@@ -33,6 +35,9 @@ def init_decoder(cfg: ArchConfig, generator: torch.Generator, *,
     def ones(n):
         return {"scale": torch.ones(n, dtype=dt, device=device)}
 
+    def zeros(n):
+        return torch.zeros(n, dtype=dt, device=device)
+
     embed = {"tok": w((cfg.vocab, d), 0.02)}
     if not cfg.tie_embeddings:
         embed["head"] = w((d, cfg.vocab), d**-0.5)
@@ -44,12 +49,17 @@ def init_decoder(cfg: ArchConfig, generator: torch.Generator, *,
             "wv": w((d, cfg.kv_dim)),
             "wo": w((cfg.q_dim, d), cfg.q_dim**-0.5 * resid),
         }
+        if cfg.qkv_bias:
+            attn.update(bq=zeros(cfg.q_dim), bk=zeros(cfg.kv_dim),
+                        bv=zeros(cfg.kv_dim))
         if cfg.qk_norm:
             attn["q_norm"] = ones(cfg.head_dim)["scale"]
             attn["k_norm"] = ones(cfg.head_dim)["scale"]
         mlp = {"wi": w((d, f)), "wo": w((f, d), f**-0.5 * resid)}
         if cfg.mlp == "swiglu":
             mlp["wg"] = w((d, f))
+        if cfg.mlp_bias:
+            mlp.update(bi=zeros(f), bo=zeros(d))
         layers.append({"ln1": ones(d), "attn": attn, "ln2": ones(d),
                        "mlp": mlp})
     return {"embed": embed, "layers": layers, "final_norm": ones(d)}

@@ -3,9 +3,10 @@
 A :class:`CachedDecoder` holds per-layer *blocks*: norm params plus one
 callable per linear projection, keyed like ``QuantizedModel.blocks``
 ("attn.wq", ..., "mlp.wo").  For fp params the callables are dense
-matmuls; for a ``QuantizedModel`` they ARE the :class:`QuantizedLinear`
-layers, so every projection runs the packed ``D⁻¹ → V → quant_matmul → Uᵀ``
-path.
+matmuls, with the config's biases added (``launch.quantize.fp_blocks``);
+for a ``QuantizedModel`` they ARE the :class:`QuantizedLinear` layers, so
+every projection runs the packed ``D⁻¹ → V → quant_matmul → Uᵀ`` path
+(without biases, as the JAX package's quantized blocks carry none).
 
 Two decode paths share the block structure:
 
@@ -67,9 +68,6 @@ class CachedDecoder:
                 f"serving adapter supports the dense family, got "
                 f"{self.cfg.family}"
             )
-        if self.cfg.mlp != "swiglu":
-            raise ValueError(f"serving adapter supports the swiglu mlp, got "
-                             f"{self.cfg.mlp}")
 
     @property
     def device(self) -> torch.device:
@@ -171,9 +169,11 @@ class CachedDecoder:
         return q, k, v
 
     def _mlp(self, blk, x, *, kernel_proj: bool = False):
-        h = L.norm_apply(blk["ln2"], x, self.cfg)
-        up = L.mlp_apply(self._proj(blk, "mlp.wi", h, kernel_proj),
-                         self._proj(blk, "mlp.wg", h, kernel_proj))
+        cfg = self.cfg
+        h = L.norm_apply(blk["ln2"], x, cfg)
+        gate = (self._proj(blk, "mlp.wg", h, kernel_proj)
+                if cfg.mlp == "swiglu" else None)
+        up = L.mlp_act(self._proj(blk, "mlp.wi", h, kernel_proj), gate, cfg)
         return x + self._proj(blk, "mlp.wo", up, kernel_proj)
 
     # ---- paged decode ----------------------------------------------------

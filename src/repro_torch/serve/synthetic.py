@@ -75,6 +75,8 @@ def synthetic_quantized_model(cfg: ArchConfig, *, seed: int, bits: int = 2,
         "attn.wv": (cfg.kv_dim, d), "attn.wo": (d, cfg.q_dim),
         "mlp.wi": (f, d), "mlp.wg": (f, d), "mlp.wo": (d, f),
     }
+    if cfg.mlp != "swiglu":  # GeLU: no gate
+        del shapes["mlp.wg"]
     embed = {"tok": randn((cfg.vocab, d), 0.02)}
     if not cfg.tie_embeddings:
         embed["head"] = randn((d, cfg.vocab), d**-0.5)

@@ -117,6 +117,71 @@ def test_fused_entry_matches_jax(p, q):
     np.testing.assert_allclose(back.numpy(), x, rtol=0, atol=ATOL)
 
 
+# kron_factors of the other dense widths: 6144, 12288, 24576, 28672, 29568
+DENSE_SHAPES = [(64, 96), (96, 128), (128, 192), (128, 224), (168, 176)]
+
+
+def _jax_entry(x, A, B, perm, scale, mode):
+    """The entry ``mode`` computed with the JAX package's kron_mul_ref, the
+    division, gather and scatter done in numpy."""
+    if mode.startswith("inverse"):
+        y = np.asarray(jax_kron_ref.kron_mul_ref(
+            jnp.asarray(x), jnp.asarray(A.T), jnp.asarray(B.T)))
+        if perm is None:
+            return y
+        out = np.empty_like(y)
+        out[:, perm] = y
+        return out
+    if scale is not None:
+        x = x / scale
+    if perm is not None:
+        x = x[:, perm]
+    return np.asarray(jax_kron_ref.kron_mul_ref(
+        jnp.asarray(x), jnp.asarray(A), jnp.asarray(B)))
+
+
+@pytest.mark.parametrize("mode", ["plain", "perm", "perm_scale", "scale",
+                                  "inverse", "inverse_perm"])
+@pytest.mark.parametrize("p,q", DENSE_SHAPES)
+def test_plain_entries_match_jax_at_dense_factors(p, q, mode):
+    """Every entry of the plain version (the kernel wrapper on a CPU
+    tensor, and the public wrapper) against the JAX package's kron_mul_ref
+    at the factor pairs of llama2-70b, mistral-large-123b, qwen2-72b and
+    starcoder2-15b: fp32, atol 1e-5 on O(1) values."""
+    x, A, B, perm, scale, t = _inputs(p, q, 3, seed=p + 2 * q)
+    perm = perm if "perm" in mode else None
+    scale = scale if "scale" in mode else None
+    kw = dict(perm=t(perm), scale=t(scale),
+              transpose=mode.startswith("inverse"))
+    want = _jax_entry(x, A, B, perm, scale, mode)
+    for fn in (kron_mul_ref, kron_mul_kernel, kron_mul):
+        got = fn(t(x), t(A), t(B), **kw)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+
+
+def test_kernel_limits_match_its_header_and_are_named():
+    """The wrapper's limits are the CUDA header's, every dense config's
+    factors are inside them, and a factor above them raises the named
+    ValueError before anything launches."""
+    import pathlib
+    import re
+
+    from repro_torch.kernels.kron_mul import kernel as kron_kernel
+
+    h = (pathlib.Path(kron_kernel.__file__).parent / "csrc" /
+         "kron_mul.h").read_text()
+    assert int(re.search(r"kKronMaxP = (\d+);", h).group(1)) == \
+        kron_kernel.MAX_P
+    assert int(re.search(r"kKronMaxQ = (\d+);", h).group(1)) == \
+        kron_kernel.MAX_Q
+    for p, q in DENSE_SHAPES + [(16, 32), (64, 128), (192, 256)]:
+        kron_kernel.check_factors(p, q)
+    for p, q in ((193, 8), (8, 257), (256, 256)):
+        with pytest.raises(ValueError, match=f"kron_mul factors {p} x {q} "
+                                             f"exceed the kernel's 192 x 256"):
+            kron_kernel.check_factors(p, q)
+
+
 def test_strided_x_equals_contiguous():
     """A row-strided x (the kernel reads it in place) and a transposed one
     (the binding copies it) give what their contiguous copies give."""

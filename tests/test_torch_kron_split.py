@@ -8,7 +8,10 @@ products ``small·big + big·small + big·big`` per step summed into one fp32
 accumulator, T kept in fp32 between the products — is held against the
 JAX package's ``kron_mul_ref`` and the port's plain version on the same
 numpy inputs, at the three qwen3-14b factor shapes (32 × 32, 64 × 80,
-128 × 136), narrowed in N, with random and all-positive x.
+128 × 136) and the widest of the other dense configs (128 × 224 and
+168 × 176: d_ff 28672 and 29568), narrowed in N, with random and
+all-positive x.  The kernel's rows past p (168 pads to 192) are zeros and
+add nothing to any sum, so the emulation leaves them out.
 
 Tolerance: the gate ``chip_smoke.py`` holds the CUDA kernel to on the
 card, ``2(p+q+1)·2⁻²⁴·((|A| ⊗ |B|)|x|)`` per element.  The schemes that
@@ -26,7 +29,8 @@ from repro.kernels.kron_mul import ref as jax_kron_ref
 from repro_torch.kernels.kron_mul.ref import kron_mul_ref
 
 EPS32 = 2.0**-24
-SHAPES = [(32, 32), (64, 80), (128, 136)]  # kron_factors(1024, 5120, 17408)
+# kron_factors(1024, 5120, 17408, 28672, 29568)
+SHAPES = [(32, 32), (64, 80), (128, 136), (128, 224), (168, 176)]
 
 
 def tf32_rna(v: torch.Tensor) -> torch.Tensor:

@@ -125,9 +125,7 @@ def test_config_from_reference_manifest_dict():
 
 
 @pytest.mark.parametrize("flag,value", [("attn_bf16_probs", True),
-                                        ("weight_bits", 2),
-                                        ("qkv_bias", True),
-                                        ("mlp_bias", True)])
+                                        ("weight_bits", 2)])
 def test_config_from_dict_refuses_fields_it_does_not_model(flag, value):
     """A reference config field that changes what the dense path computes
     raises, naming the field, instead of being dropped."""
@@ -137,3 +135,17 @@ def test_config_from_dict_refuses_fields_it_does_not_model(flag, value):
     d[flag] = value
     with pytest.raises(ValueError, match=f"^{flag}="):
         ArchConfig.from_dict(d)
+
+
+@pytest.mark.parametrize("flag", ["qkv_bias", "mlp_bias"])
+def test_config_from_dict_accepts_the_biases(flag):
+    """qwen2-72b's and starcoder2-15b's bias flags are modelled: kept, not
+    refused and not dropped."""
+    import dataclasses
+
+    d = dataclasses.asdict(ref_smoke("qwen3-14b"))
+    d[flag] = True
+    cfg = ArchConfig.from_dict(d)
+    assert getattr(cfg, flag) is True
+    assert cfg == dataclasses.replace(get_smoke_config("qwen3-14b"),
+                                      **{flag: True})
