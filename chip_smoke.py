@@ -67,7 +67,27 @@ Phases, each printing its own lines:
      then served; (c) synthetic ``llama2-70b``, ``qwen2-72b`` and
      ``mistral-large-123b`` (depth cut to ``BIG_LAYERS``: d_ff 28672 =
      128 x 224 and 29568 = 168 x 176, d_model 12288 = 96 x 128 through
-     kron_mul, G = 12), each served.  Kernel launches are read per path.
+     kron_mul, G = 12), each served.  Kernel launches are read per path;
+  8. lifecycle — phase 4's model (rebuilt from its seed), full width and
+     depth, on tick-counted schedules (the engine's clock reads the tick
+     number) with phase 4's flags: (a) the prefix cache: ten requests of
+     128 + 32, eight sharing a 96-token prefix, two repeating request 0's
+     whole prompt (a page-aligned full hit, copied on admission), with a
+     pool holding everything and with ``PREFIX_TIGHT_PAGES`` pages (decode
+     evicts, admission reclaims trie leaves), beside the same schedule
+     without the cache (prefill launches and tokens); (b) int8 KV: phase
+     4's schedule with ``--kv-int8`` held against the gather-dense int8
+     engine (the oracle of ``launch/serve.py --kv-int8 --check``) within
+     ``INT8_LOGIT_*``, with its distance to the fp recompute oracle, the
+     pool's bytes and a tick profile; (c) the request lifecycle: a stop
+     token, cancels of a queued and of a decoding request, a request with
+     ``deadline_s=0``, ``max_queue`` rejections and two tenants at classes
+     0 and 1, one rate-limited, under a pool that evicts.  The host
+     decisions of (a) and (c) (counters, finish states and reasons,
+     rejections, admission order) equal the same schedule replayed on the
+     CPU through the port's engine with a model-free decoder that emits
+     the card's tokens; every emitted position passes phase 5's check; no
+     page leaks.
 
 Phase 3 also runs kron_mul at every dense width's factors (16 x 32 to
 168 x 176, and 192 x 256, the largest the kernel takes), quant_matmul at
@@ -1140,54 +1160,76 @@ def serve_requests(torch, qm, prompts, *, gen: int, arrive, args) -> tuple:
     return adapter, reqs, {"launches": launches, "tok_s": total / wall}
 
 
-def check_logits(torch, qm, prompts, reqs, *, atol: float,
-                 mean_atol: float, tag: str = "check") -> dict:
+def check_logits(torch, qm, prompts, reqs, *, atol, mean_atol,
+                 tag: str = "check") -> dict:
     """Every emitted position re-run teacher-forced through the recompute
     oracle (``QuantizedModel.logits(plain=True)``: every linear's
     transforms and grid matmul as plain PyTorch on the card, no kernel)
     and held against the engine's logits: max and mean |diff| within their
     limits, every token the argmax of the engine's own logits, and a token
     differing from the oracle's argmax only where the oracle's top-2 margin
-    is below twice the max |diff|."""
+    is below twice the max |diff|.  Requests are batched through the
+    oracle in groups of equal prompt length and emitted count (one group
+    when every request ran to the same length); a request that emitted
+    nothing is skipped.  ``atol=None`` prints the reading without a
+    gate."""
     import numpy as np
 
     t0 = time.perf_counter()
-    prompt_len = prompts.shape[1]
-    seqs = np.stack([np.concatenate([prompts[i], r.out_tokens[:-1]])
-                     for i, r in enumerate(reqs)]).astype(np.int64)
-    with torch.no_grad():
-        want = qm.logits(torch.as_tensor(seqs, device=DEV), plain=True)
-        oracle_dtype = str(want.dtype)[6:]
-        want = want[:, prompt_len - 1:].float()  # (n_req, gen, V)
-    got = torch.as_tensor(np.stack([np.stack(r.step_logits) for r in reqs]),
-                          device=DEV).float()
-    if got.shape != want.shape:
-        raise AssertionError(f"logits {tuple(got.shape)} vs oracle "
-                             f"{tuple(want.shape)}")
-    finite = bool(torch.isfinite(got).all())
-    diff = (got - want).abs()
-    max_diff = float(diff.max())
-    mean_diff = float(diff.mean())
-    rms = float(want.pow(2).mean().sqrt())
-    toks = torch.as_tensor(np.stack([r.out_tokens for r in reqs]),
-                           device=DEV)
-    own = bool((toks == torch.argmax(got, -1)).all())
-    top2 = torch.topk(want, 2, dim=-1).values
-    margin = top2[..., 0] - top2[..., 1]
-    flips = toks != torch.argmax(want, -1)
-    n_flips = int(flips.sum())
-    unexplained = int((flips & (margin >= 2 * max_diff)).sum())
-    log(f"[{tag}] {got.shape[0] * got.shape[1]} positions teacher-forced "
+    groups: dict = {}
+    for i, r in enumerate(reqs):
+        if r.out_tokens:
+            groups.setdefault((len(prompts[i]), len(r.out_tokens)),
+                              []).append(i)
+    parts = []
+    for (prompt_len, _), idx in groups.items():
+        seqs = np.stack([np.concatenate([prompts[i], reqs[i].out_tokens[:-1]])
+                         for i in idx]).astype(np.int64)
+        with torch.no_grad():
+            want = qm.logits(torch.as_tensor(seqs, device=DEV), plain=True)
+            oracle_dtype = str(want.dtype)[6:]
+            want = want[:, prompt_len - 1:].float()  # (n, emitted, V)
+        got = torch.as_tensor(
+            np.stack([np.stack(reqs[i].step_logits) for i in idx]),
+            device=DEV).float()
+        if got.shape != want.shape:
+            raise AssertionError(f"logits {tuple(got.shape)} vs oracle "
+                                 f"{tuple(want.shape)}")
+        toks = torch.as_tensor(np.stack([reqs[i].out_tokens for i in idx]),
+                               device=DEV)
+        top2 = torch.topk(want, 2, dim=-1).values
+        parts.append({
+            "finite": bool(torch.isfinite(got).all()),
+            "diff": (got - want).abs(),
+            "sq": float(want.pow(2).sum()), "n": want.numel(),
+            "own": bool((toks == torch.argmax(got, -1)).all()),
+            "margin": top2[..., 0] - top2[..., 1],
+            "flips": toks != torch.argmax(want, -1),
+        })
+    n_pos = sum(p["flips"].numel() for p in parts)
+    finite = all(p["finite"] for p in parts)
+    max_diff = max(float(p["diff"].max()) for p in parts)
+    mean_diff = (sum(float(p["diff"].sum()) for p in parts)
+                 / sum(p["diff"].numel() for p in parts))
+    rms = (sum(p["sq"] for p in parts) / sum(p["n"] for p in parts)) ** 0.5
+    own = all(p["own"] for p in parts)
+    n_flips = sum(int(p["flips"].sum()) for p in parts)
+    unexplained = sum(int((p["flips"] & (p["margin"] >= 2 * max_diff)).sum())
+                      for p in parts)
+    gate, mgate = (("no gate: information only", "") if atol is None else
+                   (f"tol {atol}", f" (tol {mean_atol})"))
+    log(f"[{tag}] {n_pos} positions teacher-forced "
         f"through the recompute oracle in {time.perf_counter() - t0:.1f}s: "
-        f"logit max |diff| {max_diff:.4f} (tol {atol}), mean |diff| "
-        f"{mean_diff:.5f} (tol {mean_atol}), oracle logit rms "
+        f"logit max |diff| {max_diff:.4f} ({gate}), mean |diff| "
+        f"{mean_diff:.5f}{mgate}, oracle logit rms "
         f"{rms:.3f} ({oracle_dtype}); tokens are "
         f"the argmax of the engine's logits: {'yes' if own else 'NO'}; "
         f"tokens that differ from the oracle argmax: {n_flips} (all at a "
         f"top-2 margin < 2 x max |diff|: "
         f"{'yes' if unexplained == 0 else 'NO'})")
-    if (not finite or max_diff > atol or mean_diff > mean_atol
-            or not own or unexplained):
+    if atol is not None and (not finite or max_diff > atol
+                             or mean_diff > mean_atol or not own
+                             or unexplained):
         raise AssertionError(f"[{tag}] engine logits disagree with the "
                              f"oracle")
     return {"max_diff": max_diff, "mean_diff": mean_diff}
@@ -1654,6 +1696,423 @@ def profile_ticks(torch, adapter, args, prompts, ticks: int = 3) -> None:
     engine.run()
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the request lifecycle, the prefix cache and int8 KV
+# ---------------------------------------------------------------------------
+
+# (a) ten requests of prompt 128 + gen 32: eight share a 96-token prefix (6
+# pages of 16) and end in 32 tokens of their own; the last two repeat
+# request 0's whole prompt (a page-aligned full hit: copy-on-admit)
+PREFIX_SHARED = 96
+PREFIX_ARRIVE = (0, 2, 2, 2, 2, 3, 3, 3, 4, 4)
+# (a)'s second run: a pool small enough that decode evicts and admission
+# reclaims trie leaves
+PREFIX_TIGHT_PAGES = 28
+# (c): the pool, the queue bound and the tenants (rate per tick, burst,
+# class); the clock reads the tick number
+LIFECYCLE_PAGES = 40
+LIFECYCLE_MAX_QUEUE = 4
+LIFECYCLE_TENANTS = {"paid": (None, 4, 0), "free": (0.5, 2, 1)}
+# (b): the int8 paged engine against the gather-dense int8 engine (the same
+# pages dequantized, attention in plain PyTorch), max and mean |diff| over
+# the positions both streams share: about twice the 0.0223 / 0.00307 read
+# on a correct run (one H100, every other check passed)
+INT8_LOGIT_ATOL, INT8_LOGIT_MEAN_ATOL = 0.045, 0.006
+
+
+def _sync(torch) -> None:
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def _args(**kw) -> argparse.Namespace:
+    """Phase 4's engine flags with phase 8's knobs set."""
+    base = dict(vars(SERVE_ARGS), prefix_cache=False, kv_int8=False,
+                deadline_s=None, max_queue=None)
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+def drive_schedule(engine, schedule, *, events=None, on_submit=None) -> dict:
+    """Drive ``engine`` one tick at a time on a clock that reads the tick
+    number, so deadlines and rate limits take the same decisions in every
+    run.  ``schedule`` is a list of (tick, submit kwargs), each submitted
+    just before that tick with ``arrival`` = the tick unless the kwargs
+    give one; ``events`` maps a tick to ``fn(engine, run)``, called before
+    that tick (a cancel between ticks).  Returns the requests by schedule
+    index, the rejections, the admission order (re-admissions after
+    eviction included), the requests finished per tick and the most pages
+    shared at once."""
+    from repro_torch.serve.scheduler import AdmissionRejected
+
+    clock = [0.0]
+    engine.now = lambda: clock[0]
+    run = {"reqs": {}, "rejected": {}, "admitted": [], "finished": [],
+           "cancelled": [], "peak_shared": 0}
+    index = {}
+    plan = engine.scheduler.plan
+
+    def plan_and_log(running, pool, now=0.0):
+        before = {id(r) for r in running}
+        out = plan(running, pool, now=now)
+        run["admitted"] += [index[id(r)] for r in running
+                            if id(r) not in before]
+        return out
+
+    engine.scheduler.plan = plan_and_log
+    order = sorted(range(len(schedule)), key=lambda i: schedule[i][0])
+    tick = 0
+    while order or not engine.idle:
+        clock[0] = float(tick)
+        while order and schedule[order[0]][0] <= tick:
+            i = order.pop(0)
+            try:
+                r = engine.submit(**{"arrival": float(tick),
+                                     **schedule[i][1]})
+            except AdmissionRejected as e:
+                run["rejected"][i] = e.reason
+                continue
+            run["reqs"][i] = r
+            index[id(r)] = i
+            if on_submit is not None:
+                on_submit(i, r)
+        if events and tick in events:
+            events[tick](engine, run)
+        res = engine.tick()
+        run["finished"].append([index[id(r)] for r in res.finished])
+        run["peak_shared"] = max(run["peak_shared"], engine.pool.shared_pages)
+        tick += 1
+        if tick > 20_000:
+            raise AssertionError("schedule did not drain")
+    run["ticks"] = tick
+    return run
+
+
+class _ModelFreeDecoder:
+    """The model's stand-in when a schedule is replayed on the CPU: a pool
+    of one layer and one KV head of width 1 with the run's page geometry,
+    and zero logits.  What the engine emits comes from the card's run
+    (:func:`_replay_engine`)."""
+
+    def __init__(self, torch):
+        import types
+
+        self.torch = torch
+        self.cfg = types.SimpleNamespace(n_layers=1, n_kv_heads=1,
+                                         head_dim=1, dtype="float32")
+
+    def make_pool(self, **kw):
+        from repro_torch.serve.kv_cache import PagedKVPool
+
+        kw.pop("dtype")  # the replay reads no page
+        return PagedKVPool(self.cfg, device="cpu", **kw)
+
+    def prefill_paged(self, tokens, *_):
+        return self.torch.zeros(*tokens.shape, 1)
+
+    def decode_paged_sample(self, tokens, *_):
+        B = tokens.shape[0]
+        return (self.torch.zeros(B, 1, dtype=self.torch.int32),
+                self.torch.zeros(B, 1, 1))
+
+
+def _replay_engine(torch, args, max_seq_len: int, card_run: dict,
+                   tenants=None):
+    """The port's engine on the CPU with :class:`_ModelFreeDecoder`,
+    emitting at every position the token the card emitted there: the same
+    schedule then takes the same host decisions iff they depend on nothing
+    but the schedule and the tokens.  Returns (engine, on_submit)."""
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serve.engine import Engine
+
+    tokens = {i: list(r.out_tokens) for i, r in card_run["reqs"].items()}
+    rid_index = {}
+
+    class ReplayEngine(Engine):
+        def _emit(self, req, token, logits, now):
+            i = rid_index[req.rid]
+            super()._emit(req, tokens[i][len(req.out_tokens)], None, now)
+
+    decoder = _ModelFreeDecoder(torch)
+    ecfg = build_engine(decoder, max_seq_len=max_seq_len, args=args,
+                        tenants=tenants).ecfg
+    return (ReplayEngine(decoder, ecfg),
+            lambda i, r: rid_index.__setitem__(r.rid, i))
+
+
+def _decisions(engine, run: dict) -> dict:
+    """Every host decision of a run phase 8 holds the card to the CPU on."""
+    s = engine.summary()
+    return {
+        **{k: s[k] for k in ("prefix_hit_tokens", "cached_pages",
+                             "shared_pages", "cow_copies", "evictions",
+                             "prefill_tokens", "decode_tokens", "cancelled",
+                             "failed", "deadline_missed",
+                             "admission_rejected", "steps")},
+        "peak_shared_pages": run["peak_shared"],
+        "outcomes": {i: (r.state.value, r.finish_reason, len(r.out_tokens),
+                         r.n_evictions)
+                     for i, r in sorted(run["reqs"].items())},
+        "rejected": dict(sorted(run["rejected"].items())),
+        "admitted": run["admitted"],
+        "finished_per_tick": run["finished"],
+    }
+
+
+def _leak_gate(tag: str, engine) -> None:
+    pool = engine.pool
+    leaked = pool.pages_in_use - pool.cached_pages
+    if leaked or pool._slots or engine.live_requests():
+        raise AssertionError(f"[{tag}] {leaked} leaked pages, "
+                             f"{len(pool._slots)} live slots after drain")
+
+
+def _serve_schedule(torch, tag: str, adapter, args, schedule, *,
+                    max_seq_len: int, events=None, tenants=None,
+                    replay: bool = True) -> tuple:
+    """One card run of ``schedule`` (launches counted from 0 around it),
+    its leak gate, and with ``replay`` the same schedule replayed on the
+    CPU with equal host decisions.  Returns (engine, run, launches)."""
+    from repro_torch.kernels import reset_counts
+    from repro_torch.launch.serve import build_engine
+
+    engine = build_engine(adapter, max_seq_len=max_seq_len, args=args,
+                          record_logits=True, tenants=tenants)
+    _sync(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    run = drive_schedule(engine, schedule, events=events)
+    _sync(torch)
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    _leak_gate(tag, engine)
+    got = _decisions(engine, run)
+    total = sum(len(r.out_tokens) for r in run["reqs"].values())
+    log(f"[{tag}] {len(schedule)} requests, {total} tokens in {wall:.2f}s "
+        f"over {run['ticks']} ticks; prefix_hit_tokens "
+        f"{got['prefix_hit_tokens']}, cached_pages {got['cached_pages']}, "
+        f"shared_pages {got['shared_pages']} (peak "
+        f"{got['peak_shared_pages']}), cow_copies {got['cow_copies']}, "
+        f"evictions {got['evictions']}, prefill_tokens "
+        f"{got['prefill_tokens']}; kernel launches {launches}")
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"[{tag}] kernels never launched: {missing}")
+    if replay:
+        cpu, on_submit = _replay_engine(torch, args, max_seq_len, run,
+                                        tenants=tenants)
+        cpu_run = drive_schedule(cpu, schedule, events=events,
+                                 on_submit=on_submit)
+        _leak_gate(f"{tag} cpu", cpu)
+        want = _decisions(cpu, cpu_run)
+        counters = ("prefix_hit_tokens", "cached_pages", "shared_pages",
+                    "peak_shared_pages", "cow_copies", "evictions")
+        log(f"[{tag}] the same schedule on the CPU (the card's tokens "
+            f"replayed through the port's engine): "
+            + ", ".join(f"{k} {want[k]}" for k in counters))
+        diff = [k for k in want if want[k] != got[k]]
+        if diff:
+            raise AssertionError(f"[{tag}] host decisions differ from the "
+                                 f"CPU's: {diff}")
+    return engine, run, launches
+
+
+def phase_lifecycle(torch, *, seed: int, layers: int, cfg=None,
+                    profile: bool = True) -> dict:
+    """Phase 8: ``qwen3-14b`` (phase 4's synthetic 2-bit model, full width,
+    ``layers`` deep) through (a) the prefix cache, (b) int8 KV against the
+    gather-dense int8 engine, (c) the request lifecycle.  Host decisions of
+    (a) and (c) are held to the same schedule replayed on the CPU; every
+    emitted position is held to the recompute oracle as in phase 5.
+    Returns the kernel launches of each run."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_calibration
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serve.adapter import CachedDecoder
+    from repro_torch.serve.scheduler import TenantPolicy
+    from repro_torch.serve.synthetic import synthetic_quantized_model
+
+    t_phase = time.perf_counter()
+    if cfg is None:
+        cfg = get_config("qwen3-14b")
+        if layers != cfg.n_layers:
+            log(f"[lifecycle] DEPTH CUT: {layers} of {cfg.n_layers} layers "
+                f"(full width kept)")
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+    qm = synthetic_quantized_model(cfg, seed=seed, device=DEV)
+    adapter = CachedDecoder.from_quantized(qm)
+    prompt_len, gen = 128, 32
+    max_seq_len = prompt_len + gen
+    paths = {}
+
+    # ---- (a) the prefix cache ---------------------------------------------
+    base = make_calibration(cfg.vocab, n_segments=8, seg_len=prompt_len,
+                            seed=seed + 5)
+    prompts = [np.concatenate([base[0, :PREFIX_SHARED],
+                               base[i, PREFIX_SHARED:]]) for i in range(8)]
+    prompts += [prompts[0], prompts[0]]
+    schedule = [(t, dict(prompt=p, max_new=gen))
+                for p, t in zip(prompts, PREFIX_ARRIVE)]
+    runs = {}
+    for name, kw in (("prefix", dict(prefix_cache=True)),
+                     ("prefix tight", dict(prefix_cache=True,
+                                           pages=PREFIX_TIGHT_PAGES)),
+                     ("no prefix cache", {})):
+        tag = f"lifecycle-a {name}"
+        eng, run, launches = _serve_schedule(
+            torch, tag, adapter, _args(**kw), schedule,
+            max_seq_len=max_seq_len, replay=bool(kw))
+        runs[name] = (eng, run, launches)
+        paths[tag.replace(" ", "_")] = launches
+    eng, run, _ = runs["prefix"]
+    s, tight = eng.summary(), runs["prefix tight"][0].summary()
+    nocache = runs["no prefix cache"]
+    log(f"[lifecycle-a] paged prefill with the cache: "
+        f"{runs['prefix'][2]['paged_prefill']} launches, "
+        f"{s['prefill_tokens']} tokens; without: "
+        f"{nocache[2]['paged_prefill']} launches, "
+        f"{nocache[0].summary()['prefill_tokens']} tokens")
+    if s["cow_copies"] < 1 or s["prefix_hit_tokens"] <= 0:
+        raise AssertionError("[lifecycle-a] the prefix cache was not hit "
+                             "(cow_copies < 1 or prefix_hit_tokens == 0)")
+    if tight["evictions"] <= 0:
+        raise AssertionError("[lifecycle-a] the tight pool never evicted")
+    for name in ("prefix", "prefix tight"):
+        r = runs[name][1]["reqs"]
+        check_logits(torch, qm, [r[i].prompt for i in range(len(r))],
+                     [r[i] for i in range(len(r))], atol=LOGIT_ATOL,
+                     mean_atol=LOGIT_MEAN_ATOL,
+                     tag=f"lifecycle-a {name} check")
+    stream = list(run["reqs"][1].out_tokens)  # (c)'s stop token source
+    del runs, nocache, eng, run
+
+    # ---- (b) int8 KV ---------------------------------------------------------
+    arrive = (0, 0, 0, 0, 3, 5, 7, 9)
+    p4 = make_calibration(cfg.vocab, n_segments=len(arrive),
+                          seg_len=prompt_len, seed=seed + 3)
+    sched_b = [(t, dict(prompt=p, max_new=gen)) for p, t in zip(p4, arrive)]
+    args8 = _args(kv_int8=True)
+    eng8, run8, launches = _serve_schedule(
+        torch, "lifecycle-b int8", adapter, args8, sched_b,
+        max_seq_len=max_seq_len, replay=False)
+    paths["lifecycle-b_int8"] = launches
+    oracle = build_engine(adapter, max_seq_len=max_seq_len, args=args8,
+                          record_logits=True, paged=False,
+                          paged_prefill=False, prefix_cache=False,
+                          robust=False)
+    t0 = time.perf_counter()
+    orun = drive_schedule(oracle, sched_b)
+    _sync(torch)
+    t_oracle = time.perf_counter() - t0
+    diffs, firsts = [], []
+    for i, r in run8["reqs"].items():
+        o = orun["reqs"][i]
+        toks, otoks = r.out_tokens, o.out_tokens
+        n = next((k for k, (a, b) in enumerate(zip(toks, otoks)) if a != b),
+                 None)
+        upto = len(toks) if n is None else n + 1
+        got = torch.as_tensor(np.stack(r.step_logits[:upto]), device=DEV)
+        want = torch.as_tensor(np.stack(o.step_logits[:upto]), device=DEV)
+        diffs.append((got.float() - want.float()).abs())
+        if n is not None:
+            top2 = torch.topk(want[n].float(), 2).values
+            firsts.append((i, n, float(top2[0] - top2[1])))
+    max_d = max(float(d.max()) for d in diffs)
+    mean_d = (sum(float(d.sum()) for d in diffs)
+              / sum(d.numel() for d in diffs))
+    unexplained = [f for f in firsts if f[2] >= 2 * max_d]
+    n_pos = sum(d.shape[0] for d in diffs)
+    log(f"[lifecycle-b] --kv-int8 --paged --paged-prefill against the "
+        f"gather-dense int8 engine (run in {t_oracle:.1f}s): {n_pos} "
+        f"positions, logit max |diff| {max_d:.4f} (tol {INT8_LOGIT_ATOL}), "
+        f"mean |diff| {mean_d:.5f} (tol {INT8_LOGIT_MEAN_ATOL}); streams "
+        f"that part: {len(firsts)} (request, position, oracle top-2 "
+        f"margin: {firsts}; all below 2 x max |diff|: "
+        f"{'yes' if not unexplained else 'NO'})")
+    if max_d > INT8_LOGIT_ATOL or mean_d > INT8_LOGIT_MEAN_ATOL \
+            or unexplained:
+        raise AssertionError("[lifecycle-b] int8 paged engine disagrees "
+                             "with the gather-dense int8 engine")
+    check_logits(torch, qm, [r.prompt for r in run8["reqs"].values()],
+                 list(run8["reqs"].values()), atol=None, mean_atol=None,
+                 tag="lifecycle-b int8 vs fp recompute")
+    pool = eng8.pool
+    bf16 = 2 * pool.k.numel() * 2
+    log(f"[lifecycle-b] KV pool bytes: int8 {pool.total_bytes()} (pages + "
+        f"fp32 scales), bf16 {bf16} for the same {pool.n_pages} pages")
+    del eng8, run8, oracle, orun
+    if profile:
+        profile_ticks(torch, adapter, args8, p4)
+
+    # ---- (c) the request lifecycle -------------------------------------------
+    k = next(k for k in range(3, len(stream)) if stream[k] not in stream[:k])
+    stop = stream[k]
+    P = prompts
+    sched_c = [
+        (0, dict(prompt=P[1], max_new=gen, tenant="paid",
+                 stop_tokens=(stop,))),
+        (0, dict(prompt=P[2], max_new=gen, tenant="free")),
+        (0, dict(prompt=P[3], max_new=gen, tenant="free")),
+        (0, dict(prompt=P[4], max_new=gen, tenant="free")),  # rate limited
+        (1, dict(prompt=P[5], max_new=gen, tenant="paid", deadline_s=0.0)),
+        (2, dict(prompt=P[6], max_new=gen, tenant="paid")),
+        (2, dict(prompt=P[7], max_new=gen, tenant="free")),
+        (2, dict(prompt=base[1], max_new=gen, tenant="paid")),
+        (2, dict(prompt=base[2], max_new=gen, tenant="paid")),
+        (2, dict(prompt=base[3], max_new=gen, tenant="paid")),
+        (2, dict(prompt=base[4], max_new=gen, tenant="paid")),
+    ]
+
+    def cancel(state):
+        def fn(engine, run):  # the first request of the schedule in state
+            for i, r in sorted(run["reqs"].items()):
+                if r.state.value == state:
+                    run["cancelled"].append((i, state))
+                    engine.cancel(r.rid)
+                    return
+            raise AssertionError(f"[lifecycle-c] no request {state} to "
+                                 f"cancel")
+        return fn
+
+    events = {3: cancel("queued"), 12: cancel("decode")}
+    tenants = {n: TenantPolicy(rate=r, burst=b, priority=p)
+               for n, (r, b, p) in LIFECYCLE_TENANTS.items()}
+    args_c = _args(pages=LIFECYCLE_PAGES, max_queue=LIFECYCLE_MAX_QUEUE)
+    eng, run, launches = _serve_schedule(
+        torch, "lifecycle-c", adapter, args_c, sched_c,
+        max_seq_len=max_seq_len, events=events, tenants=tenants)
+    paths["lifecycle-c"] = launches
+    reqs = run["reqs"]
+    out = {i: (r.state.value, r.finish_reason) for i, r in reqs.items()}
+    log(f"[lifecycle-c] stop token {stop} (position {k} of (a)'s stream); "
+        f"outcomes {out}; rejected {run['rejected']}; admission order "
+        f"{run['admitted']}; cancelled {run['cancelled']}; evictions "
+        f"{eng.summary()['evictions']}")
+    stops = [r for r in reqs.values() if r.finish_reason == "stop"]
+    reasons = sorted(set(run["rejected"].values()))
+    if (not stops or any(r.out_tokens[-1] not in r.stop_tokens
+                         for r in stops)
+            or [s for _, s in run["cancelled"]] != ["queued", "decode"]
+            or "deadline" not in {r.finish_reason for r in reqs.values()}
+            or reasons != ["queue_full", "rate_limited"]
+            or eng.summary()["evictions"] <= 0):
+        raise AssertionError("[lifecycle-c] a lifecycle event did not "
+                             "happen as scheduled")
+    idx = sorted(reqs)
+    check_logits(torch, qm, [reqs[i].prompt for i in idx],
+                 [reqs[i] for i in idx], atol=LOGIT_ATOL,
+                 mean_atol=LOGIT_MEAN_ATOL, tag="lifecycle-c check")
+    del qm, adapter, eng, run
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[lifecycle] phase 8 passed in {time.perf_counter() - t_phase:.1f}s")
+    return paths
+
+
 REPLACES = {
     "quant_matmul": "src/repro/kernels/quant_matmul/kernel.py:60",
     "paged_decode": "src/repro/kernels/paged_attention/kernel.py:164",
@@ -1699,12 +2158,15 @@ def main(argv=None) -> int:
                            seg_len=args.calib_len, chunk=args.calib_chunk)
     torch.cuda.empty_cache()
     dense = phase_dense_family(torch, seed=args.seed)
+    torch.cuda.empty_cache()
+    lifecycle = phase_lifecycle(torch, seed=args.seed, layers=args.layers)
     # launches: each kernel on the path that runs it — the synthetic serve
     # for the serving kernels, the quantize run for ldlq and kron_mul, the
-    # hadamard linear for hadamard; phase 7's paths beside them
+    # hadamard linear for hadamard; phases 7's and 8's paths beside them
     paths = {"serve": served["launches"], "quantize": quant["launches"],
              "hadamard_linear": quant["hadamard_launches"],
-             "serve_quantized": quant["serve_launches"], **dense}
+             "serve_quantized": quant["serve_launches"], **dense,
+             **lifecycle}
     main_path = {"ldlq": "quantize", "kron_mul": "quantize",
                  "hadamard": "hadamard_linear"}
     kernels = []

@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+
 __all__ = ["HessianAccumulator", "damp"]
 
 
@@ -25,7 +27,9 @@ class HessianAccumulator:
     count: torch.Tensor  # scalar token count
 
     @classmethod
-    def create(cls, n: int, *, device=None) -> "HessianAccumulator":
+    def create(cls, n: int, *,
+               device=DEFAULT_DEVICE) -> "HessianAccumulator":
+        device = resolve_device(device)
         return cls(H=torch.zeros((n, n), dtype=torch.float32, device=device),
                    count=torch.zeros((), dtype=torch.float32, device=device))
 

@@ -63,12 +63,13 @@ def kron_factors(n: int) -> tuple[int, int]:
 
 
 def random_orthogonal(
-    n: int, generator: torch.Generator, *, device=None,
+    n: int, generator: torch.Generator, *, device=DEFAULT_DEVICE,
     dtype=torch.float32,
 ) -> torch.Tensor:
     """Haar-distributed random orthogonal matrix (QR with sign fix).  Same
-    construction as the JAX package; the bits differ (another RNG)."""
-    g = torch.randn(n, n, generator=generator, device=device,
+    construction as the JAX package; the bits differ (another RNG).
+    ``generator`` must live on ``device``."""
+    g = torch.randn(n, n, generator=generator, device=resolve_device(device),
                     dtype=torch.float32)
     q, r = torch.linalg.qr(g)
     q = q * torch.sign(torch.diagonal(r))[None, :]

@@ -13,9 +13,14 @@ earlier requests are mid-generation, and decode through the KV-cached
 adapter — for quantized models the packed ``D⁻¹ → V → quant_matmul → Uᵀ``
 path.  ``--paged`` decodes in place over the page pool (paged-attention
 kernel); ``--paged-prefill`` runs each tick's prefill chunks as one batched
-dispatch over the pool (chunked-prefill kernel).  ``--check`` verifies the
-engine's greedy tokens against the full-prefix recompute oracle and exits
-nonzero on divergence.
+dispatch over the pool (chunked-prefill kernel).  ``--prefix-cache`` maps
+cached full prompt pages into new requests (refcounted, copy-on-write);
+``--kv-int8`` stores the pages int8.  ``--stop-token``, ``--deadline-s``,
+``--max-queue`` and ``--tenants`` set the request lifecycle.  ``--check``
+verifies the engine's greedy tokens against the full-prefix recompute
+oracle (with ``--kv-int8``: a gather-dense engine over the same int8
+pages) and exits nonzero on divergence; every run exits nonzero if a page
+or slot is still held after the drain.
 
 Runs on the GPU (``--device cuda``, the default) through the hand-written
 kernels, or on the CPU (``--device cpu``) through their plain versions.
@@ -66,7 +71,12 @@ def quantized_generate(qm, prompt: torch.Tensor, gen: int) -> torch.Tensor:
     return toks[:, prompt.shape[1]:]
 
 
-def build_engine(adapter, *, max_seq_len: int, args, record_logits=False):
+def build_engine(adapter, *, max_seq_len: int, args, record_logits=False,
+                 paged=None, paged_prefill=None, prefix_cache=None,
+                 robust=True, tenants=None):
+    """The engine the flags in ``args`` describe.  ``robust=False`` builds
+    a reference oracle: no deadlines, queue bound or tenants, so it
+    finishes every request."""
     from repro_torch.serve.engine import Engine, EngineConfig
 
     ecfg = EngineConfig(
@@ -76,9 +86,16 @@ def build_engine(adapter, *, max_seq_len: int, args, record_logits=False):
         n_pages=args.pages,
         token_budget=args.token_budget,
         prefill_chunk=args.prefill_chunk,
-        paged_decode=args.paged,
-        paged_prefill=args.paged_prefill,
+        paged_decode=args.paged if paged is None else paged,
+        paged_prefill=(args.paged_prefill if paged_prefill is None
+                       else paged_prefill),
+        prefix_cache=(getattr(args, "prefix_cache", False)
+                      if prefix_cache is None else prefix_cache),
+        kv_int8=getattr(args, "kv_int8", False),
         record_logits=record_logits,
+        deadline_s=getattr(args, "deadline_s", None) if robust else None,
+        max_queue=getattr(args, "max_queue", None) if robust else None,
+        tenants=tenants if robust else None,
     )
     return Engine(adapter, ecfg)
 
@@ -113,6 +130,28 @@ def parser() -> argparse.ArgumentParser:
                     help="prefill as ONE batched cross-request dispatch per "
                          "engine tick over the page pool (chunked-prefill "
                          "kernel) instead of a B=1 gather-dense loop")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="trie prompt-prefix cache over full KV pages: "
+                         "identical prompt prefixes are admitted with their "
+                         "pages mapped (refcounted, copy-on-write), not "
+                         "recomputed")
+    ap.add_argument("--kv-int8", action="store_true",
+                    help="store KV pages int8 with per-(token, head) scales")
+    ap.add_argument("--stop-token", type=int, action="append", default=None,
+                    help="finish a request when it emits this token "
+                         "(repeatable)")
+    ap.add_argument("--deadline-s", type=float, default=None, metavar="SECS",
+                    help="per-request deadline from arrival, enforced at "
+                         "tick boundaries; an expired request FAILS with "
+                         "finish_reason 'deadline'")
+    ap.add_argument("--max-queue", type=int, default=None, metavar="N",
+                    help="bounded admission queue: submits past N pending "
+                         "requests are rejected (retryable)")
+    ap.add_argument("--tenants", default=None, metavar="SPEC",
+                    help="per-tenant admission policies, comma-separated "
+                         "'name:rate:burst:priority' (rate in req/s, empty "
+                         "or 'inf' = unlimited; priority 0 = highest), "
+                         "e.g. 'paid:inf:4:0,free:2.0:4:1'")
     ap.add_argument("--check", action="store_true",
                     help="verify engine tokens against the recompute path")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -127,6 +166,25 @@ def main(argv=None):
     from repro_torch.serve.artifacts import ArtifactCorruption, load_quantized
     from repro_torch.serve.scheduler import AdmissionRejected, RequestState
 
+    tenants = None
+    if args.tenants:
+        from repro_torch.serve.frontdoor.admission import parse_tenants
+
+        try:
+            tenants = parse_tenants(args.tenants)
+        except ValueError as e:
+            raise SystemExit(f"--tenants: {e}")
+    if args.check and args.stop_token:
+        raise SystemExit(
+            "--check compares full fixed-length token streams; the "
+            "references don't model early stop — drop --stop-token")
+    if args.check and args.kv_int8 and not (args.paged or args.paged_prefill):
+        raise SystemExit(
+            "--kv-int8 --check needs --paged (and/or --paged-prefill): "
+            "int8 pages are lossy vs the dense references, so the only "
+            "independent oracle is the gather-dense engine over the same "
+            "int8 page contents — without a paged path that oracle IS the "
+            "engine under test")
     device = resolve_device(args.device)
     if args.load_quantized:
         try:
@@ -162,16 +220,25 @@ def main(argv=None):
 
     prompts = make_calibration(cfg.vocab, n_segments=args.requests,
                                seg_len=args.prompt_len, seed=args.seed + 3)
-    engine = build_engine(adapter, max_seq_len=args.prompt_len + args.gen,
-                          args=args)
-    reqs = []
+    max_seq_len = args.prompt_len + args.gen
+    engine = build_engine(adapter, max_seq_len=max_seq_len, args=args,
+                          tenants=tenants)
+    stop_tokens = tuple(args.stop_token or ())
+    submitted = []  # (prompt index, request) of accepted submissions
     for i in range(args.requests):
         try:
-            reqs.append(engine.submit(prompts[i], max_new=args.gen,
-                                      arrival=i * args.arrival_gap))
+            req = engine.submit(prompts[i], max_new=args.gen,
+                                arrival=i * args.arrival_gap,
+                                stop_tokens=stop_tokens)
         except AdmissionRejected as e:
+            if e.retryable:
+                # backpressure: a client would retry later; the fixed
+                # workload reports it and goes on
+                print(f"[serve] request {i} rejected (retryable): {e}")
+                continue
             raise SystemExit(f"cannot admit request: {e} (grow --pages / "
                              f"--page-size or shrink --gen)")
+        submitted.append((i, req))
     engine.reset_clock()
     t0 = time.perf_counter()
     done = engine.run()
@@ -181,45 +248,80 @@ def main(argv=None):
     total = sum(len(r.out_tokens) for r in done)
     print(f"[serve] {label} {cfg.name} on {device.type}: {len(done)} "
           f"requests, {total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s)")
+    n_fin = sum(1 for r in done if r.state is RequestState.FINISHED)
+    n_can = sum(1 for r in done if r.state is RequestState.CANCELLED)
     n_fail = sum(1 for r in done if r.state is RequestState.FAILED)
+    outcome = (f"[serve] outcomes: finished={n_fin} cancelled={n_can} "
+               f"failed={n_fail}")
     if n_fail:
-        print(f"[serve] failed={n_fail} reasons="
-              f"{sorted({r.finish_reason for r in done if r.finish_reason != 'length'})}")
-    leaked = engine.pool.pages_in_use
-    if leaked or engine.pool._slots:
+        reasons: dict[str, int] = {}
+        for r in done:
+            if r.state is RequestState.FAILED:
+                reasons[r.finish_reason] = reasons.get(r.finish_reason, 0) + 1
+        outcome += f" reasons={reasons}"
+    print(outcome)
+    # every page must be back; the prefix trie keeps its own references
+    leaked = engine.pool.pages_in_use - engine.pool.cached_pages
+    if leaked != 0 or engine.pool._slots:
         print(f"[serve] FAIL: {leaked} leaked pages, "
               f"{len(engine.pool._slots)} live slots after drain")
         return 1
     print(f"[serve] steps={s['steps']} prefill_tokens={s['prefill_tokens']} "
           f"decode_tokens={s['decode_tokens']} evictions={s['evictions']} "
           f"peak_kv_occupancy={s['peak_occupancy']:.0%}")
-    if args.paged_prefill:
+    if args.paged_prefill or args.prefix_cache:
         print(f"[serve] prefill_batch_size={s['prefill_batch_size']} "
-              f"prefill_batches={s['prefill_batches']}")
+              f"prefill_batches={s['prefill_batches']} "
+              f"prefix_hit_tokens={s['prefix_hit_tokens']} "
+              f"cached_pages={s['cached_pages']} "
+              f"shared_pages={s['shared_pages']} "
+              f"cow_copies={s['cow_copies']}")
     if s["ttft_s_p50"] is not None:
         print(f"[serve] latency: ttft_p50={s['ttft_s_p50'] * 1e3:.1f}ms "
               f"ttft_p99={s['ttft_s_p99'] * 1e3:.1f}ms "
-              f"itl_p50={(s['itl_s_p50'] or 0) * 1e3:.2f}ms")
+              f"itl_p50={(s['itl_s_p50'] or 0) * 1e3:.2f}ms "
+              f"queue_p50={(s['queue_s_p50'] or 0) * 1e3:.1f}ms")
 
     if args.check:
-        ref = quantized_generate(
-            qm, torch.as_tensor(prompts, device=device), args.gen
-        ).cpu().numpy()
+        if args.kv_int8:
+            # int8 pages are lossy against the dense references: the
+            # oracle is a gather-dense engine over the same int8 pages
+            oracle = build_engine(adapter, max_seq_len=max_seq_len,
+                                  args=args, paged=False,
+                                  paged_prefill=False, prefix_cache=False,
+                                  robust=False)
+            oref = [oracle.submit(prompts[i], max_new=args.gen)
+                    for i in range(args.requests)]
+            oracle.run()
+            ref = np.stack([np.asarray(r.out_tokens, np.int32)
+                            for r in oref])
+            ref_label = "gather-dense int8 engine"
+        else:
+            ref = quantized_generate(
+                qm, torch.as_tensor(prompts, device=device), args.gen
+            ).cpu().numpy()
+            ref_label = "quantized recompute"
+        # FINISHED rows must equal the oracle at full length; CANCELLED or
+        # FAILED rows must be a prefix of it
         total_cmp = matched = 0
-        for i, r in enumerate(reqs):
+        truncated_ok = True
+        for i, r in submitted:
             out = np.asarray(r.out_tokens, np.int32)
-            exp = ref[i][: out.size]
-            if r.state is RequestState.FINISHED and out.size != ref[i].size:
-                total_cmp += ref[i].size
-                continue
+            exp = np.asarray(ref[i], np.int32)
+            if r.state is RequestState.FINISHED:
+                if out.size != exp.size:
+                    truncated_ok = False
+                    continue
+            else:
+                exp = exp[: out.size]
             total_cmp += exp.size
             matched += int(np.sum(out == exp))
         agree = matched / max(1, total_cmp)
-        print(f"[serve] check vs quantized recompute: token agreement "
+        print(f"[serve] check vs {ref_label}: token agreement "
               f"{agree:.2%} over {total_cmp} tokens")
-        if agree < 1.0:
-            print("[serve] FAIL: engine cached decode diverged from the "
-                  "recompute oracle")
+        if agree < 1.0 or not truncated_ok:
+            print(f"[serve] FAIL: engine cached decode diverged from the "
+                  f"{ref_label} oracle")
             return 1
     return 0
 

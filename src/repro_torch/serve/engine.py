@@ -20,6 +20,14 @@ every context page copied into a dense window per step) or **paged**
 the paged-attention kernel reads the pool in place).  Block tables are
 bucketed to the next power of two of the attended page count, as in the
 JAX package, so both take the same decisions step for step.
+
+``EngineConfig.prefix_cache`` maps full pages of previously seen prompt
+prefixes into newly admitted slots (refcounted, copy-on-write), so shared
+prompt headers are admitted at ``prefill_pos > 0`` and never recomputed;
+``kv_int8`` stores the pages int8 with per-(token, head) scales.  The
+request lifecycle — stop tokens, :meth:`Engine.cancel` from any live
+state, deadlines enforced at tick boundaries, a bounded queue and tenant
+rate limits with priority classes — takes the JAX package's decisions.
 """
 from __future__ import annotations
 
@@ -51,14 +59,19 @@ _STAT_COUNTERS = (
     "evictions",
     "prefill_batches",
     "prefill_batch_size",  # widest co-batched prefill group seen
-    "failed",
+    "prefix_hit_tokens",  # prompt tokens admitted from the prefix cache
+    "cancelled",  # requests reaching CANCELLED
+    "failed",  # requests reaching FAILED (any reason)
+    "deadline_missed",  # FAILED specifically for blowing deadline_s
+    "admission_rejected",  # submits refused with AdmissionRejected
 )
 
 
 @dataclasses.dataclass
 class TickResult:
     """What one :meth:`Engine.tick` did: every (request, token) emission in
-    order, and every request that reached a terminal state."""
+    order, and every request that reached a terminal state since the last
+    tick's result was taken (between-tick cancels included)."""
 
     worked: bool
     t: float
@@ -77,6 +90,18 @@ class EngineConfig:
     record_logits: bool = False  # keep per-emission logits (tests/--check)
     paged_decode: bool = False  # decode in place over the page pool
     paged_prefill: bool = False  # batched cross-request prefill over the pool
+    prefix_cache: bool = False  # map cached prompt-prefix pages on admit
+    kv_int8: bool = False  # int8 KV pages + per-(token, head) scales
+    # default per-request deadline in seconds from arrival, enforced at
+    # tick boundaries (None = none)
+    deadline_s: Optional[float] = None
+    # bounded admission queue: submits past this many pending requests
+    # raise a retryable AdmissionRejected
+    max_queue: Optional[int] = None
+    # tenant name -> scheduler.TenantPolicy (None = every tenant
+    # unlimited in class 0: strict FCFS)
+    tenants: Optional[dict] = None
+    aging_s: float = 2.0  # queue wait that promotes a request one class
     # eviction-storm guard: a request evicted this many times FAILS
     # ("eviction_storm") instead of replaying its prefix forever
     max_evictions: Optional[int] = 8
@@ -100,39 +125,108 @@ class Engine:
             page_size=ecfg.page_size,
             n_slots=ecfg.n_slots,
             max_pages_per_seq=ecfg.pages_per_seq,
+            dtype=torch.int8 if ecfg.kv_int8 else None,
+            prefix_cache=ecfg.prefix_cache,
         )
         self.scheduler = TokenBudgetFCFS(
             token_budget=ecfg.token_budget, prefill_chunk=ecfg.prefill_chunk,
+            max_queue=ecfg.max_queue, tenants=ecfg.tenants,
+            aging_s=ecfg.aging_s,
         )
         self.running: list[Request] = []
         self.finished: list[Request] = []
         self.stats = dict.fromkeys(_STAT_COUNTERS, 0)
         self._tick_emitted: list = []
         self._tick_finished: list = []
+        # deadline sweeps run once any request carries a deadline
+        self._deadlines = ecfg.deadline_s is not None
         # engine-relative clock: arrival offsets are measured from here
         self._t0 = time.perf_counter()
 
     # ---- submission -----------------------------------------------------
 
     def submit(self, prompt: np.ndarray, max_new: int, arrival: float = 0.0,
-               sampling: Optional[SamplingParams] = None) -> Request:
-        """Submit a request, or raise :class:`AdmissionRejected` when it can
-        never fit this pool (per-sequence or total capacity)."""
+               sampling: Optional[SamplingParams] = None,
+               stop_tokens: tuple = (), deadline_s: Optional[float] = None,
+               tenant: str = "default",
+               priority: Optional[int] = None) -> Request:
+        """Submit a request, or raise a typed :class:`AdmissionRejected`:
+        not retryable when it can never fit this pool (per-sequence or
+        total capacity, discounting full prompt pages the prefix cache
+        already holds), retryable when the tenant's bucket is overdrawn or
+        the bounded queue is full.  ``deadline_s`` overrides
+        ``EngineConfig.deadline_s``; ``priority`` pins the class (None
+        inherits the tenant policy's)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
         total = prompt.size + max_new
-        need = max(1, pages_needed(total, self.ecfg.page_size))
         if total > self.pool.seq_capacity_tokens():
-            raise AdmissionRejected("over_capacity", needed_pages=need,
-                                    available_pages=self.pool.max_pages_per_seq)
-        if need > self.pool.n_pages - 1:
-            raise AdmissionRejected("over_capacity", needed_pages=need,
-                                    available_pages=self.pool.n_pages - 1)
-        req = Request(prompt=prompt, max_new=max_new, arrival=arrival,
-                      sampling=sampling or SamplingParams())
-        self.scheduler.submit(req)
+            self.stats["admission_rejected"] += 1
+            raise AdmissionRejected(
+                "over_capacity", retryable=False,
+                needed_pages=pages_needed(total, self.ecfg.page_size),
+                available_pages=self.pool.max_pages_per_seq)
+        need = max(1, pages_needed(total, self.ecfg.page_size))
+        # -1: even a full-prefix hit claims one copy-on-admit page
+        cached = min(self.pool.cached_prefix_pages(prompt), need - 1)
+        if need - cached > self.pool.n_pages - 1:
+            self.stats["admission_rejected"] += 1
+            raise AdmissionRejected(
+                "over_capacity", retryable=False,
+                needed_pages=need - cached,
+                available_pages=self.pool.n_pages - 1)
+        req = Request(
+            prompt=prompt, max_new=max_new, arrival=arrival,
+            sampling=sampling or SamplingParams(),
+            stop_tokens=tuple(stop_tokens),
+            deadline_s=(self.ecfg.deadline_s if deadline_s is None
+                        else deadline_s),
+            tenant=tenant, priority=priority,
+        )
+        try:
+            self.scheduler.submit(req)
+        except AdmissionRejected:
+            self.stats["admission_rejected"] += 1
+            raise
+        if req.deadline_s is not None:
+            self._deadlines = True
         return req
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a request by id from any live state (waiting, queued,
+        mid-prefill, mid-decode).  Its page references are dropped as a
+        finish would drop them; the next tick's result reports it.
+        Returns whether a live request was found."""
+        now = self.now()
+        sch = self.scheduler
+        for r in sch.waiting:
+            if r.rid == rid:
+                sch.waiting.remove(r)
+                self._cancel(r, now)
+                return True
+        for r in sch.queue:
+            if r.rid == rid:
+                sch.queue.remove(r)
+                self._cancel(r, now)
+                return True
+        for r in self.running:
+            if r.rid == rid:
+                self._cancel(r, now)  # _terminalize detaches from running
+                return True
+        return False
+
+    def live_requests(self) -> list[Request]:
+        """Every non-terminal request: waiting, queued, and running."""
+        sch = self.scheduler
+        return [*sch.waiting, *sch.queue, *self.running]
+
+    def cancel_all(self) -> list[Request]:
+        """Cancel every live request; returns them."""
+        victims = self.live_requests()
+        for r in victims:
+            self.cancel(r.rid)
+        return victims
 
     # ---- main loop ------------------------------------------------------
 
@@ -164,10 +258,14 @@ class Engine:
         """One engine tick; returns what it emitted and finished."""
         now = self.now()
         self.scheduler.admit_arrivals(now)
-        plan = self.scheduler.plan(self.running, self.pool)
+        if self._deadlines:
+            self._enforce_deadlines(now)
+        plan = self.scheduler.plan(self.running, self.pool, now=now)
+        self.stats["prefix_hit_tokens"] += plan.prefix_hit_tokens
         decode = self._ensure_decode_pages(plan, now)
         self._check_queue_head(now)
-        # drop chunks whose request the page-ensure pass evicted
+        # drop chunks whose request the page-ensure pass evicted (or a
+        # deadline terminalized)
         chunks = [(r, n) for r, n in plan.prefill
                   if r.state is RequestState.PREFILL]
         worked = False
@@ -207,14 +305,15 @@ class Engine:
 
     def _ensure_decode_pages(self, plan: StepPlan, now: float) -> list[Request]:
         """Claim a page for each decode lane's next token, evicting under
-        pressure.  Lanes are served oldest-first and the victim is always
-        the NEWEST running request — possibly the asking lane itself — so
-        requests already granted pages this step are never clawed back."""
+        pressure.  Lanes are served best-class-oldest-first and the victim
+        is always the worst-class NEWEST running request — possibly the
+        asking lane itself — so requests already granted pages this step
+        are never clawed back, and low classes yield pages to high ones."""
         active = []
-        lane_key = lambda r: (r.arrival, r.rid)
+        lane_key = lambda r: (r.priority or 0, r.arrival, r.rid)
         for r in sorted(plan.decode, key=lane_key):
             if r.state is not RequestState.DECODE:
-                continue  # evicted as a side effect
+                continue  # evicted (or terminalized) as a side effect
             while not self.pool.extend(r.slot, self.pool.length(r.slot) + 1):
                 self._evict(max(self.running, key=lane_key), now)
                 if r.state is not RequestState.DECODE:
@@ -223,10 +322,25 @@ class Engine:
                 active.append(r)
         return active
 
+    def _enforce_deadlines(self, now: float) -> None:
+        """Fail queued/running requests past their deadline.  Checked at
+        tick boundaries: the tick in flight is never torn down."""
+        sch = self.scheduler
+        expired = [
+            r for r in (*sch.queue, *self.running)
+            if r.deadline_s is not None and now - r.arrival > r.deadline_s
+        ]
+        for r in expired:
+            if r in sch.queue:
+                sch.queue.remove(r)
+            self.stats["deadline_missed"] += 1
+            self._fail(r, "deadline", now)
+
     def _check_queue_head(self, now: float) -> None:
         """Fail a head-of-queue request whose prefix needs more distinct
-        pages than the pool owns: it could never be admitted and would
-        starve everything behind it."""
+        pages than the pool owns (cached or not: shared pages still occupy
+        residency): it could never be admitted and would starve everything
+        behind it."""
         q = self.scheduler.queue
         if not q:
             return
@@ -250,7 +364,15 @@ class Engine:
         self._tick_finished.append(req)
 
     def _finish(self, req: Request, now: float) -> None:
-        self._terminalize(req, RequestState.FINISHED, "length", now)
+        reason = (
+            "stop" if req.out_tokens and req.out_tokens[-1] in req.stop_tokens
+            else "length"
+        )
+        self._terminalize(req, RequestState.FINISHED, reason, now)
+
+    def _cancel(self, req: Request, now: float) -> None:
+        self._terminalize(req, RequestState.CANCELLED, "cancelled", now)
+        self.stats["cancelled"] += 1
 
     def _fail(self, req: Request, reason: str, now: float) -> None:
         if req in self.scheduler.queue:
@@ -264,10 +386,13 @@ class Engine:
 
     def _after_prefill_chunk(self, req: Request, n: int, last_logits,
                              now: float) -> None:
-        """Advance, and emit the first generated token when the prefix
-        completes."""
+        """Advance, register cached prompt pages, and emit the first
+        generated token when the prefix completes."""
         req.prefill_pos += n
         self.stats["prefill_tokens"] += n
+        if self.pool.prefix_cache:
+            covered = min(req.prefill_pos, len(req.prompt))
+            self.pool.register_prefix(req.slot, req.prompt[:covered])
         if req.prefill_pos == len(req.prefix):
             last = last_logits.float().cpu().numpy()
             req.state = RequestState.DECODE
@@ -371,18 +496,19 @@ class Engine:
 
     def summary(self) -> dict:
         """Counters, pool gauges, and latency percentiles (seconds) over
-        the finished requests."""
+        the FINISHED requests (a cancelled or failed one has no honest
+        end-to-end time)."""
         s = dict(self.stats)
-        pool = self.pool
-        s["pages_in_use"] = pool.pages_in_use
-        s["peak_pages_in_use"] = pool.peak_pages_in_use
-        s["peak_occupancy"] = pool.peak_pages_in_use / max(1, pool.n_pages - 1)
+        s.update(self.pool.gauges())
         done = [r for r in self.finished if r.state is RequestState.FINISHED]
         ttft = [r.t_first - r.arrival for r in done]
         itl = [b - a for r in done for a, b in zip(r.token_times,
                                                    r.token_times[1:])]
+        queue = [r.t_admitted - r.arrival for r in done
+                 if r.t_admitted is not None]
         e2e = [r.t_finish - r.arrival for r in done]
-        for name, vals in (("ttft_s", ttft), ("itl_s", itl), ("e2e_s", e2e)):
+        for name, vals in (("ttft_s", ttft), ("itl_s", itl),
+                           ("queue_s", queue), ("e2e_s", e2e)):
             for q in (50, 99):
                 s[f"{name}_p{q}"] = (float(np.percentile(vals, q))
                                      if vals else None)

@@ -18,15 +18,26 @@ per-(token, head) on scatter (symmetric, scale = max|x|/127) with fp32
 scales in parallel ``(L, P, ps, KV)`` tensors.  ``gather`` dequantizes;
 the paged-attention kernels read int8 pages + scales directly.
 
+Prefix caching (``prefix_cache=True``): every physical page carries a
+refcount, and a trie over FULL pages of prompt tokens maps token blocks to
+pages already holding their K/V.  ``admit(tokens=...)`` maps matched pages
+into the new slot (refcount + 1) instead of claiming fresh ones, and the
+engine starts prefill at ``length(slot)``.  Shared pages are immutable: a
+write resolving into a page with refcount > 1 copies it first
+(copy-on-write), and a full-prefix hit maps a private copy of its last
+page at admission (copy-on-admit) so the engine can recompute the final
+prompt token in place.  The trie holds its own reference on cached pages,
+so they outlive their owner and are reclaimed LRU-first under pressure.
+
 The host-side bookkeeping is the JAX package's, decision for decision
-(free-list order included), so block tables match it exactly.  Writes are
-in place (``index_put_`` on the pool tensors) where the JAX package used a
-donated functional update.  The prefix-cache trie and ``truncate`` are not
-ported yet.
+(free-list order, refcounts, trie contents and LRU order), so block tables
+match it exactly.  Writes and page copies are in place on the pool
+tensors where the JAX package used donated functional updates.
 """
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -57,12 +68,22 @@ class _Slot:
     length: int  # valid tokens written
 
 
+@dataclasses.dataclass
+class _PrefixNode:
+    """One full page of cached prompt tokens in the prefix trie."""
+
+    key: tuple  # (parent node id, token-block bytes) — the trie dict key
+    page: int  # physical page holding this block's K/V
+    parent: int  # parent node id (0 = root)
+    children: set = dataclasses.field(default_factory=set)  # child node ids
+
+
 class PagedKVPool:
     """Page accounting (host) + paged K/V storage (device).
 
-    ``admit(n_tokens)`` -> slot id or None (not enough free pages/slots);
-    ``extend(slot, new_len)`` -> bool (claims pages to cover ``new_len``);
-    ``release(slot)`` returns all pages.
+    ``admit(n_tokens, tokens=)`` -> slot id or None (not enough free
+    pages/slots); ``extend(slot, new_len)`` -> bool (claims pages to cover
+    ``new_len``); ``release(slot)`` drops the slot's page references.
     """
 
     def __init__(
@@ -74,6 +95,7 @@ class PagedKVPool:
         n_slots: int,
         max_pages_per_seq: int,
         dtype: Optional[torch.dtype] = None,
+        prefix_cache: bool = False,
         device=DEFAULT_DEVICE,
     ):
         if n_pages < 2:
@@ -102,6 +124,16 @@ class PagedKVPool:
         self._free_slots = list(range(n_slots - 1, -1, -1))
         self._slots: dict[int, _Slot] = {}
         self.peak_pages_in_use = 0
+        # ---- prefix cache state (inert when prefix_cache is False) ----
+        self.prefix_cache = bool(prefix_cache)
+        self._page_ref = np.zeros(n_pages, np.int32)  # 0 = free/scratch
+        self._trie: OrderedDict[tuple, int] = OrderedDict()  # key -> node id
+        self._nodes: dict[int, _PrefixNode] = {
+            0: _PrefixNode(key=(), page=0, parent=0)  # root (no page)
+        }
+        self._next_node = 1
+        self.cow_copies = 0  # pages copied before a write (COW + admit)
+        self.prefix_hit_pages = 0  # pages mapped from the trie at admit
 
     # ---- accounting -----------------------------------------------------
 
@@ -110,22 +142,82 @@ class PagedKVPool:
         return (self.n_pages - 1) - len(self._free_pages)
 
     @property
+    def occupancy(self) -> float:
+        return self.pages_in_use / (self.n_pages - 1)
+
+    @property
     def is_int8(self) -> bool:
         return self.k_scale is not None
 
     def seq_capacity_tokens(self) -> int:
         return self.max_pages_per_seq * self.page_size
 
-    def admit(self, n_tokens: int) -> Optional[int]:
-        """Claim a slot + pages for a sequence of ``n_tokens``."""
-        need = max(1, pages_needed(n_tokens, self.page_size))
-        if not self._free_slots or need > self.max_pages_per_seq:
+    def fits(self, n_tokens: int) -> bool:
+        """Whether a sequence of n_tokens can EVER be resident."""
+        return (
+            n_tokens <= self.seq_capacity_tokens()
+            and pages_needed(n_tokens, self.page_size) <= self.n_pages - 1
+        )
+
+    def _claim(self) -> int:
+        page = self._free_pages.pop()
+        self._page_ref[page] = 1
+        return page
+
+    def _decref(self, page: int) -> None:
+        self._page_ref[page] -= 1
+        if self._page_ref[page] == 0:
+            self._free_pages.append(page)
+
+    def _available(self, need: int) -> bool:
+        """Whether ``need`` pages can be produced, reclaiming cache-only
+        pages (LRU-first) if the free list alone cannot cover it."""
+        if need <= len(self._free_pages):
+            return True
+        return self._reclaim(need - len(self._free_pages))
+
+    def admit(self, n_tokens: int, tokens=None) -> Optional[int]:
+        """Claim a slot + pages for a sequence of ``n_tokens``.
+
+        With the prefix cache on and ``tokens`` (the request's prefix)
+        given, full leading pages found in the trie are mapped shared
+        (refcount + 1) and the slot's ``length`` starts at the cached token
+        count.  A hit covering the WHOLE sequence maps a private copy of
+        its last page and caps ``length`` at ``n_tokens - 1``: the engine
+        still computes the final token, whose logits seed generation.
+        """
+        need_total = max(1, pages_needed(n_tokens, self.page_size))
+        if not self._free_slots or need_total > self.max_pages_per_seq:
             return None
-        if need > len(self._free_pages):
+        shared: list[int] = []
+        if self.prefix_cache and tokens is not None:
+            shared = [
+                self._nodes[nid].page
+                for nid in self._prefix_lookup(np.asarray(tokens, np.int32))
+            ]
+            shared = shared[:need_total]
+        full_hit = len(shared) * self.page_size >= n_tokens
+        fresh = need_total - len(shared) + (1 if full_hit else 0)
+        pages = []
+        for pg in shared:  # pin BEFORE any reclaim can free cache-only pages
+            self._page_ref[pg] += 1
+            pages.append(pg)
+        if not self._available(fresh):
+            for pg in shared:
+                self._decref(pg)  # the trie still holds one ref
             return None
         slot = self._free_slots.pop()
-        self._slots[slot] = _Slot(
-            pages=[self._free_pages.pop() for _ in range(need)], length=0)
+        if full_hit:
+            # copy-on-admit: the engine rewrites this page's final token,
+            # and shared pages are immutable
+            last = pages.pop()
+            pages.append(self._copy_into_fresh(last))
+            self._page_ref[last] -= 1
+        while len(pages) < need_total:
+            pages.append(self._claim())
+        cached_len = min(len(shared) * self.page_size, n_tokens - 1)
+        self._slots[slot] = _Slot(pages=pages, length=cached_len)
+        self.prefix_hit_pages += len(shared)
         self.peak_pages_in_use = max(self.peak_pages_in_use, self.pages_in_use)
         return slot
 
@@ -137,19 +229,186 @@ class PagedKVPool:
             return True
         if len(st.pages) + need > self.max_pages_per_seq:
             return False
-        if need > len(self._free_pages):
+        if not self._available(need):
             return False
         for _ in range(need):
-            st.pages.append(self._free_pages.pop())
+            st.pages.append(self._claim())
         self.peak_pages_in_use = max(self.peak_pages_in_use, self.pages_in_use)
         return True
 
     def release(self, slot: int) -> None:
-        self._free_pages.extend(self._slots.pop(slot).pages)
+        st = self._slots.pop(slot)
+        for page in st.pages:
+            self._decref(page)
         self._free_slots.append(slot)
+
+    def truncate(self, slot: int, new_len: int) -> int:
+        """Roll a slot back to ``new_len`` valid tokens: wholly invalid
+        trailing pages are unmapped (refcount decrement — a page the trie
+        or a sibling still holds survives) and the valid length drops.
+        Page contents are never touched; readers mask past ``ctx_len``.
+        Returns the number of pages unmapped."""
+        st = self._slots[slot]
+        if new_len < 0 or new_len > st.length:
+            raise ValueError(
+                f"truncate to {new_len} outside [0, {st.length}] "
+                f"(slot {slot})"
+            )
+        keep = max(1, pages_needed(new_len, self.page_size))
+        dropped = 0
+        while len(st.pages) > keep:
+            self._decref(st.pages.pop())
+            dropped += 1
+        st.length = new_len
+        return dropped
 
     def length(self, slot: int) -> int:
         return self._slots[slot].length
+
+    # ---- prefix cache ---------------------------------------------------
+
+    def _page_key(self, parent: int, tokens: np.ndarray, i: int) -> tuple:
+        ps = self.page_size
+        return (parent, tokens[i * ps : (i + 1) * ps].tobytes())
+
+    def cached_prefix_pages(self, tokens) -> int:
+        """How many full leading pages of ``tokens`` the trie holds now —
+        the pages an admission would map instead of claiming (the walk
+        refreshes the chain's LRU position, as admission would)."""
+        if not self.prefix_cache:
+            return 0
+        return len(self._prefix_lookup(np.asarray(tokens, np.int32)))
+
+    def _prefix_lookup(self, tokens: np.ndarray) -> list[int]:
+        """Longest chain of cached full pages matching ``tokens``: trie
+        node ids (root excluded), each moved to the LRU's young end."""
+        out: list[int] = []
+        parent = 0
+        for i in range(len(tokens) // self.page_size):
+            key = self._page_key(parent, tokens, i)
+            nid = self._trie.get(key)
+            if nid is None:
+                break
+            self._trie.move_to_end(key)
+            out.append(nid)
+            parent = nid
+        return out
+
+    def register_prefix(self, slot: int, tokens) -> None:
+        """Insert the slot's fully written leading pages of ``tokens`` into
+        the trie; each new node takes its own reference on the page."""
+        if not self.prefix_cache:
+            return
+        tokens = np.asarray(tokens, np.int32)
+        st = self._slots[slot]
+        parent = 0
+        for i in range(min(len(tokens), st.length) // self.page_size):
+            key = self._page_key(parent, tokens, i)
+            nid = self._trie.get(key)
+            if nid is None:
+                page = st.pages[i]
+                nid = self._next_node
+                self._next_node += 1
+                self._trie[key] = nid
+                self._nodes[nid] = _PrefixNode(key=key, page=page,
+                                               parent=parent)
+                self._nodes[parent].children.add(nid)
+                self._page_ref[page] += 1
+            parent = nid
+
+    def _remove_node(self, nid: int) -> None:
+        node = self._nodes.pop(nid)
+        del self._trie[node.key]
+        self._nodes[node.parent].children.discard(nid)
+        self._decref(node.page)
+
+    def _reclaim(self, need: int) -> bool:
+        """Free ``need`` pages by dropping cache-only trie leaves (no live
+        slot maps the page, no children), oldest first; dropping a leaf
+        may expose its parent, so loop until satisfied or stuck."""
+        if not self.prefix_cache or need <= 0:
+            return need <= 0
+        freed = 0
+        progress = True
+        while freed < need and progress:
+            progress = False
+            for key, nid in list(self._trie.items()):
+                node = self._nodes[nid]
+                if node.children or self._page_ref[node.page] != 1:
+                    continue
+                self._remove_node(nid)
+                freed += 1
+                progress = True
+                if freed >= need:
+                    break
+        return freed >= need
+
+    def _copy_into_fresh(self, src: int) -> int:
+        """Claim a free page and copy ``src`` into it across all layers
+        (a plain in-place tensor copy on the pool's device)."""
+        dst = self._claim()
+        for store in self._storage():
+            store[:, dst].copy_(store[:, src])
+        self.cow_copies += 1
+        return dst
+
+    def _ensure_private(self, slot: int, logical_page: int) -> int:
+        """Copy-on-write guard: if the slot's logical page is mapped by
+        anyone else (refcount > 1), swap in a private copy first."""
+        st = self._slots[slot]
+        page = st.pages[logical_page]
+        if self._page_ref[page] <= 1:
+            return page
+        if not self._available(1):
+            raise RuntimeError(
+                "copy-on-write needs a free page but the pool is exhausted "
+                "(evict a sequence or grow n_pages)"
+            )
+        dst = self._copy_into_fresh(page)
+        st.pages[logical_page] = dst
+        self._page_ref[page] -= 1
+        return dst
+
+    # ---- gauges ---------------------------------------------------------
+
+    @property
+    def shared_pages(self) -> int:
+        """Physical pages currently mapped by more than one owner."""
+        return int(np.sum(self._page_ref > 1))
+
+    @property
+    def cached_pages(self) -> int:
+        """Full prompt pages resident in the prefix trie."""
+        return len(self._trie)
+
+    @property
+    def max_page_ref(self) -> int:
+        return int(self._page_ref.max())
+
+    def gauges(self) -> dict:
+        """Every pool gauge by name, read now."""
+        return {
+            "pages_in_use": self.pages_in_use,
+            "peak_pages_in_use": self.peak_pages_in_use,
+            "occupancy": self.occupancy,
+            "peak_occupancy": (self.peak_pages_in_use
+                               / max(1, self.n_pages - 1)),
+            "shared_pages": self.shared_pages,
+            "cached_pages": self.cached_pages,
+            "max_page_ref": self.max_page_ref,
+            "cow_copies": self.cow_copies,
+            "prefix_hit_pages": self.prefix_hit_pages,
+        }
+
+    def _storage(self) -> list:
+        out = [self.k, self.v]
+        if self.is_int8:
+            out += [self.k_scale, self.v_scale]
+        return out
+
+    def total_bytes(self) -> int:
+        """Bytes of KV page storage (values and int8 scales)."""
+        return sum(t.numel() * t.element_size() for t in self._storage())
 
     # ---- addressing -----------------------------------------------------
 
@@ -173,10 +432,13 @@ class PagedKVPool:
         self, slot_ids: list[Optional[int]], positions: list[int]
     ) -> tuple[np.ndarray, np.ndarray]:
         """Physical (pages, offsets) int32 for one token per lane; ``None``
-        lanes resolve to the scratch page.  Pair with :meth:`note_written`."""
+        lanes resolve to the scratch page.  Pair with :meth:`note_written`.
+        Write intent: shared target pages are copy-on-write resolved."""
         pages = np.zeros(len(slot_ids), np.int32)
         offs = np.zeros(len(slot_ids), np.int32)
         for b, (s, p) in enumerate(zip(slot_ids, positions)):
+            if s is not None:
+                self._ensure_private(s, p // self.page_size)
             pages[b], offs[b] = self._addr(s, p)
         return pages, offs
 
@@ -190,13 +452,17 @@ class PagedKVPool:
         """Physical (pages, offsets), each (B, width) int32, for one prefill
         chunk per lane at positions ``starts[b] .. starts[b] + n_valids[b]
         - 1``; the padded tail (and ``None`` lanes) resolves to the scratch
-        page.  Pair with :meth:`note_span_written`."""
+        page.  Pair with :meth:`note_span_written`.  Write intent: shared
+        target pages are copy-on-write resolved."""
         B = len(slot_ids)
         pages = np.zeros((B, width), np.int32)
         offs = np.zeros((B, width), np.int32)
         for b, (s, start, n) in enumerate(zip(slot_ids, starts, n_valids)):
             if s is None or n <= 0:
                 continue
+            for lp in range(start // self.page_size,
+                            (start + n - 1) // self.page_size + 1):
+                self._ensure_private(s, lp)
             for t in range(n):
                 pages[b, t], offs[b, t] = self._addr(s, start + t)
         return pages, offs

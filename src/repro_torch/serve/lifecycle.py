@@ -17,7 +17,8 @@ __all__ = ["run_to_completion"]
 
 def run_to_completion(engine: "Engine",
                       max_steps: Optional[int] = None) -> list["Request"]:
-    """Drive ``engine`` until every submitted request is terminal.
+    """Drive ``engine`` until every submitted request is terminal
+    (FINISHED, CANCELLED or FAILED: each lands in ``engine.finished``).
 
     ``max_steps`` bounds ticks that DID work (a runaway-loop backstop);
     idle iterations waiting on future arrivals don't consume it.

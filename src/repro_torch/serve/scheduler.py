@@ -3,17 +3,34 @@
 Lifecycle::
 
     QUEUED -> PREFILL -> DECODE -> FINISHED
-       ^________|__________|        (eviction under page pressure requeues
-                                     with the generated prefix intact)
-                          FAILED
+       ^________|__________|           (eviction under page pressure
+        \\_______|__________|______     requeues with the generated
+                                   \\   prefix intact)
+                       CANCELLED / FAILED
+
+Terminal states carry a ``finish_reason`` on the request: ``"length"``
+or ``"stop"`` for FINISHED, ``"cancelled"`` for CANCELLED, and a failure
+(``"deadline"``, ``"eviction_storm"``, ``"capacity"``) for FAILED.
 
 Each engine step has a token budget.  Running decode sequences cost one
 token each and are served first; leftover budget goes to prefill chunks —
 first to sequences mid-prefill, then to admitting queued requests whose
-pages fit.  Admission is strict FCFS: a head-of-queue request that does
-not fit blocks later arrivals (no starvation).  These host-side decisions
-are the JAX package's, step for step; its tenant policies, priority
-classes and speculative accept debt are not ported yet.
+pages fit.  Admission is strict head-of-queue: a request that does not
+fit blocks later arrivals (no starvation).  Prefix-cache hits start
+prefill past the cached tokens, which never charge the budget.
+
+Multi-tenant admission: every request carries a ``tenant`` and a
+``priority`` class (0 = highest).  A :class:`TenantPolicy` gives each
+tenant a token-bucket rate limit and a default class; a submit that
+overdraws its tenant's bucket is rejected with a retryable
+:class:`AdmissionRejected` (``"rate_limited"``, with ``retry_after_s``).
+The arrived queue orders by effective priority — ``priority -
+floor(wait / aging_s)``, clamped at 0 — then FCFS within a class; with
+every request in class 0 it stays the plain FCFS deque.
+
+These host-side decisions are the JAX package's, step for step (pure
+numpy and Python).  Sampling at temperature > 0 and the speculative
+accept debt are not ported yet.
 """
 from __future__ import annotations
 
@@ -31,6 +48,8 @@ __all__ = [
     "RequestState",
     "SamplingParams",
     "StepPlan",
+    "TenantPolicy",
+    "TokenBucket",
     "TokenBudgetFCFS",
 ]
 
@@ -38,12 +57,89 @@ _ids = itertools.count()
 
 
 class AdmissionRejected(ValueError):
-    """A submit the engine can never serve (``reason``, with details)."""
+    """Typed admission backpressure from ``Engine.submit``.
 
-    def __init__(self, reason: str, **details):
+    ``retryable=True`` is transient (``queue_full``, ``rate_limited``):
+    back off — for ``retry_after_s`` when set — and resubmit.
+    ``retryable=False`` (``over_capacity``) means this engine can never
+    serve the request.  ``str()`` carries every detail."""
+
+    def __init__(self, reason: str, *, retryable: bool,
+                 needed_pages: Optional[int] = None,
+                 available_pages: Optional[int] = None,
+                 pending: Optional[int] = None,
+                 limit: Optional[int] = None,
+                 retry_after_s: Optional[float] = None,
+                 tenant: Optional[str] = None):
         self.reason = reason
-        self.details = details
-        super().__init__(f"admission rejected: {reason} {details}")
+        self.retryable = retryable
+        self.needed_pages = needed_pages
+        self.available_pages = available_pages
+        self.pending = pending
+        self.limit = limit
+        self.retry_after_s = retry_after_s
+        self.tenant = tenant
+        parts = [f"admission rejected ({reason})"]
+        if tenant is not None:
+            parts.append(f"tenant {tenant!r}")
+        if needed_pages is not None:
+            parts.append(f"needs {needed_pages} pages, "
+                         f"{available_pages} available")
+        if limit is not None:
+            parts.append(f"{pending} pending >= max_queue {limit}")
+        if retry_after_s is not None:
+            parts.append(f"retry after {retry_after_s:.3g}s")
+        parts.append("retryable" if retryable else "not retryable")
+        super().__init__("; ".join(parts))
+
+
+@dataclasses.dataclass(frozen=True)
+class TenantPolicy:
+    """Per-tenant admission policy: ``rate`` admissions per second into a
+    bucket of depth ``burst`` (None = unlimited), and the default
+    ``priority`` class (0 = highest)."""
+
+    rate: Optional[float] = None
+    burst: int = 4
+    priority: int = 0
+
+    def __post_init__(self):
+        if self.rate is not None and self.rate <= 0:
+            raise ValueError(f"rate must be > 0 (or None), got {self.rate}")
+        if self.burst < 1:
+            raise ValueError(f"burst must be >= 1, got {self.burst}")
+        if self.priority < 0:
+            raise ValueError(f"priority must be >= 0, got {self.priority}")
+
+
+class TokenBucket:
+    """``rate`` tokens/s refill, capped at ``burst``.  :meth:`try_take`
+    returns None on success or the seconds until a token is available."""
+
+    __slots__ = ("rate", "burst", "tokens", "_t")
+
+    def __init__(self, rate: float, burst: int):
+        if rate <= 0 or burst < 1:
+            raise ValueError(f"need rate > 0 and burst >= 1, "
+                             f"got rate={rate} burst={burst}")
+        self.rate = float(rate)
+        self.burst = float(burst)
+        self.tokens = float(burst)
+        self._t: Optional[float] = None
+
+    def _refill(self, now: float) -> None:
+        if self._t is not None and now > self._t:
+            self.tokens = min(self.burst,
+                              self.tokens + (now - self._t) * self.rate)
+        if self._t is None or now > self._t:
+            self._t = now
+
+    def try_take(self, now: float, cost: float = 1.0) -> Optional[float]:
+        self._refill(now)
+        if self.tokens >= cost:
+            self.tokens -= cost
+            return None
+        return (cost - self.tokens) / self.rate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,11 +162,13 @@ class RequestState(enum.Enum):
     PREFILL = "prefill"
     DECODE = "decode"
     FINISHED = "finished"
+    CANCELLED = "cancelled"
     FAILED = "failed"
 
     @property
     def terminal(self) -> bool:
-        return self in (RequestState.FINISHED, RequestState.FAILED)
+        return self in (RequestState.FINISHED, RequestState.CANCELLED,
+                        RequestState.FAILED)
 
 
 @dataclasses.dataclass(eq=False)  # identity semantics: ndarray fields +
@@ -79,17 +177,26 @@ class Request:                    # list.remove/in on running queues
     max_new: int
     arrival: float = 0.0
     sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
+    stop_tokens: tuple = ()  # emitting any of these finishes the request
     rid: int = dataclasses.field(default_factory=lambda: next(_ids))
+    # seconds from ``arrival``, enforced at tick boundaries (None = none)
+    deadline_s: Optional[float] = None
+    # the tenant the request bills against, and its class (None = the
+    # tenant policy's, resolved at scheduler.submit)
+    tenant: str = "default"
+    priority: Optional[int] = None
 
     state: RequestState = RequestState.QUEUED
-    # why the request reached its terminal state ("length" or a failure)
+    # why the request reached its terminal state; None while live
     finish_reason: Optional[str] = None
     slot: Optional[int] = None
     prefill_pos: int = 0  # tokens of ``prefix`` already written to pages
     out_tokens: list = dataclasses.field(default_factory=list)
     n_evictions: int = 0
 
-    # timing (engine-relative seconds)
+    # timing (engine-relative seconds); ``t_admitted`` is the FIRST
+    # admission — an evicted request keeps it
+    t_admitted: Optional[float] = None
     t_first: Optional[float] = None
     t_finish: Optional[float] = None
     token_times: list = dataclasses.field(default_factory=list)
@@ -107,7 +214,9 @@ class Request:                    # list.remove/in on running queues
 
     @property
     def done(self) -> bool:
-        return len(self.out_tokens) >= self.max_new
+        if len(self.out_tokens) >= self.max_new:
+            return True
+        return bool(self.out_tokens) and self.out_tokens[-1] in self.stop_tokens
 
     def emit(self, token: int, now: float, logits=None) -> None:
         if self.t_first is None:
@@ -124,26 +233,104 @@ class StepPlan:
     # One co-batchable prefill group: (Request, n_tokens) chunks, each
     # request at most once, every chunk <= prefill_chunk wide
     prefill: list
+    # prompt tokens admission skipped this step via prefix-cache hits
+    prefix_hit_tokens: int = 0
 
 
 class TokenBudgetFCFS:
-    """FCFS queue + per-step token budgeting against a PagedKVPool."""
+    """Priority/FCFS queue + per-step token budgeting against a
+    PagedKVPool.  With no tenant policies and every request in class 0
+    (the defaults), behaviour is strict FCFS."""
 
-    def __init__(self, *, token_budget: int, prefill_chunk: int):
+    #: policy applied to tenants absent from the configured map
+    DEFAULT_POLICY = TenantPolicy()
+
+    def __init__(self, *, token_budget: int, prefill_chunk: int,
+                 max_queue: Optional[int] = None,
+                 tenants: Optional[dict] = None,
+                 aging_s: float = 2.0):
         if token_budget < 1 or prefill_chunk < 1:
             raise ValueError("token_budget and prefill_chunk must be >= 1")
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        if aging_s <= 0:
+            raise ValueError(f"aging_s must be > 0 seconds, got {aging_s}")
         self.token_budget = token_budget
         self.prefill_chunk = prefill_chunk
+        self.max_queue = max_queue
+        self.tenants: dict[str, TenantPolicy] = dict(tenants or {})
+        self.aging_s = aging_s
+        self._buckets: dict[str, TokenBucket] = {}
         self.waiting: list[Request] = []  # not yet arrived (virtual clock)
-        self.queue: deque[Request] = deque()  # arrived, FCFS
+        # arrived; kept sorted by (effective priority, arrival, rid)
+        self.queue: deque[Request] = deque()
+
+    # ---- multi-tenant admission -----------------------------------------
+
+    def policy(self, tenant: str) -> TenantPolicy:
+        """The tenant's policy (unknown tenants: unlimited, class 0)."""
+        return self.tenants.get(tenant, self.DEFAULT_POLICY)
+
+    def shed_priority(self) -> int:
+        """The class a load shedder drops first: the lowest configured
+        class (largest number), never class 0."""
+        classes = [p.priority for p in self.tenants.values()]
+        return max(1, max(classes, default=1))
+
+    def _charge_bucket(self, req: Request) -> None:
+        pol = self.policy(req.tenant)
+        if pol.rate is None:
+            return
+        bucket = self._buckets.get(req.tenant)
+        if bucket is None:
+            bucket = self._buckets[req.tenant] = TokenBucket(
+                pol.rate, pol.burst)
+        retry_after = bucket.try_take(req.arrival)
+        if retry_after is not None:
+            raise AdmissionRejected(
+                "rate_limited", retryable=True, tenant=req.tenant,
+                retry_after_s=retry_after)
+
+    def effective_priority(self, req: Request, now: float) -> int:
+        """Every ``aging_s`` seconds of queue wait promotes a request one
+        class, clamped at 0."""
+        pri = req.priority or 0
+        if pri <= 0:
+            return 0
+        return max(0, pri - int((now - req.arrival) / self.aging_s))
+
+    def _sort_queue(self, now: float) -> None:
+        """Re-rank the arrived queue by (effective priority, arrival, rid);
+        skipped while every queued request is in class 0."""
+        if any(r.priority for r in self.queue):
+            self.queue = deque(sorted(
+                self.queue,
+                key=lambda r: (self.effective_priority(r, now),
+                               r.arrival, r.rid),
+            ))
 
     def submit(self, req: Request) -> None:
+        if req.priority is None:
+            req.priority = self.policy(req.tenant).priority
+        elif req.priority < 0:
+            raise ValueError(f"priority must be >= 0, got {req.priority}")
+        # rate limit before the queue bound: a rate-limited tenant cannot
+        # turn its excess into queue_full rejections for everyone else
+        self._charge_bucket(req)
+        if self.max_queue is not None and self.pending >= self.max_queue:
+            raise AdmissionRejected(
+                "queue_full", retryable=True,
+                pending=self.pending, limit=self.max_queue)
         self.waiting.append(req)
         self.waiting.sort(key=lambda r: (r.arrival, r.rid))
 
     def admit_arrivals(self, now: float) -> None:
+        moved = False
         while self.waiting and self.waiting[0].arrival <= now:
             self.queue.append(self.waiting.pop(0))
+            moved = True
+        if moved or self.queue:
+            self._sort_queue(now)
 
     def requeue(self, req: Request) -> None:
         """Evicted request: back to the head (it predates queued arrivals)."""
@@ -157,14 +344,17 @@ class TokenBudgetFCFS:
     def pending(self) -> int:
         return len(self.waiting) + len(self.queue)
 
-    def plan(self, running: list[Request], pool) -> StepPlan:
+    def plan(self, running: list[Request], pool, now: float = 0.0) -> StepPlan:
+        self._sort_queue(now)  # aging may have promoted a queued class
         decode = [r for r in running if r.state is RequestState.DECODE]
         budget = self.token_budget - len(decode)
         prefill: list[tuple[Request, int]] = []
-        # continue sequences already mid-prefill (FCFS)
+        hit_tokens = 0
+        # continue sequences already mid-prefill (best class first, FCFS
+        # within it)
         for r in sorted(
             (r for r in running if r.state is RequestState.PREFILL),
-            key=lambda r: (r.arrival, r.rid),
+            key=lambda r: (self.effective_priority(r, now), r.arrival, r.rid),
         ):
             if budget <= 0:
                 break
@@ -172,18 +362,22 @@ class TokenBudgetFCFS:
             if n > 0:
                 prefill.append((r, n))
                 budget -= n
-        # admit new requests while pages + budget allow (strict FCFS)
+        # admit new requests while pages + budget allow (head of queue)
         while budget > 0 and self.queue:
             r = self.queue[0]
-            slot = pool.admit(len(r.prefix))
+            slot = pool.admit(len(r.prefix), tokens=r.prefix)
             if slot is None:
                 break
             self.queue.popleft()
             r.slot = slot
             r.state = RequestState.PREFILL
             r.prefill_pos = pool.length(slot)
+            hit_tokens += r.prefill_pos
+            if r.t_admitted is None:
+                r.t_admitted = now
             running.append(r)
             n = min(self.prefill_chunk, len(r.prefix) - r.prefill_pos, budget)
             prefill.append((r, n))
             budget -= n
-        return StepPlan(decode=decode, prefill=prefill)
+        return StepPlan(decode=decode, prefill=prefill,
+                        prefix_hit_tokens=hit_tokens)

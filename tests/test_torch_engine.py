@@ -140,7 +140,8 @@ def _default_device_calls(tmp_path):
     import torch
 
     from repro_torch.configs import get_smoke_config
-    from repro_torch.core.incoherence import seeded_transform
+    from repro_torch.core.hessian import HessianAccumulator
+    from repro_torch.core.incoherence import random_orthogonal, seeded_transform
     from repro_torch.models.transformer import init_decoder
     from repro_torch.serve.artifacts import load_quantized
     from repro_torch.serve.kv_cache import PagedKVPool
@@ -159,13 +160,16 @@ def _default_device_calls(tmp_path):
         "transform_from_numpy": lambda: convert.transform_from_numpy(t),
         "fp_params_from_numpy": lambda: convert.fp_params_from_numpy({}),
         "seeded_transform": lambda: seeded_transform("kronecker", 8, 0),
+        "HessianAccumulator.create": lambda: HessianAccumulator.create(8),
+        "random_orthogonal": lambda: random_orthogonal(8, torch.Generator()),
     }
 
 
 @pytest.mark.parametrize("entry", [
     "load_quantized", "PagedKVPool", "init_decoder",
     "synthetic_quantized_model", "transform_from_numpy",
-    "fp_params_from_numpy", "seeded_transform",
+    "fp_params_from_numpy", "seeded_transform", "HessianAccumulator.create",
+    "random_orthogonal",
 ])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """With no device given, tensors go to the card: without one, the call

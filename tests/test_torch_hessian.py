@@ -52,7 +52,7 @@ def test_accumulator_matches_reference(masked):
     mask = (rng.random((3, 5)) < 0.7).astype(np.float32) if masked else None
     ref = ref_hessian.HessianAccumulator.create(24).update(
         jnp.asarray(X), None if mask is None else jnp.asarray(mask))
-    got = hessian.HessianAccumulator.create(24).update(
+    got = hessian.HessianAccumulator.create(24, device="cpu").update(
         T(X), None if mask is None else T(mask))
     _close(got.H, ref.H)
     assert float(got.count) == float(ref.count)
@@ -65,7 +65,7 @@ def test_update_segments_chunked_matches_reference(chunk):
     X = rng.standard_normal((5, 16, 32)).astype(np.float32)
     want = ref_hessian.HessianAccumulator.create(32).update_segments(
         jnp.asarray(X)).finalize()
-    acc = hessian.HessianAccumulator.create(32)
+    acc = hessian.HessianAccumulator.create(32, device="cpu")
     for i0 in range(0, 5, chunk):
         acc = acc.update_segments(T(X[i0:i0 + chunk]))
     _close(acc.finalize(), want)

@@ -54,3 +54,87 @@ def reference_transforms(kind, n, seed, permute):
     seed)`` factors, converted (pass as ``transforms=``)."""
     t = ref_inc.make_transform(kind, n, seed, permute=permute)
     return convert.transform_from_numpy(transform_numpy(t), device="cpu")
+
+
+def fp_decoders(seed: int = 0):
+    """The reference smoke ``qwen3-14b`` at fp params from ``seed``, as
+    (reference CachedDecoder, port CachedDecoder on the CPU)."""
+    import dataclasses
+
+    import jax
+
+    from repro.configs import get_smoke_config
+    from repro.models import build_model
+    from repro.serve import CachedDecoder as RefDecoder
+    from repro_torch.configs import ArchConfig
+    from repro_torch.serve.adapter import CachedDecoder
+
+    cfg = get_smoke_config("qwen3-14b")
+    model = build_model(cfg)
+    params = model.init(jax.random.PRNGKey(seed))
+    port = CachedDecoder.from_model(
+        ArchConfig.from_dict(dataclasses.asdict(cfg)),
+        convert.fp_params_from_numpy(jax.tree.map(np.asarray, params),
+                                     device="cpu"))
+    return RefDecoder.from_model(model, params), port
+
+
+class TickRun:
+    """What :func:`drive_ticks` saw, indexed by schedule position (rids
+    differ between the two packages' engines)."""
+
+    def __init__(self):
+        self.reqs = {}  # schedule index -> Request
+        self.rejected = {}  # schedule index -> AdmissionRejected.reason
+        self.admitted = []  # schedule indices in admission order
+        self.ticks = []  # per tick: (emitted [(i, tok)], finished [i])
+
+    def outcome(self, i):
+        r = self.reqs[i]
+        return r.state.value, r.finish_reason, list(r.out_tokens)
+
+
+def drive_ticks(engine, schedule, *, events=None, max_ticks=1000):
+    """Drive ``engine`` one tick at a time on an injected clock that reads
+    the tick number.  ``schedule`` is a list of (tick, submit kwargs): each
+    is submitted just before that tick with ``arrival`` = the tick (unless
+    the kwargs give one: a later arrival waits).
+    ``events`` maps a tick to ``fn(engine, run)``, called after that
+    tick's submissions and before the tick (a cancel between ticks).  The
+    same schedule takes the same decisions in every run, so both packages'
+    engines can be held to each other."""
+    clock = [0.0]
+    engine.now = lambda: clock[0]
+    run = TickRun()
+    index = {}
+    plan = engine.scheduler.plan
+
+    def plan_and_log(running, pool, now=0.0):
+        before = {id(r) for r in running}
+        out = plan(running, pool, now=now)
+        run.admitted += [index[id(r)] for r in running
+                         if id(r) not in before]
+        return out
+
+    engine.scheduler.plan = plan_and_log
+    order = sorted(range(len(schedule)), key=lambda i: schedule[i][0])
+    for tick in range(max_ticks):
+        clock[0] = float(tick)
+        while order and schedule[order[0]][0] <= tick:
+            i = order.pop(0)
+            try:
+                r = engine.submit(**{"arrival": float(tick),
+                                     **schedule[i][1]})
+            except ValueError as e:  # AdmissionRejected in both packages
+                run.rejected[i] = e.reason
+                continue
+            run.reqs[i] = r
+            index[id(r)] = i
+        if events and tick in events:
+            events[tick](engine, run)
+        res = engine.tick()
+        run.ticks.append(([(index[id(r)], int(t)) for r, t in res.emitted],
+                          [index[id(r)] for r in res.finished]))
+        if not order and engine.idle:
+            return run
+    raise RuntimeError(f"engine did not drain in {max_ticks} ticks")
