@@ -87,7 +87,22 @@ Phases, each printing its own lines:
      rejections, admission order) equal the same schedule replayed on the
      CPU through the port's engine with a model-free decoder that emits
      the card's tokens; every emitted position passes phase 5's check; no
-     page leaks.
+     page leaks;
+  9. speculative and sampling — phase 4's model (rebuilt from its seed),
+     full width and depth, phase 4's flags and arrivals, eight prompts of
+     seeded repeated spans (half of them broken): (a) greedy speculative
+     decode (``--speculative 4 --draft ngram``: the chunked-prefill kernel
+     as verifier) against the same schedule at K = 0: streams equal but
+     where the K = 0 top-2 margin is below twice the max |Δlogit|, phase
+     5's check, drafts both accepted and rolled back, the prefill kernel
+     launched once per layer per verify tick; (b) sampled (T 0.8, top-p
+     0.9, seeds 0..7): two runs identical, every card draw equal to
+     ``sample_tokens`` on the CPU over the card's logits but within the
+     measured float32 CDF rounding of a bucket edge, K = 4 against K = 0
+     and one request alone against the batch parting only where the
+     logits' difference admits it; (c) int8 KV at K = 4 against int8 at
+     K = 0 within ``INT8_LOGIT_*``; profiles of a greedy and a sampled
+     verify tick and the draw's time at the verify tick's shape.
 
 Phase 3 also runs kron_mul at every dense width's factors (16 x 32 to
 168 x 176, and 192 x 256, the largest the kernel takes), quant_matmul at
@@ -1726,9 +1741,10 @@ def _sync(torch) -> None:
 
 
 def _args(**kw) -> argparse.Namespace:
-    """Phase 4's engine flags with phase 8's knobs set."""
+    """Phase 4's engine flags with phase 8's and 9's knobs set."""
     base = dict(vars(SERVE_ARGS), prefix_cache=False, kv_int8=False,
-                deadline_s=None, max_queue=None)
+                deadline_s=None, max_queue=None, speculative=0,
+                draft="ngram", host_sample=False)
     base.update(kw)
     return argparse.Namespace(**base)
 
@@ -1859,6 +1875,35 @@ def _decisions(engine, run: dict) -> dict:
     }
 
 
+def _compare_greedy(torch, got_run: dict, want_run: dict) -> tuple:
+    """Two greedy runs of one schedule (``record_logits``): the logits at
+    every position both streams share, up to and including each stream's
+    first parting, and each first parting with the ``want`` run's top-2
+    margin there.  Returns (max |diff|, mean |diff|, positions, partings
+    as (request, position, margin), the partings whose margin is not below
+    twice the max |diff|)."""
+    import numpy as np
+
+    diffs, firsts = [], []
+    for i, r in got_run["reqs"].items():
+        o = want_run["reqs"][i]
+        toks, otoks = r.out_tokens, o.out_tokens
+        n = next((k for k, (a, b) in enumerate(zip(toks, otoks)) if a != b),
+                 None)
+        upto = len(toks) if n is None else n + 1
+        got = torch.as_tensor(np.stack(r.step_logits[:upto]), device=DEV)
+        want = torch.as_tensor(np.stack(o.step_logits[:upto]), device=DEV)
+        diffs.append((got.float() - want.float()).abs())
+        if n is not None:
+            top2 = torch.topk(want[n].float(), 2).values
+            firsts.append((i, n, float(top2[0] - top2[1])))
+    max_d = max(float(d.max()) for d in diffs)
+    mean_d = (sum(float(d.sum()) for d in diffs)
+              / sum(d.numel() for d in diffs))
+    unexplained = [f for f in firsts if f[2] >= 2 * max_d]
+    return max_d, mean_d, sum(d.shape[0] for d in diffs), firsts, unexplained
+
+
 def _leak_gate(tag: str, engine) -> None:
     pool = engine.pool
     leaked = pool.pages_in_use - pool.cached_pages
@@ -1869,10 +1914,12 @@ def _leak_gate(tag: str, engine) -> None:
 
 def _serve_schedule(torch, tag: str, adapter, args, schedule, *,
                     max_seq_len: int, events=None, tenants=None,
-                    replay: bool = True) -> tuple:
-    """One card run of ``schedule`` (launches counted from 0 around it),
-    its leak gate, and with ``replay`` the same schedule replayed on the
-    CPU with equal host decisions.  Returns (engine, run, launches)."""
+                    replay: bool = True, required=SERVE_KERNELS) -> tuple:
+    """One card run of ``schedule`` (launches counted from 0 around it,
+    every kernel in ``required`` launched), its leak gate, and with
+    ``replay`` the same schedule replayed on the CPU with equal host
+    decisions.  Returns (engine, run, launches); ``run["wall"]`` is the
+    run's wall time."""
     from repro_torch.kernels import reset_counts
     from repro_torch.launch.serve import build_engine
 
@@ -1883,7 +1930,7 @@ def _serve_schedule(torch, tag: str, adapter, args, schedule, *,
     t0 = time.perf_counter()
     run = drive_schedule(engine, schedule, events=events)
     _sync(torch)
-    wall = time.perf_counter() - t0
+    wall = run["wall"] = time.perf_counter() - t0
     launches = _counts()
     _leak_gate(tag, engine)
     got = _decisions(engine, run)
@@ -1895,7 +1942,7 @@ def _serve_schedule(torch, tag: str, adapter, args, schedule, *,
         f"{got['peak_shared_pages']}), cow_copies {got['cow_copies']}, "
         f"evictions {got['evictions']}, prefill_tokens "
         f"{got['prefill_tokens']}; kernel launches {launches}")
-    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+    missing = [k for k in required if launches[k] == 0]
     if missing:
         raise AssertionError(f"[{tag}] kernels never launched: {missing}")
     if replay:
@@ -2008,24 +2055,8 @@ def phase_lifecycle(torch, *, seed: int, layers: int, cfg=None,
     orun = drive_schedule(oracle, sched_b)
     _sync(torch)
     t_oracle = time.perf_counter() - t0
-    diffs, firsts = [], []
-    for i, r in run8["reqs"].items():
-        o = orun["reqs"][i]
-        toks, otoks = r.out_tokens, o.out_tokens
-        n = next((k for k, (a, b) in enumerate(zip(toks, otoks)) if a != b),
-                 None)
-        upto = len(toks) if n is None else n + 1
-        got = torch.as_tensor(np.stack(r.step_logits[:upto]), device=DEV)
-        want = torch.as_tensor(np.stack(o.step_logits[:upto]), device=DEV)
-        diffs.append((got.float() - want.float()).abs())
-        if n is not None:
-            top2 = torch.topk(want[n].float(), 2).values
-            firsts.append((i, n, float(top2[0] - top2[1])))
-    max_d = max(float(d.max()) for d in diffs)
-    mean_d = (sum(float(d.sum()) for d in diffs)
-              / sum(d.numel() for d in diffs))
-    unexplained = [f for f in firsts if f[2] >= 2 * max_d]
-    n_pos = sum(d.shape[0] for d in diffs)
+    max_d, mean_d, n_pos, firsts, unexplained = _compare_greedy(
+        torch, run8, orun)
     log(f"[lifecycle-b] --kv-int8 --paged --paged-prefill against the "
         f"gather-dense int8 engine (run in {t_oracle:.1f}s): {n_pos} "
         f"positions, logit max |diff| {max_d:.4f} (tol {INT8_LOGIT_ATOL}), "
@@ -2113,6 +2144,426 @@ def phase_lifecycle(torch, *, seed: int, layers: int, cfg=None,
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 9: sampling and speculative decode
+# ---------------------------------------------------------------------------
+
+# draft depth of the speculative runs (``--speculative 4 --draft ngram``)
+SPEC_K = 4
+# (b): the sampled requests (request i draws from seed i)
+SAMPLE_TEMP, SAMPLE_TOP_P = 0.8, 0.9
+
+
+def _spec_prompts(vocab: int, seed: int, n: int = 8, length: int = 128):
+    """Prompts of seeded repeated spans (code, JSON and templated text
+    repeat themselves): prompt i repeats a span of 4 + 2 (i % 4) tokens;
+    odd prompts have eight tokens replaced at seeded positions, so some
+    drafts proposed from them are wrong."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        span = rng.integers(0, vocab, 4 + 2 * (i % 4))
+        p = np.resize(span, length).astype(np.int32)
+        if i % 2:
+            p[rng.choice(length, 8, replace=False)] = rng.integers(0, vocab, 8)
+        out.append(p)
+    return out
+
+
+def _draw_explained(lg, temp: float, top_p: float, u: float, token: int, *,
+                    delta: float, floor: float) -> tuple:
+    """Whether ``token`` can be the inverse-CDF draw of ``u`` from logits
+    ``lg`` (V,) at ``temp``/``top_p`` once every logit may move by up to
+    ``delta`` and the CDF by up to ``floor`` of its mass, and the distance
+    of ``u·S`` from the nearest bucket edge (S the nucleus mass, in units
+    of the total).  Float64, on the host.
+
+    A move of at most ``delta`` per logit keeps every probability, top-k
+    mass and nucleus mass within ``r = exp(2·delta/temp)`` of these; the
+    nucleus can take in the next token, or lose its last, only where that
+    carries the token's start across ``top_p``.  So the drawn rank's bucket
+    meets ``[u·S_lo/r² − floor, u·S_hi·r² + floor]``, and the token at a
+    rank has a logit within ``2·delta`` of the logits this order puts at
+    the ranks there."""
+    import numpy as np
+
+    lg = np.asarray(lg, np.float64)
+    z = lg / temp
+    p = np.exp(z - z.max())
+    p /= p.sum()
+    order = np.argsort(-p, kind="stable")
+    ps = p[order]
+    csum = np.cumsum(ps)
+    n = max(1, int(np.sum(csum - ps < top_p)))
+    x = u * csum[n - 1]
+    dist = float(np.min(np.abs(np.concatenate([[0.0], csum[:n]]) - x)))
+    r2 = np.exp(4.0 * delta / temp)
+    grow = n < ps.size and (csum[n] - ps[n]) / r2 - floor < top_p
+    shrink = n > 1 and csum[n - 2] * r2 + floor >= top_p
+    s_hi = csum[n] if grow else csum[n - 1]
+    s_lo = csum[n - 2] if shrink else csum[n - 1]
+    lo, hi = u * s_lo / r2 - floor, u * s_hi * r2 + floor
+    ranks = np.flatnonzero((csum - ps <= hi) & (csum >= lo))
+    ranks = ranks[ranks < n + grow]
+    if ranks.size == 0:
+        return False, dist
+    near = lg[order[ranks]]
+    return (bool(near.min() - 2 * delta <= lg[token]
+                 <= near.max() + 2 * delta), dist)
+
+
+def _cdf_rounding(torch, logits, temp: float, top_p: float) -> float:
+    """Max distance, in units of the nucleus mass, between the normalized
+    CDF the draw compares ``u`` with (``cumsum(ps) / Σps`` from
+    :func:`nucleus` in float32 on the logits' device) and the same CDF
+    from a float64 softmax of the logits in the same order: the softmax,
+    cumsum and sum rounding of this device, over rows of ``logits`` (n,
+    V)."""
+    from repro_torch.serve.adapter import nucleus
+
+    n, dev = logits.shape[0], logits.device
+    order, ps = nucleus(logits[:, None], torch.full((n,), temp, device=dev),
+                        torch.full((n,), top_p, device=dev))
+    c32 = (torch.cumsum(ps, dim=-1).double()
+           / ps.sum(dim=-1, keepdim=True).double())
+    p64 = torch.softmax(logits.double() / temp, dim=-1)[:, None]
+    ps64 = torch.gather(p64, -1, order) * (ps > 0)
+    c64 = torch.cumsum(ps64, dim=-1) / ps64.sum(dim=-1, keepdim=True)
+    return float((c32 - c64).abs().max())
+
+
+def _check_draws(torch, tag: str, run: dict, temp: float, top_p: float, *,
+                 err=None) -> dict:
+    """Every token the card drew in ``run`` against :func:`sample_tokens` on
+    the CPU over the card's recorded logits, with the same seeds and
+    emission indices.  A draw moves to another bucket than the exact
+    (float64) draw's only within its device's CDF rounding of an edge
+    (:func:`_cdf_rounding`), so a parting is admitted within ``floor`` =
+    twice the sum of both devices' rounding (measured over these logits
+    unless ``err`` gives it), ranks reordered by at most the float32
+    rounding of z = logit / T (``delta``).  Returns the counts and the
+    rounding."""
+    import numpy as np
+
+    from repro_torch.serve.adapter import sample_tokens, uniform
+
+    measure = err is None
+    err = dict(err or {"cuda": 0.0, "cpu": 0.0})
+    n_draws, partings = 0, []
+    t0 = time.perf_counter()
+    for i, r in sorted(run["reqs"].items()):
+        lg = np.stack(r.step_logits).astype(np.float32)  # (N, V)
+        N = lg.shape[0]
+        seed = r.sampling.seed
+        cpu = torch.as_tensor(lg)
+        got = sample_tokens(
+            cpu[:, None], torch.full((N,), temp), torch.full((N,), top_p),
+            torch.full((N,), seed, dtype=torch.int32),
+            torch.arange(N, dtype=torch.int32))[:, 0].numpy()
+        if measure:
+            err["cpu"] = max(err["cpu"], _cdf_rounding(torch, cpu, temp,
+                                                       top_p))
+            err["cuda"] = max(err["cuda"], _cdf_rounding(
+                torch, cpu.to(DEV), temp, top_p))
+        n_draws += N
+        for k in np.flatnonzero(got != np.asarray(r.out_tokens)):
+            partings.append((i, int(k), lg[k], int(r.out_tokens[k]),
+                             int(got[k]), seed))
+    floor = 2 * (err["cuda"] + err["cpu"])
+    shown, bad = [], []
+    for i, k, lg, card, host, seed in partings:
+        u = float(uniform(torch.tensor(seed), torch.tensor(k)))
+        delta = (float(np.abs(lg).max()) + 4 * temp) * 2.0**-23
+        ok, dist = _draw_explained(lg, temp, top_p, u, card, delta=delta,
+                                   floor=floor)
+        ok2, _ = _draw_explained(lg, temp, top_p, u, host, delta=delta,
+                                 floor=floor)
+        shown.append((i, k, card, host, f"{dist:.3g}"))
+        if not (ok and ok2):
+            bad.append((i, k))
+    log(f"[{tag}] {n_draws} card draws against sample_tokens on the CPU "
+        f"over the card's logits ({time.perf_counter() - t0:.1f}s): "
+        f"{len(partings)} differ (request, index, card, cpu, edge "
+        f"distance: {shown}); float32 CDF rounding card {err['cuda']:.3g}, "
+        f"cpu {err['cpu']:.3g}, admitted within {floor:.3g} of an edge: "
+        f"{'yes' if not bad else 'NO ' + str(bad)}")
+    if bad:
+        raise AssertionError(f"[{tag}] card draws disagree with the CPU's")
+    return {"draws": n_draws, "partings": len(partings), "err": err}
+
+
+def _compare_sampled(torch, tag: str, got_run: dict, want_run: dict,
+                     temp: float, top_p: float, *, floor: float,
+                     keys=None) -> list:
+    """Two sampled runs of one schedule: equal up to each stream's first
+    parting, which :func:`_draw_explained` must admit on the ``want`` run's
+    logits with ``delta`` = the max |Δlogit| up to it.  ``keys`` maps
+    ``got`` request keys to ``want`` keys (default: the same)."""
+    import numpy as np
+
+    from repro_torch.serve.adapter import uniform
+
+    keys = keys or {i: i for i in got_run["reqs"]}
+    out, bad, same = [], [], 0
+    max_d = 0.0
+    for gi, wi in keys.items():
+        g, w = got_run["reqs"][gi], want_run["reqs"][wi]
+        n = next((k for k, (a, b) in enumerate(zip(g.out_tokens,
+                                                   w.out_tokens))
+                  if a != b), None)
+        upto = len(g.out_tokens) if n is None else n + 1
+        d = float(np.abs(np.stack(g.step_logits[:upto])
+                         - np.stack(w.step_logits[:upto])).max())
+        max_d = max(max_d, d)
+        same += upto - (n is not None)
+        if n is None:
+            continue
+        u = float(uniform(torch.tensor(w.sampling.seed), torch.tensor(n)))
+        ok, dist = _draw_explained(w.step_logits[n], temp, top_p, u,
+                                   g.out_tokens[n], delta=d, floor=floor)
+        out.append((wi, n, f"{dist:.3g}", f"{d:.3g}"))
+        if not ok:
+            bad.append((wi, n))
+    log(f"[{tag}] {same} tokens equal before the first partings; partings "
+        f"(request, position, edge distance, max |dlogit| before it): {out}; "
+        f"max |dlogit| {max_d:.4f}; all admitted: "
+        f"{'yes' if not bad else 'NO ' + str(bad)}")
+    if bad:
+        raise AssertionError(f"[{tag}] sampled streams part where no logit "
+                             f"error explains it")
+    return out
+
+
+def _profile_verify_tick(torch, tag: str, adapter, args, prompts, *,
+                         sampling=None) -> None:
+    """``torch.profiler`` over one verify tick of 8 lanes at context ~128,
+    after a few verify ticks (so the lanes carry drafts): device busy,
+    idle share, kernels per tick, with the attention, kron_mul,
+    quant_matmul, sort and scan (cumsum) kernels named."""
+    from repro_torch.launch.serve import build_engine
+
+    engine = build_engine(adapter, max_seq_len=prompts[0].shape[0] + 40,
+                          args=args)
+    reqs = [engine.submit(p, max_new=32, **({"sampling": sampling(i)}
+                                              if sampling else {}))
+            for i, p in enumerate(prompts)]
+    while any(not r.out_tokens for r in reqs):
+        engine.tick()
+    for _ in range(3):
+        engine.tick()
+    before = engine.summary()["draft_tokens"]
+    prof = _profile(torch, engine.tick, 1)
+    drafts = engine.summary()["draft_tokens"] - before
+    _report_tick(f"{tag} verify tick ({len(prompts)} lanes, K = "
+                 f"{args.speculative}, {drafts} drafts, ctx ~"
+                 f"{prompts[0].shape[0]})", prof, 1,
+                 ("paged_prefill_kernel", "kron_mul_kernel", QMM_PREFIX,
+                  "Sort", "sort", "Scan", "scan"))
+    engine.run()
+
+
+def _time_draw(torch, V: int, seed: int) -> None:
+    """:func:`sample_tokens` at a verify tick's shape (8 lanes, K + 1
+    positions, the vocabulary) over CUDA events, sampled and greedy."""
+    from repro_torch.serve.adapter import sample_tokens
+
+    timer = Timer(torch)
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    lg = torch.randn(8, SPEC_K + 1, V, device=DEV, generator=g) * 2
+    B = lg.shape[0]
+    targs = (torch.full((B,), SAMPLE_TEMP, device=DEV),
+             torch.full((B,), SAMPLE_TOP_P, device=DEV),
+             torch.arange(B, dtype=torch.int32),
+             torch.zeros(B, dtype=torch.int32))
+    t_draw = timer(lambda: sample_tokens(lg, *targs))
+    t_greedy = timer(lambda: sample_tokens(lg, *targs, greedy_only=True))
+    log(f"[speculative-b] sample_tokens at the verify tick's shape (8, "
+        f"{SPEC_K + 1}, {V}): {t_draw:.4f} ms sampled, {t_greedy:.4f} ms "
+        f"greedy (argmax only), CUDA events, L2 flushed")
+
+
+def phase_speculative(torch, *, seed: int, layers: int, cfg=None,
+                      profile: bool = True) -> dict:
+    """Phase 9: ``qwen3-14b`` (phase 4's synthetic 2-bit model, full width)
+    with phase 4's flags, on tick-counted schedules of eight prompts of
+    repeated spans: (a) greedy speculative (K = 4, n-gram drafts; the
+    chunked-prefill kernel as verifier) against the same schedule with
+    K = 0; (b) sampled (T 0.8, top-p 0.9, seeds 0..7): two runs, the card's
+    draws against the CPU's on its logits, K = 4 against K = 0, one
+    request alone against its batch; (c) int8 KV with K = 4 against the
+    int8 engine with K = 0.  ``cfg`` replaces the model (a rehearsal on the
+    CPU at a small one); ``profile`` times the verify ticks and the draw.
+    Returns the kernel launches of each run."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve.adapter import CachedDecoder, sample_tokens
+    from repro_torch.serve.scheduler import SamplingParams
+    from repro_torch.serve.synthetic import synthetic_quantized_model
+
+    t_phase = time.perf_counter()
+    if cfg is None:
+        cfg = get_config("qwen3-14b")
+        if layers != cfg.n_layers:
+            log(f"[speculative] DEPTH CUT: {layers} of {cfg.n_layers} "
+                f"layers (full width kept)")
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+    qm = synthetic_quantized_model(cfg, seed=seed, device=DEV)
+    adapter = CachedDecoder.from_quantized(qm)
+    prompt_len, gen = 128, 32
+    max_seq_len = prompt_len + gen
+    prompts = _spec_prompts(cfg.vocab, seed + 9)
+    arrive = (0, 0, 0, 0, 3, 5, 7, 9)
+    greedy = [(t, dict(prompt=p, max_new=gen))
+              for p, t in zip(prompts, arrive)]
+    spec = lambda **kw: _args(speculative=SPEC_K, draft="ngram", **kw)
+    later = ("quant_matmul", "paged_prefill", "kron_mul")
+    paths = {}
+
+    # ---- (a) greedy speculative against K = 0 -------------------------------
+    runs = {}
+    for k in (SPEC_K, 0):
+        tag = f"speculative-a K={k}"
+        runs[k] = _serve_schedule(
+            torch, tag, adapter, _args() if k == 0 else spec(), greedy,
+            max_seq_len=max_seq_len, replay=False,
+            required=SERVE_KERNELS if k == 0 else later)
+        paths[f"speculative-a_k{k}"] = runs[k][2]
+    (eng4, run4, l4), (eng0, run0, l0) = runs[SPEC_K], runs[0]
+    s4, s0 = eng4.summary(), eng0.summary()
+    L = cfg.n_layers
+    rise = l4["paged_prefill"] - l0["paged_prefill"]
+    per_verify = rise == s4["spec_ticks"] * L
+    log(f"[speculative-a] K={SPEC_K}: spec_ticks {s4['spec_ticks']}, "
+        f"spec_lanes {s4['spec_lanes']}, draft_tokens {s4['draft_tokens']}, "
+        f"accepted_tokens {s4['accepted_tokens']}, rolled_back_tokens "
+        f"{s4['rolled_back_tokens']}, acceptance_rate "
+        f"{s4['acceptance_rate']:.3f}, accepted_per_tick "
+        f"{s4['accepted_per_tick']:.2f}, tokens_per_lane_tick "
+        f"{s4['tokens_per_lane_tick']:.3f}; steps {s4['steps']} against "
+        f"{s0['steps']} at K=0; wall {run4['wall']:.2f}s against "
+        f"{run0['wall']:.2f}s at K=0 (one run each, not a claim); "
+        f"paged_prefill launches {l4['paged_prefill']} against "
+        f"{l0['paged_prefill']} (rise {rise} = {s4['spec_ticks']} verify "
+        f"ticks x {L} layers: {'yes' if per_verify else 'NO'}"
+        f"), paged_decode {l4['paged_decode']} against {l0['paged_decode']}")
+    if (s4["accepted_tokens"] <= 0 or s4["rolled_back_tokens"] <= 0
+            or l4["paged_prefill"] != (s4["prefill_batches"]
+                                       + s4["spec_ticks"]) * L
+            or l0["paged_prefill"] != s0["prefill_batches"] * L
+            or (s4["prefill_batches"] == s0["prefill_batches"]
+                and not per_verify)):
+        raise AssertionError("[speculative-a] drafts were not both accepted "
+                             "and rolled back, or the verify ticks did not "
+                             "run the prefill kernel once per layer")
+    max_d, mean_d, n_pos, firsts, unexplained = _compare_greedy(
+        torch, run4, run0)
+    log(f"[speculative-a] K={SPEC_K} against K=0: {n_pos} positions, logit "
+        f"max |diff| {max_d:.4f}, mean |diff| {mean_d:.5f}; streams that "
+        f"part: {len(firsts)} (request, position, K=0 top-2 margin: "
+        f"{firsts}; all below 2 x max |diff|: "
+        f"{'yes' if not unexplained else 'NO'})")
+    if unexplained:
+        raise AssertionError("[speculative-a] speculative streams part from "
+                             "one-token decode where no logit error "
+                             "explains it")
+    idx = sorted(run4["reqs"])
+    check_logits(torch, qm, prompts, [run4["reqs"][i] for i in idx],
+                 atol=LOGIT_ATOL, mean_atol=LOGIT_MEAN_ATOL,
+                 tag="speculative-a check")
+    del runs, eng4, eng0, run0
+    if profile:
+        _profile_verify_tick(torch, "speculative-a greedy", adapter, spec(),
+                             prompts)
+
+    # ---- (b) sampled -----------------------------------------------------
+    sp = lambda i: SamplingParams(temperature=SAMPLE_TEMP,
+                                  top_p=SAMPLE_TOP_P, seed=i)
+    sampled = [(t, dict(prompt=p, max_new=gen, sampling=sp(i)))
+               for i, (p, t) in enumerate(zip(prompts, arrive))]
+    sruns = {}
+    for name, args, sched in (
+            ("K=0", _args(), sampled), ("K=0 again", _args(), sampled),
+            (f"K={SPEC_K}", spec(), sampled),
+            ("request 0 alone", _args(), sampled[:1])):
+        tag = f"speculative-b {name}"
+        sruns[name] = _serve_schedule(
+            torch, tag, adapter, args, sched, max_seq_len=max_seq_len,
+            replay=False,
+            required=later if args.speculative else SERVE_KERNELS)
+        paths["speculative-b_" + name.replace(" ", "_").replace("=", "")] = (
+            sruns[name][2])
+    base, again = sruns["K=0"][1], sruns["K=0 again"][1]
+    same = all(base["reqs"][i].out_tokens == again["reqs"][i].out_tokens
+               for i in base["reqs"])
+    n_greedy = sum(base["reqs"][i].out_tokens == run4["reqs"][i].out_tokens
+                   for i in base["reqs"])
+    log(f"[speculative-b] T {SAMPLE_TEMP}, top-p {SAMPLE_TOP_P}, seeds 0..7:"
+        f" two runs draw identical streams: {'yes' if same else 'NO'}; "
+        f"streams equal to the greedy ones of (a): {n_greedy} of "
+        f"{len(base['reqs'])}")
+    if not same:
+        raise AssertionError("[speculative-b] the same sampled schedule drew "
+                             "different streams")
+    err = _check_draws(torch, "speculative-b K=0 draws", base, SAMPLE_TEMP,
+                       SAMPLE_TOP_P)["err"]
+    kspec = sruns[f"K={SPEC_K}"]
+    _check_draws(torch, f"speculative-b K={SPEC_K} draws", kspec[1],
+                 SAMPLE_TEMP, SAMPLE_TOP_P, err=err)
+    # two card runs: the card's own CDF rounding, twice
+    floor = 4 * err["cuda"]
+    _compare_sampled(torch, f"speculative-b K={SPEC_K} against K=0",
+                     kspec[1], base, SAMPLE_TEMP, SAMPLE_TOP_P, floor=floor)
+    _compare_sampled(torch, "speculative-b alone against the batch",
+                     sruns["request 0 alone"][1], base, SAMPLE_TEMP,
+                     SAMPLE_TOP_P, floor=floor, keys={0: 0})
+    ks = kspec[0].summary()
+    log(f"[speculative-b] K={SPEC_K} sampled: accepted_tokens "
+        f"{ks['accepted_tokens']}, rolled_back_tokens "
+        f"{ks['rolled_back_tokens']}, acceptance_rate "
+        f"{ks['acceptance_rate']:.3f}, tokens_per_lane_tick "
+        f"{ks['tokens_per_lane_tick']:.3f}; wall {kspec[1]['wall']:.2f}s "
+        f"against {base['wall']:.2f}s at K=0")
+    del sruns, base, again, kspec, run4
+    if profile:
+        _time_draw(torch, cfg.vocab, seed)
+        _profile_verify_tick(torch, "speculative-b sampled", adapter, spec(),
+                             prompts, sampling=sp)
+
+    # ---- (c) int8 KV, K = 4 against K = 0 ----------------------------------
+    iruns = {}
+    for k in (SPEC_K, 0):
+        args = spec(kv_int8=True) if k else _args(kv_int8=True)
+        iruns[k] = _serve_schedule(
+            torch, f"speculative-c int8 K={k}", adapter, args, greedy,
+            max_seq_len=max_seq_len, replay=False,
+            required=later if k else SERVE_KERNELS)
+        paths[f"speculative-c_int8_k{k}"] = iruns[k][2]
+    max_d, mean_d, n_pos, firsts, unexplained = _compare_greedy(
+        torch, iruns[SPEC_K][1], iruns[0][1])
+    s8 = iruns[SPEC_K][0].summary()
+    log(f"[speculative-c] --kv-int8 K={SPEC_K} against --kv-int8 K=0: "
+        f"{n_pos} positions, logit max |diff| {max_d:.4f} (tol "
+        f"{INT8_LOGIT_ATOL}), mean |diff| {mean_d:.5f} (tol "
+        f"{INT8_LOGIT_MEAN_ATOL}); streams that part: {len(firsts)} "
+        f"(request, position, K=0 top-2 margin: {firsts}; all below 2 x "
+        f"max |diff|: {'yes' if not unexplained else 'NO'}); accepted "
+        f"{s8['accepted_tokens']}, rolled back {s8['rolled_back_tokens']}")
+    if max_d > INT8_LOGIT_ATOL or mean_d > INT8_LOGIT_MEAN_ATOL \
+            or unexplained:
+        raise AssertionError("[speculative-c] int8 speculative decode "
+                             "disagrees with int8 one-token decode")
+    del qm, adapter, iruns
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[speculative] phase 9 passed in "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    return paths
+
+
 REPLACES = {
     "quant_matmul": "src/repro/kernels/quant_matmul/kernel.py:60",
     "paged_decode": "src/repro/kernels/paged_attention/kernel.py:164",
@@ -2160,13 +2611,16 @@ def main(argv=None) -> int:
     dense = phase_dense_family(torch, seed=args.seed)
     torch.cuda.empty_cache()
     lifecycle = phase_lifecycle(torch, seed=args.seed, layers=args.layers)
+    torch.cuda.empty_cache()
+    speculative = phase_speculative(torch, seed=args.seed,
+                                    layers=args.layers)
     # launches: each kernel on the path that runs it — the synthetic serve
     # for the serving kernels, the quantize run for ldlq and kron_mul, the
-    # hadamard linear for hadamard; phases 7's and 8's paths beside them
+    # hadamard linear for hadamard; phases 7's, 8's and 9's paths beside them
     paths = {"serve": served["launches"], "quantize": quant["launches"],
              "hadamard_linear": quant["hadamard_launches"],
              "serve_quantized": quant["serve_launches"], **dense,
-             **lifecycle}
+             **lifecycle, **speculative}
     main_path = {"ldlq": "quantize", "kron_mul": "quantize",
                  "hadamard": "hadamard_linear"}
     kernels = []

@@ -7,6 +7,12 @@
     # or quantize in process first (QuIP, LDLQ, Kronecker transforms):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-15b \\
         --smoke --quantize --bits 2 --paged --paged-prefill --check
+    # speculative decode (n-gram drafts, the prefill kernel as verifier),
+    # and sampled decoding:
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --paged \\
+        --paged-prefill --speculative 4 --check
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --paged \\
+        --temperature 0.8 --top-p 0.9 --sample-seed 3
 
 Requests arrive staggered (``--arrival-gap``), join the decode batch while
 earlier requests are mid-generation, and decode through the KV-cached
@@ -16,7 +22,12 @@ kernel); ``--paged-prefill`` runs each tick's prefill chunks as one batched
 dispatch over the pool (chunked-prefill kernel).  ``--prefix-cache`` maps
 cached full prompt pages into new requests (refcounted, copy-on-write);
 ``--kv-int8`` stores the pages int8.  ``--stop-token``, ``--deadline-s``,
-``--max-queue`` and ``--tenants`` set the request lifecycle.  ``--check``
+``--max-queue`` and ``--tenants`` set the request lifecycle.
+``--temperature``, ``--top-p`` and ``--sample-seed`` (request i draws
+from seed ``sample_seed + i``) sample instead of the greedy argmax, on the
+device inside the paged dispatch unless ``--host-sample``;
+``--speculative K`` (with ``--paged``) drafts up to K tokens per lane
+(``--draft ngram``) and verifies them in one dispatch.  ``--check``
 verifies the engine's greedy tokens against the full-prefix recompute
 oracle (with ``--kv-int8``: a gather-dense engine over the same int8
 pages) and exits nonzero on divergence; every run exits nonzero if a page
@@ -73,12 +84,13 @@ def quantized_generate(qm, prompt: torch.Tensor, gen: int) -> torch.Tensor:
 
 def build_engine(adapter, *, max_seq_len: int, args, record_logits=False,
                  paged=None, paged_prefill=None, prefix_cache=None,
-                 robust=True, tenants=None):
+                 speculative=None, robust=True, tenants=None):
     """The engine the flags in ``args`` describe.  ``robust=False`` builds
     a reference oracle: no deadlines, queue bound or tenants, so it
     finishes every request."""
     from repro_torch.serve.engine import Engine, EngineConfig
 
+    paged = args.paged if paged is None else paged
     ecfg = EngineConfig(
         max_seq_len=max_seq_len,
         n_slots=args.slots,
@@ -86,12 +98,18 @@ def build_engine(adapter, *, max_seq_len: int, args, record_logits=False,
         n_pages=args.pages,
         token_budget=args.token_budget,
         prefill_chunk=args.prefill_chunk,
-        paged_decode=args.paged if paged is None else paged,
+        paged_decode=paged,
         paged_prefill=(args.paged_prefill if paged_prefill is None
                        else paged_prefill),
         prefix_cache=(getattr(args, "prefix_cache", False)
                       if prefix_cache is None else prefix_cache),
         kv_int8=getattr(args, "kv_int8", False),
+        speculative_k=(getattr(args, "speculative", 0) if speculative is None
+                       else speculative),
+        draft=getattr(args, "draft", "ngram"),
+        # the device draw is the paged path's default; --host-sample keeps
+        # the host's numpy draw
+        device_sample=paged and not getattr(args, "host_sample", False),
         record_logits=record_logits,
         deadline_s=getattr(args, "deadline_s", None) if robust else None,
         max_queue=getattr(args, "max_queue", None) if robust else None,
@@ -137,6 +155,24 @@ def parser() -> argparse.ArgumentParser:
                          "recomputed")
     ap.add_argument("--kv-int8", action="store_true",
                     help="store KV pages int8 with per-(token, head) scales")
+    ap.add_argument("--speculative", type=int, default=0, metavar="K",
+                    help="speculative decode (needs --paged): draft up to "
+                         "K tokens per lane per tick and verify them in one "
+                         "(B, K+1) dispatch through the chunked-prefill "
+                         "kernel; rejected drafts' K/V is rolled back")
+    ap.add_argument("--draft", default="ngram", choices=("ngram",),
+                    help="self-drafter for --speculative (ngram = prompt "
+                         "lookup over each lane's own token history)")
+    ap.add_argument("--host-sample", action="store_true",
+                    help="draw tokens on the host (numpy softmax/top-p) "
+                         "instead of on the device inside the paged "
+                         "dispatch")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy, the default)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling mass (with --temperature > 0)")
+    ap.add_argument("--sample-seed", type=int, default=0,
+                    help="per-request sampling seed base")
     ap.add_argument("--stop-token", type=int, action="append", default=None,
                     help="finish a request when it emits this token "
                          "(repeatable)")
@@ -164,7 +200,11 @@ def main(argv=None):
     from repro_torch.launch.quantize import fp_model
     from repro_torch.serve.adapter import CachedDecoder
     from repro_torch.serve.artifacts import ArtifactCorruption, load_quantized
-    from repro_torch.serve.scheduler import AdmissionRejected, RequestState
+    from repro_torch.serve.scheduler import (
+        AdmissionRejected,
+        RequestState,
+        SamplingParams,
+    )
 
     tenants = None
     if args.tenants:
@@ -174,6 +214,20 @@ def main(argv=None):
             tenants = parse_tenants(args.tenants)
         except ValueError as e:
             raise SystemExit(f"--tenants: {e}")
+    if args.speculative and not args.paged:
+        raise SystemExit(
+            "--speculative verifies drafts over the paged pool (the "
+            "chunked-prefill kernel path); add --paged")
+    if args.speculative < 0:
+        raise SystemExit(f"--speculative must be >= 0, got {args.speculative}")
+    if args.temperature == 0 and args.top_p < 1.0:
+        raise SystemExit(
+            "--top-p only applies to non-greedy decoding; pass "
+            "--temperature > 0 (temperature 0 is exact greedy argmax)")
+    if args.check and args.temperature > 0:
+        raise SystemExit(
+            "--check verifies greedy tokens against a greedy oracle; "
+            "drop --temperature (or --check)")
     if args.check and args.stop_token:
         raise SystemExit(
             "--check compares full fixed-length token streams; the "
@@ -224,11 +278,19 @@ def main(argv=None):
     engine = build_engine(adapter, max_seq_len=max_seq_len, args=args,
                           tenants=tenants)
     stop_tokens = tuple(args.stop_token or ())
+    try:  # bad sampling flags fail here, not as a capacity error below
+        sampling = [SamplingParams(temperature=args.temperature,
+                                   top_p=args.top_p,
+                                   seed=args.sample_seed + i)
+                    for i in range(args.requests)]
+    except ValueError as e:
+        raise SystemExit(f"bad sampling flags: {e}")
     submitted = []  # (prompt index, request) of accepted submissions
     for i in range(args.requests):
         try:
             req = engine.submit(prompts[i], max_new=args.gen,
                                 arrival=i * args.arrival_gap,
+                                sampling=sampling[i],
                                 stop_tokens=stop_tokens)
         except AdmissionRejected as e:
             if e.retryable:
@@ -276,6 +338,12 @@ def main(argv=None):
               f"cached_pages={s['cached_pages']} "
               f"shared_pages={s['shared_pages']} "
               f"cow_copies={s['cow_copies']}")
+    if args.speculative:
+        print(f"[serve] speculative K={args.speculative}: "
+              f"acceptance_rate={s['acceptance_rate']:.2f} "
+              f"accepted_per_tick={s['accepted_per_tick']:.2f} "
+              f"tokens_per_lane_tick={s['tokens_per_lane_tick']:.2f} "
+              f"rolled_back={s['rolled_back_tokens']}")
     if s["ttft_s_p50"] is not None:
         print(f"[serve] latency: ttft_p50={s['ttft_s_p50'] * 1e3:.1f}ms "
               f"ttft_p99={s['ttft_s_p99'] * 1e3:.1f}ms "
@@ -289,7 +357,7 @@ def main(argv=None):
             oracle = build_engine(adapter, max_seq_len=max_seq_len,
                                   args=args, paged=False,
                                   paged_prefill=False, prefix_cache=False,
-                                  robust=False)
+                                  speculative=0, robust=False)
             oref = [oracle.submit(prompts[i], max_new=args.gen)
                     for i in range(args.requests)]
             oracle.run()

@@ -20,8 +20,19 @@ Two decode paths share the block structure:
 
 Prefill has the same split: :meth:`prefill_paged` runs a whole padded
 cross-request chunk batch ``(B, C)`` through the chunked-prefill kernel.
-Selection is greedy only (an argmax on the device); sampling at
-temperature > 0 and the speculative verifier are not ported yet.
+:meth:`verify_paged` is the speculative verifier on the same trunk: a
+``(B, K+1)`` chunk ``[last_emitted, d_1 .. d_K]`` per decode lane through
+``paged_gqa_verify`` (the chunked-prefill kernel), a token selected at
+every chunk position on the device, and the longest accepted draft prefix
+counted.  Over int8 pools the chunk's own K/V is round-tripped through the
+page quantizer for attention, with the fp values as the kernel's diagonal
+override, so a verify tick reads what one-token decode would read.
+
+Selection (:func:`sample_tokens`) is the exact argmax at temperature 0;
+otherwise a draw that is a pure function of (request seed, emission
+index): the JAX package's ``fold_in(PRNGKey(seed), index)`` uniform,
+reproduced bit for bit by :func:`uniform` (threefry2x32 on 32-bit words),
+then temperature, nucleus filter and inverse CDF.
 
 Masking uses the same where-set convention as the recompute path
 (``finfo(float32).min``), so cached logits match it up to matmul
@@ -39,18 +50,116 @@ from repro_torch.core.quantizer import QuantizedLinear
 from repro_torch.kernels.paged_attention.ops import (
     paged_gqa_decode,
     paged_gqa_prefill,
+    paged_gqa_verify,
 )
 from repro_torch.launch.quantize import fp_blocks
 from repro_torch.models import layers as L
 from repro_torch.serve.kv_cache import PagedKVPool
 
-__all__ = ["CachedDecoder", "sample_tokens"]
+__all__ = ["CachedDecoder", "sample_tokens", "uniform"]
+
+_M32 = 0xFFFFFFFF
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def sample_tokens(logits: torch.Tensor) -> torch.Tensor:
-    """Greedy selection over a step's logits (B, T, V) -> (B, T) int32 on
-    the logits' device — the exact argmax (first index on ties)."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def _threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 (20 rounds) on int64 tensors holding 32-bit words
+    (torch has no uint32 arithmetic to rely on, on every device)."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def uniform(seeds: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``jax.random.uniform(fold_in(PRNGKey(seed), index))`` bit for bit
+    (threefry2x32, partitionable random bits), elementwise over
+    broadcast ``seeds`` and ``index`` -> float32 in [0, 1).
+
+    ``PRNGKey(s)`` is the key (0, s); ``fold_in(key, d)`` is
+    ``threefry(key, (0, d))``; a scalar's 32 random bits are ``x0 ^ x1``
+    of ``threefry(key, (0, 0))``, and ``u`` is the float with those bits'
+    top 23 as mantissa, minus one.
+    """
+    seeds = seeds.to(torch.int64) & _M32
+    index = index.to(torch.int64) & _M32
+    zero = torch.zeros_like(seeds + index)
+    k0, k1 = _threefry2x32(zero, seeds + zero, zero, index + zero)
+    x0, x1 = _threefry2x32(k0, k1, zero, zero)
+    bits = ((x0 ^ x1) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def nucleus(logits: torch.Tensor, temps: torch.Tensor,
+            top_ps: torch.Tensor):
+    """The draw's distribution over (B, T, V) logits, per lane's
+    temperature and top-p: ``(order, ps)``, the tokens by descending
+    probability (ties in index order, as ``jnp.argsort(-p)``) and their
+    probabilities with the tail past the nucleus zeroed (the head always
+    kept).  Temperature-0 lanes are scaled by 1."""
+    t = torch.where(temps > 0, temps, torch.ones_like(temps))
+    z = logits.to(torch.float32) / t[:, None, None]
+    p = torch.softmax(z, dim=-1)
+    ps, order = torch.sort(p, dim=-1, descending=True, stable=True)
+    keep = (torch.cumsum(ps, dim=-1) - ps) < top_ps[:, None, None]
+    keep[..., 0] = True
+    return order, torch.where(keep, ps, torch.zeros_like(ps))
+
+
+def sample_tokens(logits: torch.Tensor, temps, top_ps, seeds, draws,
+                  greedy_only: bool = False) -> torch.Tensor:
+    """Token selection over a step's logits (B, T, V) -> (B, T) int32 on
+    the logits' device.
+
+    temps/top_ps (B,) float32 tensors on the logits' device; seeds/draws
+    (B,) int32 tensors, best on the host: chunk position t of lane b draws
+    with the uniform of ``(seeds[b], draws[b] + t)``, so a stream is a
+    pure function of (seed, emission index) whatever the batch, the
+    schedule, eviction or speculative grouping.  The uniforms depend on
+    nothing the device computes, so they are made on the host (one copy
+    instead of some 300 tiny integer kernels).  The draw is the inverse
+    CDF of the nucleus (:func:`nucleus`): ``searchsorted(cumsum(ps),
+    u·Σps, right)``, clipped to V − 1.  ``temps == 0`` lanes take the
+    exact argmax (first index on ties); ``greedy_only`` skips the draw
+    when every lane is greedy.
+    """
+    greedy = torch.argmax(logits, dim=-1)
+    if greedy_only:
+        return greedy.to(torch.int32)
+    T, V = logits.shape[1], logits.shape[2]
+    order, ps = nucleus(logits, temps, top_ps)
+    idx = draws.cpu()[:, None].to(torch.int64) + torch.arange(T)
+    u = uniform(seeds.cpu()[:, None], idx).to(logits.device) * ps.sum(
+        dim=-1)
+    pick = torch.searchsorted(torch.cumsum(ps, dim=-1), u[..., None],
+                              right=True).clamp_(0, V - 1)
+    sampled = torch.gather(order, -1, pick)[..., 0]
+    return torch.where(temps[:, None] > 0, sampled, greedy).to(torch.int32)
+
+
+def _int8_roundtrip(x: torch.Tensor) -> torch.Tensor:
+    """Quantize-dequantize through the int8 page quantizer: the value a
+    later read of this token's K/V sees after the pool's scatter."""
+    q, s = L.quantize_kv(x)
+    return (q.to(torch.float32) * s[..., None]).to(x.dtype)
+
+
+def _accept(sel: torch.Tensor, drafts: torch.Tensor,
+            n_drafts: torch.Tensor) -> torch.Tensor:
+    """Longest accepted draft prefix per lane: draft i is accepted while
+    every draft before it was and the selection at its predicting position
+    drew exactly it."""
+    K = drafts.shape[1]
+    ok = (drafts == sel[:, :K]) & (
+        torch.arange(K, device=sel.device)[None] < n_drafts[:, None])
+    return torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1).to(
+        torch.int32)
 
 
 @dataclasses.dataclass
@@ -93,6 +202,17 @@ class CachedDecoder:
     def _place(self, *arrays):
         return [torch.as_tensor(np.asarray(a), dtype=torch.int32,
                                 device=self.device) for a in arrays]
+
+    def _place_sampling(self, sampling):
+        """``(temps, top_ps, seeds, draws)`` host arrays as the arguments of
+        :func:`sample_tokens` (temps and top-p on the device, seeds and
+        draws on the host), and whether every lane is greedy."""
+        temps, top_ps, seeds, draws = sampling
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                        device=self.device)
+        i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32))
+        greedy = bool((np.asarray(temps) == 0.0).all())
+        return (f32(temps), f32(top_ps), i32(seeds), i32(draws)), greedy
 
     # ---- gather-dense reference path ------------------------------------
 
@@ -204,12 +324,14 @@ class CachedDecoder:
         return logits
 
     def decode_paged_sample(self, tokens, positions, block_tables, ctx_len,
-                            pages, offs, pool):
-        """:meth:`decode_paged` with greedy selection on the device.
-        Returns ``(sel (B, 1) int32, logits (B, 1, V))``."""
+                            pages, offs, sampling, pool):
+        """:meth:`decode_paged` with :func:`sample_tokens` on the device;
+        ``sampling = (temps, top_ps, seeds, draws)`` per lane.  Returns
+        ``(sel (B, 1) int32, logits (B, 1, V))``."""
         logits = self.decode_paged(tokens, positions, block_tables, ctx_len,
                                    pages, offs, pool)
-        return sample_tokens(logits), logits
+        args, greedy = self._place_sampling(sampling)
+        return sample_tokens(logits, *args, greedy_only=greedy), logits
 
     def _block_paged(self, blk, x, positions, layer, pool, bt, ctx_len):
         cfg = self.cfg
@@ -224,7 +346,40 @@ class CachedDecoder:
         x = x + self._proj(blk, "attn.wo", o, True)
         return self._mlp(blk, x, kernel_proj=True), k[:, 0], v[:, 0]
 
-    # ---- paged batched prefill -------------------------------------------
+    # ---- paged batched prefill and the speculative verifier -------------
+
+    def _prefill_trunk(self, tokens, positions, bt, ctx_len, pool, *,
+                       verify: bool):
+        """Embed -> blocks (chunk attention over the pool) -> logits, and
+        the chunk's K/V stacked (L, B, C, KV, hd) for the scatter.  With
+        ``verify`` attention runs ``paged_gqa_verify``, and over int8 pools
+        the chunk's own K/V is round-tripped through the page quantizer
+        (what the pool returns for these tokens once scattered) while the
+        fp values ride along as the diagonal override (what one-token
+        decode folds in for its own position)."""
+        cfg = self.cfg
+        x = L.embed(self.embed, tokens)  # (B, C, D)
+        rt = verify and pool.is_int8
+        attend = paged_gqa_verify if verify else paged_gqa_prefill
+        new_k, new_v = [], []
+        for i, blk in enumerate(self.blocks):
+            B, C, _ = x.shape
+            h = L.norm_apply(blk["ln1"], x, cfg)
+            q, k, v = self._qkv(blk, h, positions, kernel_proj=True)
+            ka, va = (_int8_roundtrip(k), _int8_roundtrip(v)) if rt else (k, v)
+            o = attend(
+                q, ka, va, pool.k, pool.v, bt, ctx_len, layer=i,
+                k_scale=pool.k_scale, v_scale=pool.v_scale,
+                k_self=k if rt else None, v_self=v if rt else None,
+            )
+            o = o.to(x.dtype).reshape(B, C, cfg.q_dim)
+            x = x + self._proj(blk, "attn.wo", o, True)
+            x = self._mlp(blk, x, kernel_proj=True)
+            new_k.append(k)
+            new_v.append(v)
+        x = L.norm_apply(self.final_norm, x, cfg)
+        return L.lm_logits(self.embed, x), torch.stack(new_k), torch.stack(
+            new_v)
 
     @torch.no_grad()
     def prefill_paged(self, tokens, positions, block_tables, ctx_len, pages,
@@ -241,24 +396,35 @@ class CachedDecoder:
         """
         tokens, positions, bt, ctx_len = self._place(
             tokens, positions, block_tables, ctx_len)
-        cfg = self.cfg
-        x = L.embed(self.embed, tokens)  # (B, C, D)
-        new_k, new_v = [], []
-        for i, blk in enumerate(self.blocks):
-            B, C, _ = x.shape
-            h = L.norm_apply(blk["ln1"], x, cfg)
-            q, k, v = self._qkv(blk, h, positions, kernel_proj=True)
-            o = paged_gqa_prefill(
-                q, k, v, pool.k, pool.v, bt, ctx_len, layer=i,
-                k_scale=pool.k_scale, v_scale=pool.v_scale,
-            )
-            o = o.to(x.dtype).reshape(B, C, cfg.q_dim)
-            x = x + self._proj(blk, "attn.wo", o, True)
-            x = self._mlp(blk, x, kernel_proj=True)
-            new_k.append(k)
-            new_v.append(v)
-        x = L.norm_apply(self.final_norm, x, cfg)
-        logits = L.lm_logits(self.embed, x)
+        logits, kn, vn = self._prefill_trunk(tokens, positions, bt, ctx_len,
+                                             pool, verify=False)
         # (L, B, C, KV, hd) against (B, C) addresses
-        pool.scatter(pages, offs, torch.stack(new_k), torch.stack(new_v))
+        pool.scatter(pages, offs, kn, vn)
         return logits
+
+    @torch.no_grad()
+    def verify_paged(self, tokens, positions, block_tables, ctx_len, pages,
+                     offs, drafts, n_drafts, sampling, pool):
+        """One speculative verify tick against ``pool``, in place.
+
+        tokens (B, K+1) — lane b carries ``[last_emitted, d_1 .. d_K]``
+        (zero-padded past its draft count) at positions ``ctx_len[b] ..
+        ctx_len[b] + K``; drafts (B, K) the proposed tokens; n_drafts (B,)
+        valid drafts per lane; pages/offs (B, K+1) the address of every fed
+        token's K/V (scratch for padding); ``sampling = (temps, top_ps,
+        seeds, draws)`` per :func:`sample_tokens`.  Runs the prefill trunk
+        through ``paged_gqa_verify``, selects a token at every chunk
+        position, counts each lane's accepted draft prefix and scatters
+        ALL fed tokens' K/V (the engine truncates the rejected tail).
+        Returns ``(sel (B, K+1) int32, n_acc (B,) int32, logits (B, K+1,
+        V))``: lane b emits ``sel[b, :n_acc[b] + 1]``.
+        """
+        tokens, positions, bt, ctx_len, drafts, n_drafts = self._place(
+            tokens, positions, block_tables, ctx_len, drafts, n_drafts)
+        logits, kn, vn = self._prefill_trunk(tokens, positions, bt, ctx_len,
+                                             pool, verify=True)
+        args, greedy = self._place_sampling(sampling)
+        sel = sample_tokens(logits, *args, greedy_only=greedy)
+        n_acc = _accept(sel, drafts, n_drafts)
+        pool.scatter(pages, offs, kn, vn)
+        return sel, n_acc, logits

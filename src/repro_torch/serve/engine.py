@@ -11,8 +11,9 @@ Each :meth:`Engine.tick`:
   4. executes the step's prefill group — one batched paged dispatch over
      all planned chunks (``paged_prefill``), or a B=1 gather-dense loop
      (the oracle) — and one batched decode forward (fixed ``n_slots``
-     lanes, per-lane positions), writing new K/V into the pool and
-     appending greedy tokens.
+     lanes, per-lane positions) XOR one speculative verify
+     (``speculative_k``), writing new K/V into the pool and appending the
+     selected tokens.
 
 Decode runs one of two adapter paths: gather-dense (the reference oracle:
 every context page copied into a dense window per step) or **paged**
@@ -28,6 +29,16 @@ prompt headers are admitted at ``prefill_pos > 0`` and never recomputed;
 request lifecycle — stop tokens, :meth:`Engine.cancel` from any live
 state, deadlines enforced at tick boundaries, a bounded queue and tenant
 rate limits with priority classes — takes the JAX package's decisions.
+
+Selection is greedy (argmax) at temperature 0, else a temperature /
+top-p draw: on the host from the request's numpy generator, or with
+``device_sample`` on the device inside the paged dispatch, keyed by (seed,
+emission index) so the stream survives batching, eviction and
+speculative grouping.  ``speculative_k = K`` drafts up to K tokens per
+lane from its own history (``serve/drafter.py``), verifies every lane's
+``[last_emitted, drafts...]`` chunk in one ``(B, K+1)`` dispatch through
+the chunked-prefill kernel, emits the accepted prefix plus one token, and
+truncates the rejected tail's K/V.
 """
 from __future__ import annotations
 
@@ -38,7 +49,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.serve.adapter import CachedDecoder
+from repro_torch.serve.adapter import CachedDecoder, sample_tokens
+from repro_torch.serve.drafter import make_drafter
 from repro_torch.serve.kv_cache import page_bucket, pages_needed
 from repro_torch.serve.scheduler import (
     AdmissionRejected,
@@ -60,6 +72,11 @@ _STAT_COUNTERS = (
     "prefill_batches",
     "prefill_batch_size",  # widest co-batched prefill group seen
     "prefix_hit_tokens",  # prompt tokens admitted from the prefix cache
+    "spec_ticks",  # verify dispatches run
+    "spec_lanes",  # lane verifications (lanes summed over ticks)
+    "draft_tokens",  # tokens the drafter proposed
+    "accepted_tokens",  # proposed tokens the verifier accepted
+    "rolled_back_tokens",  # fed tokens whose K/V was truncated again
     "cancelled",  # requests reaching CANCELLED
     "failed",  # requests reaching FAILED (any reason)
     "deadline_missed",  # FAILED specifically for blowing deadline_s
@@ -92,6 +109,10 @@ class EngineConfig:
     paged_prefill: bool = False  # batched cross-request prefill over the pool
     prefix_cache: bool = False  # map cached prompt-prefix pages on admit
     kv_int8: bool = False  # int8 KV pages + per-(token, head) scales
+    speculative_k: int = 0  # draft depth K (0 = one token per lane per tick)
+    draft: str = "ngram"  # self-drafter kind (serve/drafter.py)
+    draft_ngram: int = 3  # longest lookup pattern the ngram drafter tries
+    device_sample: bool = False  # draw tokens inside the paged dispatch
     # default per-request deadline in seconds from arrival, enforced at
     # tick boundaries (None = none)
     deadline_s: Optional[float] = None
@@ -120,6 +141,20 @@ class Engine:
     def __init__(self, adapter: CachedDecoder, ecfg: EngineConfig):
         self.adapter = adapter
         self.ecfg = ecfg
+        self.spec_k = ecfg.speculative_k
+        if self.spec_k < 0:
+            raise ValueError(f"speculative_k must be >= 0, got {self.spec_k}")
+        if self.spec_k and not ecfg.paged_decode:
+            raise ValueError(
+                "speculative decode verifies drafts over the paged pool "
+                "(the chunked-prefill kernel path); enable paged_decode")
+        if ecfg.device_sample and not ecfg.paged_decode:
+            raise ValueError(
+                "on-device sampling runs inside the paged dispatches; "
+                "enable paged_decode (or keep host-side sampling)")
+        self.drafter = (make_drafter(ecfg.draft, self.spec_k,
+                                     max_ngram=ecfg.draft_ngram)
+                        if self.spec_k else None)
         self.pool = adapter.make_pool(
             n_pages=ecfg.total_pages(),
             page_size=ecfg.page_size,
@@ -228,6 +263,16 @@ class Engine:
             self.cancel(r.rid)
         return victims
 
+    def set_speculative_k(self, k: int) -> int:
+        """Clamp the live draft depth to ``k``: it can shrink below, or come
+        back up to, ``EngineConfig.speculative_k`` (the drafter was built
+        for it); 0 runs one-token decode ticks.  Returns the depth in
+        effect."""
+        if k < 0:
+            raise ValueError(f"speculative depth must be >= 0, got {k}")
+        self.spec_k = min(k, self.ecfg.speculative_k)
+        return self.spec_k
+
     # ---- main loop ------------------------------------------------------
 
     def now(self) -> float:
@@ -277,7 +322,10 @@ class Engine:
                     self._run_prefill_chunk(req, n, now)
             worked = True
         if decode:
-            self._run_decode(decode, now)
+            if self.spec_k:
+                self._run_decode_spec(decode, now)
+            else:
+                self._run_decode(decode, now)
             worked = True
         self.stats["steps"] += 1
         result = TickResult(worked=worked, t=now, emitted=self._tick_emitted,
@@ -292,6 +340,46 @@ class Engine:
         """Block until every enqueued device step has retired."""
         if self.pool.device.type == "cuda":
             torch.cuda.synchronize(self.pool.device)
+
+    @staticmethod
+    def _select_token(req: Request, logits: np.ndarray) -> int:
+        """The host draw from last-position logits: the argmax at
+        temperature 0, else temperature, nucleus (top-p) filter and one
+        draw in float64 from the request's own generator."""
+        sp = req.sampling
+        if sp.greedy:
+            return int(np.argmax(logits))
+        z = logits.astype(np.float64) / sp.temperature
+        z -= z.max()
+        p = np.exp(z)
+        p /= p.sum()
+        if sp.top_p < 1.0:
+            order = np.argsort(-p)
+            csum = np.cumsum(p[order])
+            # smallest prefix with mass >= top_p (always keeps the head)
+            keep = order[: int(np.searchsorted(csum, sp.top_p)) + 1]
+            nucleus = np.zeros_like(p)
+            nucleus[keep] = p[keep]
+            p = nucleus / nucleus.sum()
+        return int(req.rng.choice(p.size, p=p))
+
+    def _boundary_token(self, req: Request, logits: np.ndarray) -> int:
+        """The first token, at the prefill boundary.  With device sampling
+        a non-greedy lane draws with :func:`sample_tokens` on the boundary
+        logits, so an evicted and replayed request draws exactly what its
+        uncontended run drew."""
+        sp = req.sampling
+        if not self.ecfg.device_sample or sp.greedy:
+            return self._select_token(req, logits)
+        dev = self.pool.device
+        sel = sample_tokens(
+            torch.as_tensor(logits, device=dev)[None, None],
+            torch.tensor([sp.temperature], dtype=torch.float32, device=dev),
+            torch.tensor([sp.top_p], dtype=torch.float32, device=dev),
+            torch.tensor([sp.seed], dtype=torch.int32),
+            torch.tensor([len(req.out_tokens)], dtype=torch.int32),
+        )
+        return int(sel[0, 0])
 
     def _evict(self, victim: Request, now: float) -> None:
         cap = self.ecfg.max_evictions
@@ -396,7 +484,7 @@ class Engine:
         if req.prefill_pos == len(req.prefix):
             last = last_logits.float().cpu().numpy()
             req.state = RequestState.DECODE
-            self._emit(req, int(np.argmax(last)), last, now)
+            self._emit(req, self._boundary_token(req, last), last, now)
             if req.done:
                 self._finish(req, now)
 
@@ -452,6 +540,20 @@ class Engine:
             self.pool.max_pages_per_seq,
         )
 
+    def _sampling_arrays(self, reqs: list[Request], B: int):
+        """(temps, top_ps, seeds, draws) per lane for the device draw;
+        ``draws`` is each lane's emission count so far."""
+        temps = np.zeros(B, np.float32)
+        top_ps = np.ones(B, np.float32)
+        seeds = np.zeros(B, np.int32)
+        draws = np.zeros(B, np.int32)
+        for b, r in enumerate(reqs):
+            temps[b] = r.sampling.temperature
+            top_ps[b] = r.sampling.top_p
+            seeds[b] = r.sampling.seed
+            draws[b] = len(r.out_tokens)
+        return temps, top_ps, seeds, draws
+
     def _run_decode(self, decode: list[Request], now: float) -> None:
         B = self.ecfg.n_slots
         if len(decode) > B:
@@ -466,31 +568,124 @@ class Engine:
             ctx_len[b] = self.pool.length(r.slot)
             positions[b, 0] = ctx_len[b]
         pos_list = [int(p) for p in positions[:, 0]]
+        sel = None
         if self.ecfg.paged_decode:
             bt = self.pool.block_table(slots)
             bt = bt[:, : self._active_pages(int(ctx_len.max(initial=1)))]
             pages, offs = self.pool.addresses(slots, pos_list)
-            sel, logits = self.adapter.decode_paged_sample(
-                tokens, positions, bt, ctx_len, pages, offs, self.pool)
+            if self.ecfg.device_sample:
+                sel, logits = self.adapter.decode_paged_sample(
+                    tokens, positions, bt, ctx_len, pages, offs,
+                    self._sampling_arrays(decode, B), self.pool)
+                sel = sel[:, 0].cpu().numpy()
+            else:
+                logits = self.adapter.decode_paged(
+                    tokens, positions, bt, ctx_len, pages, offs, self.pool)
             self.pool.note_written(slots, pos_list)
-            sel = sel[:, 0].cpu().numpy()
         else:
             ctx_k, ctx_v = self.pool.gather(slots)
             logits, k_new, v_new = self.adapter(
                 tokens, positions, ctx_k, ctx_v, ctx_len)
             self.pool.write(slots, pos_list, k_new[:, :, 0], v_new[:, :, 0])
-            sel = None
         logits_np = None
         if sel is None or self.ecfg.record_logits:
             logits_np = logits[:, 0].float().cpu().numpy()
         for b, r in enumerate(decode):
-            tok = int(sel[b]) if sel is not None else int(
-                np.argmax(logits_np[b]))
+            tok = (int(sel[b]) if sel is not None
+                   else self._select_token(r, logits_np[b]))
             self._emit(r, tok, None if logits_np is None else logits_np[b],
                        now)
             self.stats["decode_tokens"] += 1
             if r.done:
                 self._finish(r, now)
+
+    def _run_decode_spec(self, decode: list[Request], now: float) -> None:
+        """One speculative tick: draft up to K tokens per lane, verify every
+        lane's ``[last_emitted, drafts...]`` chunk in one padded (B, K+1)
+        dispatch, emit each lane's accepted prefix plus one token, and
+        roll back the rejected tail's K/V."""
+        B, K = self.ecfg.n_slots, self.spec_k
+        W = K + 1
+        if len(decode) > B:
+            raise RuntimeError(f"{len(decode)} decode lanes > {B} slots")
+        slots: list[Optional[int]] = [None] * B
+        tokens = np.zeros((B, W), np.int32)
+        positions = np.tile(np.arange(W, dtype=np.int32), (B, 1))
+        ctx_len = np.zeros((B,), np.int32)
+        drafts = np.zeros((B, K), np.int32)
+        n_drafts = np.zeros((B,), np.int32)
+        starts = [0] * B
+        widths = [0] * B
+        for b, r in enumerate(decode):
+            slots[b] = r.slot
+            length = self.pool.length(r.slot)
+            # opportunistic draft, capped by the request's remaining
+            # tokens, the slot's capacity and free pages: drafting never
+            # evicts (the +1 page was claimed by _ensure_decode_pages)
+            room = min(K, r.max_new - len(r.out_tokens) - 1,
+                       self.pool.seq_capacity_tokens() - (length + 1))
+            prop = (self.drafter.propose(r.prefix, room) if room > 0
+                    else np.zeros(0, np.int32))
+            n = len(prop)
+            while n > 0 and not self.pool.extend(r.slot, length + 1 + n):
+                n -= 1
+            tokens[b, 0] = r.out_tokens[-1]
+            tokens[b, 1 : 1 + n] = prop[:n]
+            drafts[b, :n] = prop[:n]
+            n_drafts[b] = n
+            positions[b] += length
+            ctx_len[b] = length
+            starts[b], widths[b] = length, 1 + n
+            self.stats["draft_tokens"] += n
+        pages, offs = self.pool.span_addresses(slots, starts, widths, W)
+        bt = self.pool.block_table(slots)
+        bt = bt[:, : self._active_pages(int(ctx_len.max(initial=1)))]
+        sampling = (
+            self._sampling_arrays(decode, B) if self.ecfg.device_sample
+            # host sampling: zero temps make the device selection greedy;
+            # the host re-selects from the logits
+            else (np.zeros(B, np.float32), np.ones(B, np.float32),
+                  np.zeros(B, np.int32), np.zeros(B, np.int32)))
+        sel, n_acc, logits = self.adapter.verify_paged(
+            tokens, positions, bt, ctx_len, pages, offs, drafts, n_drafts,
+            sampling, self.pool)
+        self.pool.note_span_written(slots, starts, widths)
+        self.stats["spec_ticks"] += 1
+        self.stats["spec_lanes"] += len(decode)
+        logits_np = None
+        if not self.ecfg.device_sample or self.ecfg.record_logits:
+            logits_np = logits.float().cpu().numpy()
+        sel, n_acc = sel.cpu().numpy(), n_acc.cpu().numpy()
+        extra = 0
+        for b, r in enumerate(decode):
+            length = int(ctx_len[b])
+            emitted = 0
+            i = 0
+            while True:
+                tok = (int(sel[b, i]) if self.ecfg.device_sample
+                       else self._select_token(r, logits_np[b, i]))
+                self._emit(r, tok, None if logits_np is None
+                           else logits_np[b, i], now)
+                emitted += 1
+                if self.ecfg.device_sample:
+                    if r.done or i >= int(n_acc[b]):
+                        break
+                elif r.done or i >= n_drafts[b] or tok != drafts[b, i]:
+                    break
+                i += 1
+            self.stats["decode_tokens"] += emitted
+            self.stats["accepted_tokens"] += emitted - 1
+            self.stats["rolled_back_tokens"] += widths[b] - emitted
+            extra += emitted - 1
+            if r.done:
+                self._finish(r, now)  # releases the slot: no rollback
+            else:
+                # the last emitted token's K/V is computed next tick (it is
+                # the new last_emitted), so the valid length is ctx + emitted
+                self.pool.truncate(r.slot, length + emitted)
+        # accepted extras beyond the planned one per lane charge the next
+        # step's budget; rejected drafts were never charged
+        self.scheduler.charge_accepted(extra)
 
     # ---- reporting ------------------------------------------------------
 
@@ -507,6 +702,14 @@ class Engine:
         queue = [r.t_admitted - r.arrival for r in done
                  if r.t_admitted is not None]
         e2e = [r.t_finish - r.arrival for r in done]
+        # speculative health: how often the drafter was right, and tokens
+        # one lane emits per verify it takes part in (1 = no benefit)
+        s["acceptance_rate"] = s["accepted_tokens"] / max(1, s["draft_tokens"])
+        s["accepted_per_tick"] = (s["accepted_tokens"]
+                                  / max(1, s["spec_ticks"]))
+        s["tokens_per_lane_tick"] = (
+            s["decode_tokens"] / max(1, s["spec_lanes"])
+            if s["spec_ticks"] else 1.0)
         for name, vals in (("ttft_s", ttft), ("itl_s", itl),
                            ("queue_s", queue), ("e2e_s", e2e)):
             for q in (50, 99):

@@ -28,9 +28,10 @@ The arrived queue orders by effective priority — ``priority -
 floor(wait / aging_s)``, clamped at 0 — then FCFS within a class; with
 every request in class 0 it stays the plain FCFS deque.
 
-These host-side decisions are the JAX package's, step for step (pure
-numpy and Python).  Sampling at temperature > 0 and the speculative
-accept debt are not ported yet.
+Speculative decode charges the tokens a verify tick accepted beyond
+one per lane against the next step's budget (:meth:`TokenBudgetFCFS.
+charge_accepted`).  These host-side decisions are the JAX package's, step
+for step (pure numpy and Python).
 """
 from __future__ import annotations
 
@@ -144,17 +145,30 @@ class TokenBucket:
 
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
-    """Per-request decoding controls; the port serves greedy only
-    (``temperature == 0``, an exact argmax)."""
+    """Per-request decoding controls.
+
+    ``temperature == 0`` is exact greedy (argmax: the default and the
+    ``--check`` path).  Otherwise logits are scaled by 1/T, nucleus-
+    filtered to the smallest set with mass >= ``top_p``, and sampled from
+    ``seed``: on the host with a per-request numpy generator, on the device
+    keyed by (seed, emission index), so a stream does not depend on batch
+    composition, scheduling order or eviction/replay.
+    """
 
     temperature: float = 0.0
+    top_p: float = 1.0
+    seed: int = 0
 
     def __post_init__(self):
-        if self.temperature != 0.0:
+        if self.temperature < 0.0:
             raise ValueError(
-                f"only greedy decoding (temperature 0) is ported, got "
-                f"{self.temperature}"
-            )
+                f"temperature must be >= 0, got {self.temperature}")
+        if not 0.0 < self.top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {self.top_p}")
+
+    @property
+    def greedy(self) -> bool:
+        return self.temperature == 0.0
 
 
 class RequestState(enum.Enum):
@@ -202,6 +216,16 @@ class Request:                    # list.remove/in on running queues
     token_times: list = dataclasses.field(default_factory=list)
     # optional per-emission last-token logits (tests/--check)
     step_logits: list = dataclasses.field(default_factory=list)
+    # the host draw's numpy generator, made on first use; it survives
+    # eviction (the replayed request continues its draw sequence)
+    _rng: Optional[np.random.Generator] = dataclasses.field(
+        default=None, repr=False)
+
+    @property
+    def rng(self) -> np.random.Generator:
+        if self._rng is None:
+            self._rng = np.random.default_rng(self.sampling.seed)
+        return self._rng
 
     @property
     def prefix(self) -> np.ndarray:
@@ -264,6 +288,18 @@ class TokenBudgetFCFS:
         self.waiting: list[Request] = []  # not yet arrived (virtual clock)
         # arrived; kept sorted by (effective priority, arrival, rid)
         self.queue: deque[Request] = deque()
+        # speculative accept debt: tokens emitted beyond the one planned
+        # per decode lane, charged against the NEXT step's budget
+        self._accept_debt = 0
+
+    def charge_accepted(self, n_tokens: int) -> None:
+        """Charge ``n_tokens`` accepted speculative tokens (beyond one per
+        lane) against the next step's budget; rejected drafts are never
+        charged."""
+        if n_tokens < 0:
+            raise ValueError(
+                f"accepted token charge must be >= 0, got {n_tokens}")
+        self._accept_debt += n_tokens
 
     # ---- multi-tenant admission -----------------------------------------
 
@@ -347,7 +383,10 @@ class TokenBudgetFCFS:
     def plan(self, running: list[Request], pool, now: float = 0.0) -> StepPlan:
         self._sort_queue(now)  # aging may have promoted a queued class
         decode = [r for r in running if r.state is RequestState.DECODE]
-        budget = self.token_budget - len(decode)
+        # settle last tick's accept debt first: a negative remainder plans
+        # no prefill; decode always runs
+        budget = self.token_budget - self._accept_debt - len(decode)
+        self._accept_debt = 0
         prefill: list[tuple[Request, int]] = []
         hit_tokens = 0
         # continue sequences already mid-prefill (best class first, FCFS

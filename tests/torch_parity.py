@@ -138,3 +138,73 @@ def drive_ticks(engine, schedule, *, events=None, max_ticks=1000):
         if not order and engine.idle:
             return run
     raise RuntimeError(f"engine did not drain in {max_ticks} ticks")
+
+
+def draw_explained(logits, temp, top_p, u, token, *, delta=0.0, floor=0.0):
+    """Whether ``token`` can be the inverse-CDF draw of uniform ``u`` from
+    ``logits`` (V,) at temperature ``temp`` and nucleus ``top_p`` once
+    every logit may move by up to ``delta`` and the CDF by up to ``floor``
+    of its mass: ``chip_smoke.py``'s rule (``_draw_explained``), so the CPU
+    tests and the card's gates admit partings alike."""
+    import importlib.util
+    import pathlib
+
+    global _chip_smoke
+    if _chip_smoke is None:
+        path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+        spec = importlib.util.spec_from_file_location("chip_smoke", path)
+        _chip_smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(_chip_smoke)
+    return _chip_smoke._draw_explained(logits, temp, top_p, u, token,
+                                       delta=delta, floor=floor)[0]
+
+
+_chip_smoke = None
+
+
+def first_partings(streams_a, streams_b):
+    """{key: first position where two token streams differ} over the keys
+    both dicts share (a missing key: the streams are equal)."""
+    out = {}
+    for i in streams_a:
+        a, b = list(streams_a[i]), list(streams_b[i])
+        n = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if n is None and len(a) != len(b):
+            n = min(len(a), len(b))
+        if n is not None:
+            out[i] = n
+    return out
+
+
+def assert_streams_agree(got, want, *, floor, draws_on_device=True,
+                         rtol=2e-3, atol=2e-3):
+    """Two runs' sampled streams (TickRun, record_logits) are equal up to
+    each stream's first parting, which :func:`draw_explained` must admit
+    on the ``want`` run's logits with ``delta`` = the max |Δlogit| of the
+    positions both runs computed alike (``floor``: the CDF's rounding),
+    logits within ``rtol``/``atol`` up to the parting.  Returns the
+    partings."""
+    import torch
+
+    from repro_torch.serve import adapter
+
+    streams = lambda run: {i: run.reqs[i].out_tokens for i in run.reqs}
+    partings = first_partings(streams(got), streams(want))
+    for i in want.reqs:
+        g, w = got.reqs[i], want.reqs[i]
+        n = partings.get(i, len(w.out_tokens))
+        upto = min(n + 1, len(g.step_logits), len(w.step_logits))
+        lg, lw = (np.stack(r.step_logits[:upto]) for r in (g, w))
+        np.testing.assert_allclose(lg, lw, rtol=rtol, atol=atol)
+        if i not in partings:
+            continue
+        sp = w.sampling
+        delta = float(np.abs(lg - lw).max())
+        # the host draw's uniform is the generator's, not the keyed one:
+        # admit any token the perturbed nucleus can reach at some u
+        us = ([float(adapter.uniform(torch.tensor(sp.seed), torch.tensor(n)))]
+              if draws_on_device else list(np.linspace(0, 1, 4097)))
+        assert any(draw_explained(lw[n], sp.temperature, sp.top_p, u,
+                                  g.out_tokens[n], delta=delta,
+                                  floor=floor) for u in us), (i, n)
+    return partings
