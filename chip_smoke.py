@@ -102,7 +102,28 @@ Phases, each printing its own lines:
      and one request alone against the batch parting only where the
      logits' difference admits it; (c) int8 KV at K = 4 against int8 at
      K = 0 within ``INT8_LOGIT_*``; profiles of a greedy and a sampled
-     verify tick and the draw's time at the verify tick's shape.
+     verify tick and the draw's time at the verify tick's shape;
+ 10. observability, faults and quality — phase 4's model (rebuilt from its
+     seed), flags and schedule: (a) the fault plan ``OBSERVE_PLAN`` (five
+     kinds, armed with the requests' real rids) under ``--screen-logits``
+     against a fault-free run: each targeted request ends in its own state
+     and reason, ``quarantined_lanes`` 1, one ``fault:<kind>`` per firing,
+     no page left, survivors' streams equal but where the fault-free
+     top-2 margin is below 2 x phase 5's max |diff|, phase 5's check on
+     them; a NaN inside a K = 4 verify tick on phase 9's prompts
+     quarantined alone; phase 6's artifact with ``corrupt_shard@shard=0``
+     refused; (b) phase 4 with a live sync tracer in alternating runs:
+     the Chrome trace validates, the step spans' phases cover 90 % of the
+     tick wall, the engine's TTFT/ITL percentiles equal those of
+     ``token_times``, phase 4's launches, and ``torch.profiler`` puts a
+     decode tick's quant_matmul launches inside its
+     ``dispatch:decode_paged*`` range; (c) canaries (2 x 16 tokens) and
+     ``shadow_rate`` 1.0 through ``run_to_completion``: streams unchanged,
+     the canary gauge equal to the offline NLL bit for bit and close to
+     the recompute oracle's, shadow drift within phase 5's limit, flips
+     only at small margins, and the quality-baseline round trip
+     (``quality_report.py --write-baseline``, ``serve.py
+     --quality-baseline --quality-strict``) on phase 6's artifact.
 
 Phase 3 also runs kron_mul at every dense width's factors (16 x 32 to
 168 x 176, and 192 x 256, the largest the kernel takes), quant_matmul at
@@ -1111,12 +1132,15 @@ def _counts():
     return launch_counts()
 
 
-def serve_requests(torch, qm, prompts, *, gen: int, arrive, args) -> tuple:
+def serve_requests(torch, qm, prompts, *, gen: int, arrive, args,
+                   tracer=None) -> tuple:
     """Serve ``prompts`` through the engine (``--paged --paged-prefill``),
     request i submitted just before engine tick ``arrive[i]``.  Arrivals
     count ticks, not wall-clock time, so every run schedules the same ticks
-    and launches the same kernels.  Returns (adapter, reqs, record), the
-    record with the kernel launches of this run alone."""
+    and launches the same kernels.  ``tracer`` is attached to the engine
+    (phase 10).  Returns (adapter, reqs, record), the record with the
+    kernel launches of this run alone, the summed host wall of its ticks
+    and the engine's summary."""
     from repro_torch.kernels import reset_counts
     from repro_torch.launch.serve import build_engine
     from repro_torch.serve.adapter import CachedDecoder
@@ -1125,6 +1149,8 @@ def serve_requests(torch, qm, prompts, *, gen: int, arrive, args) -> tuple:
     adapter = CachedDecoder.from_quantized(qm)
     engine = build_engine(adapter, max_seq_len=prompt_len + gen, args=args,
                           record_logits=True)
+    if tracer is not None:
+        engine.attach_tracer(tracer)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1133,12 +1159,15 @@ def serve_requests(torch, qm, prompts, *, gen: int, arrive, args) -> tuple:
     engine.reset_clock()
     t0 = time.perf_counter()
     tick = 0
+    tick_s = 0.0
     while len(reqs) < n_req or not engine.idle:
         while len(reqs) < n_req and arrive[len(reqs)] <= tick:
             reqs.append(engine.submit(prompts[len(reqs)], max_new=gen,
                                       arrival=engine.now()))
         before = _counts()
+        t_tick = time.perf_counter()
         engine.tick()
+        tick_s += time.perf_counter() - t_tick
         tick += 1
         after = _counts()
         delta = {k: after[k] - before[k] for k in after}
@@ -1172,7 +1201,8 @@ def serve_requests(torch, qm, prompts, *, gen: int, arrive, args) -> tuple:
     if missing:
         raise AssertionError(f"kernels never launched on the serve path: "
                              f"{missing}")
-    return adapter, reqs, {"launches": launches, "tok_s": total / wall}
+    return adapter, reqs, {"launches": launches, "tok_s": total / wall,
+                           "tick_s": tick_s, "ticks": tick, "summary": s}
 
 
 def check_logits(torch, qm, prompts, reqs, *, atol, mean_atol,
@@ -1293,8 +1323,8 @@ def phase_serve(torch, *, seed: int, layers: int) -> dict:
     adapter, reqs, rec = serve_requests(torch, qm, prompts, gen=gen,
                                         arrive=arrive, args=SERVE_ARGS)
     # ---- phase 5: teacher-forced recompute oracle on the plain paths ----
-    check_logits(torch, qm, prompts, reqs, atol=LOGIT_ATOL,
-                 mean_atol=LOGIT_MEAN_ATOL)
+    rec["check"] = check_logits(torch, qm, prompts, reqs, atol=LOGIT_ATOL,
+                                mean_atol=LOGIT_MEAN_ATOL)
     profile_ticks(torch, adapter, SERVE_ARGS, prompts)
     shutil.rmtree(art, ignore_errors=True)
     return rec
@@ -1492,10 +1522,12 @@ def phase_quantize(torch, *, seed: int, layers: int, segments: int,
                                   arrive=arrive, args=SERVE_ARGS)
     chk = check_logits(torch, qm, prompts, reqs, atol=QUANT_LOGIT_ATOL,
                        mean_atol=QUANT_LOGIT_MEAN_ATOL, tag="quantize-check")
-    shutil.rmtree(art, ignore_errors=True)
+    # the artifact stays (under WORK_DIR) for phase 10's corrupt_shard load
+    # and quality-baseline round trip
     return {"launches": launches, "hadamard_launches": had_launches,
             "serve_launches": rec["launches"], "seconds": t_quant,
-            "ppl": (ppl_fp, ppl_q), "check": chk, "tok_s": rec["tok_s"]}
+            "ppl": (ppl_fp, ppl_q), "check": chk, "tok_s": rec["tok_s"],
+            "artifact": art}
 
 
 def _serve_synthetic(torch, arch: str, *, layers: int, seed: int,
@@ -1759,7 +1791,7 @@ def drive_schedule(engine, schedule, *, events=None, on_submit=None) -> dict:
     index, the rejections, the admission order (re-admissions after
     eviction included), the requests finished per tick and the most pages
     shared at once."""
-    from repro_torch.serve.scheduler import AdmissionRejected
+    from repro_torch.serve.faults import AdmissionRejected
 
     clock = [0.0]
     engine.now = lambda: clock[0]
@@ -1914,17 +1946,19 @@ def _leak_gate(tag: str, engine) -> None:
 
 def _serve_schedule(torch, tag: str, adapter, args, schedule, *,
                     max_seq_len: int, events=None, tenants=None,
-                    replay: bool = True, required=SERVE_KERNELS) -> tuple:
+                    replay: bool = True, required=SERVE_KERNELS,
+                    faults=None) -> tuple:
     """One card run of ``schedule`` (launches counted from 0 around it,
     every kernel in ``required`` launched), its leak gate, and with
     ``replay`` the same schedule replayed on the CPU with equal host
-    decisions.  Returns (engine, run, launches); ``run["wall"]`` is the
-    run's wall time."""
+    decisions.  ``faults`` is the engine's fault plan (phase 10).
+    Returns (engine, run, launches); ``run["wall"]`` is the run's wall
+    time."""
     from repro_torch.kernels import reset_counts
     from repro_torch.launch.serve import build_engine
 
     engine = build_engine(adapter, max_seq_len=max_seq_len, args=args,
-                          record_logits=True, tenants=tenants)
+                          record_logits=True, tenants=tenants, faults=faults)
     _sync(torch)
     reset_counts()
     t0 = time.perf_counter()
@@ -2564,6 +2598,426 @@ def phase_speculative(torch, *, seed: int, layers: int, cfg=None,
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 10: observability, faults and quality
+# ---------------------------------------------------------------------------
+
+# (a): phase 4's requests by index, armed once request 5 is submitted (tick
+# 5): request 1's next decode page claim fails, request 5's boundary logits
+# turn NaN, the next dispatch carrying request 3 raises, one admit or extend
+# reports no pages, and request 0 is cancelled at tick 6
+OBSERVE_PLAN = ("alloc_fail@rid={1};nan_logits@rid={5};"
+                "dispatch_error@rid={3};pool_exhausted;cancel@rid={0},tick=6")
+OBSERVE_ARM_TICK = 5
+OBSERVE_OUTCOMES = {0: "cancelled", 1: "alloc_fail", 3: "dispatch_error",
+                    5: "nan_logits"}
+# (a)'s verify run: request 1's logits turn NaN inside its verify tick 4
+OBSERVE_VERIFY_PLAN = "nan_logits@rid={1},tick=4"
+# phase 4's launches per layer of the served model (50 forwards of 7
+# projections, 40 decode ticks, 10 prefill ticks, two Kronecker factors per
+# projection): 14,000 / 1,600 / 400 / 28,000 at 40 layers
+PHASE4_LAUNCHES_PER_LAYER = {"quant_matmul": 350, "paged_decode": 40,
+                             "paged_prefill": 10, "kron_mul": 700}
+# (c): the pinned canary set (the serve CLI's defaults) and its period in
+# ticks (the clock reads the tick number): a probe at the start and every
+# CANARY_EVERY ticks of phase 4's 50
+CANARY_PROMPTS, CANARY_LEN, CANARY_EVERY = 2, 16, 16
+# phase 10 (b)'s coverage gate: the step spans' phases over the summed host
+# wall of the ticks
+SPAN_COVERAGE_MIN = 0.9
+
+
+def _run_ticked(engine, schedule) -> dict:
+    """Submit ``schedule`` (tick, submit kwargs) with arrival = its tick and
+    drive it through ``run_to_completion`` on a clock that reads the tick
+    number (the steps counter), so the engine admits at phase 4's ticks and
+    the canary period counts ticks.  Returns the requests by index."""
+    steps = engine.metrics.counter("steps")
+    engine.now = lambda: float(steps.value)
+    reqs = {i: engine.submit(arrival=float(t), **kw)
+            for i, (t, kw) in enumerate(schedule)}
+    engine.run()
+    return {"reqs": reqs}
+
+
+def _survivor_partings(torch, tag: str, run: dict, base: dict, survivors,
+                       check_max: float) -> None:
+    """Survivors of a faulted run against the fault-free run: logits
+    within phase 5's limit, streams equal but where the fault-free run's
+    top-2 margin is below 2 x phase 5's max |diff| (or 2 x this pair's, if
+    larger)."""
+    max_d, mean_d, n_pos, firsts, _ = _compare_greedy(
+        torch, {"reqs": {i: run["reqs"][i] for i in survivors}}, base)
+    bound = 2 * max(check_max, max_d)
+    unexplained = [f for f in firsts if f[2] >= bound]
+    log(f"[{tag}] survivors {list(survivors)} against the fault-free run: "
+        f"{n_pos} positions, logit max |diff| {max_d:.4f} (tol "
+        f"{LOGIT_ATOL}), mean {mean_d:.5f}; streams that part: "
+        f"{len(firsts)} (request, position, margin: {firsts}; all below "
+        f"{bound:.4f}: {'yes' if not unexplained else 'NO'})")
+    if max_d > LOGIT_ATOL or unexplained:
+        raise AssertionError(f"[{tag}] a fault reached a survivor")
+
+
+def _arm(spec: str):
+    """An event for ``drive_schedule`` that parses ``spec`` with the
+    submitted requests' real rids (``{i}`` = request i's) into the
+    engine's plan."""
+    from repro_torch.serve.faults import parse_fault_plan
+
+    def arm(engine, run):
+        rids = [run["reqs"][i].rid for i in range(len(run["reqs"]))]
+        engine.faults.rules += parse_fault_plan(spec.format(*rids)).rules
+    return arm
+
+
+def _fault_counts(engine) -> dict:
+    return {k: v for k, v in sorted(engine.summary().items())
+            if k.startswith("fault:")}
+
+
+def _decode_dispatch_profile(torch, adapter, args, prompts) -> dict:
+    """``torch.profiler`` over one decode tick of a traced engine, after a
+    decode tick profiled as warm-up and discarded (the profiler's first
+    step may drop kernel records): the quant_matmul kernels launched
+    inside the ``dispatch:decode_paged*`` range (a launch belongs to the
+    range when its CUDA runtime call does) against all of the tick's, and
+    the launch counters' delta over that tick."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serve.telemetry import Tracer
+
+    engine = build_engine(adapter, max_seq_len=prompts.shape[1] + 5,
+                          args=args)
+    engine.attach_tracer(Tracer())
+    reqs = [engine.submit(p, max_new=4) for p in prompts]
+    while any(not r.out_tokens for r in reqs):
+        engine.tick()
+    path = WORK_DIR / "decode_tick_trace.json"
+    _sync(torch)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(str(path))
+                 ) as prof:
+        for _ in range(2):  # warm-up tick, then the recorded one
+            before = _counts()
+            engine.tick()
+            _sync(torch)
+            prof.step()
+    counted = {k: v - before[k] for k, v in _counts().items()}
+    engine.run()
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    ranges = [e for e in events if e.get("ph") == "X"
+              and e.get("cat") == "user_annotation"
+              and e.get("name", "").startswith("dispatch:decode_paged")]
+    # kernel names are demangled signatures ("void qmm_rows16_kernel<...")
+    qmm = [e for e in events if e.get("cat") == "kernel"
+           and QMM_PREFIX in e.get("name", "")]
+    inside = 0
+    if len(ranges) == 1:
+        t0, t1 = ranges[0]["ts"], ranges[0]["ts"] + ranges[0]["dur"]
+        launched = {e["args"]["correlation"] for e in events
+                    if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                    and "correlation" in e.get("args", {})
+                    and t0 <= e["ts"] <= t1}
+        inside = sum(e["args"].get("correlation") in launched for e in qmm)
+    cats: dict = {}
+    for e in events:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    return {"ranges": [e["name"] for e in ranges], "qmm_inside": inside,
+            "qmm_kernels": len(qmm), "counted": counted, "categories": cats}
+
+
+def phase_observe(torch, *, seed: int, layers: int, check_max: float,
+                  artifact, cfg=None, profile: bool = True) -> dict:
+    """Phase 10: ``qwen3-14b`` (phase 4's synthetic 2-bit model, full width,
+    ``layers`` deep) with phase 4's flags and schedule through (a) a fault
+    plan of five kinds with the NaN/Inf screen, a NaN inside a K = 4 verify
+    tick, and a corrupt shard of phase 6's ``artifact``; (b) a live sync
+    tracer and the metrics registry; (c) canaries and shadow sampling, and
+    the quality-baseline round trip on ``artifact``.  ``check_max`` is
+    phase 5's max |diff|.  ``cfg`` replaces the model (a rehearsal on the
+    CPU at a small one); ``profile`` runs the profiler gate.  Returns the
+    kernel launches of each run."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_calibration
+    from repro_torch.kernels import reset_counts
+    from repro_torch.launch import quality_report
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serve.adapter import CachedDecoder
+    from repro_torch.serve.artifacts import ArtifactCorruption, load_quantized
+    from repro_torch.serve.faults import FaultPlan, parse_fault_plan
+    from repro_torch.serve.quality import (
+        _nll_from_logits,
+        load_baseline,
+        teacher_forced_logits,
+        teacher_forced_nll,
+    )
+    from repro_torch.serve.synthetic import synthetic_quantized_model
+    from repro_torch.serve.telemetry import (
+        Tracer,
+        phase_breakdown,
+        validate_chrome_trace,
+    )
+
+    t_phase = time.perf_counter()
+    if cfg is None:
+        cfg = get_config("qwen3-14b")
+        if layers != cfg.n_layers:
+            log(f"[observe] DEPTH CUT: {layers} of {cfg.n_layers} layers "
+                f"(full width kept)")
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+    L = cfg.n_layers
+    qm = synthetic_quantized_model(cfg, seed=seed, device=DEV)
+    adapter = CachedDecoder.from_quantized(qm)
+    prompt_len, gen = 128, 32
+    max_seq_len = prompt_len + gen
+    arrive = (0, 0, 0, 0, 3, 5, 7, 9)
+    prompts = make_calibration(cfg.vocab, n_segments=len(arrive),
+                               seg_len=prompt_len, seed=seed + 3)
+    schedule = [(t, dict(prompt=p, max_new=gen))
+                for p, t in zip(prompts, arrive)]
+    paths = {}
+
+    # ---- (a) faults ------------------------------------------------------
+    screened = _args(screen_logits=True)
+    base_eng, base, paths["observe-a_baseline"] = _serve_schedule(
+        torch, "observe-a fault-free", adapter, screened, schedule,
+        max_seq_len=max_seq_len, replay=False)
+    plan = FaultPlan()
+    eng, run, paths["observe-a_faults"] = _serve_schedule(
+        torch, "observe-a faults", adapter, screened, schedule,
+        max_seq_len=max_seq_len, replay=False, faults=plan,
+        events={OBSERVE_ARM_TICK: _arm(OBSERVE_PLAN)})
+    s = eng.summary()
+    reasons = {i: r.finish_reason for i, r in sorted(run["reqs"].items())}
+    fired = {f"fault:{e['kind']}": 1 for e in plan.log}
+    counts = _fault_counts(eng)
+    want = {i: OBSERVE_OUTCOMES.get(i, "length") for i in reasons}
+    log(f"[observe-a] plan {OBSERVE_PLAN!r} armed at tick "
+        f"{OBSERVE_ARM_TICK} with the real rids: fired "
+        f"{[(e['tick'], e['kind']) for e in plan.log]}; finish reasons "
+        f"{reasons}; {counts}; quarantined_lanes {s['quarantined_lanes']}, "
+        f"failed {s['failed']}, cancelled {s['cancelled']}; pages_in_use "
+        f"{eng.pool.pages_in_use} after the drain")
+    if (reasons != want or counts != fired or len(plan.log) != 5
+            or s["quarantined_lanes"] != 1 or eng.pool.pages_in_use):
+        raise AssertionError("[observe-a] the fault plan's outcomes, "
+                             "counters or pages are not as planned")
+    survivors = [i for i in reasons if i not in OBSERVE_OUTCOMES]
+    _survivor_partings(torch, "observe-a", run, base, survivors, check_max)
+    check_logits(torch, qm, [prompts[i] for i in survivors],
+                 [run["reqs"][i] for i in survivors], atol=LOGIT_ATOL,
+                 mean_atol=LOGIT_MEAN_ATOL, tag="observe-a check")
+    del base_eng, eng, run
+
+    # NaN inside a K = 4 verify tick, on phase 9's prompts
+    spec_prompts = _spec_prompts(cfg.vocab, seed + 9)
+    greedy = [(t, dict(prompt=p, max_new=gen))
+              for p, t in zip(spec_prompts, arrive)]
+    spec = _args(speculative=SPEC_K, draft="ngram", screen_logits=True)
+    later = ("quant_matmul", "paged_prefill", "kron_mul")
+    _, vbase, paths["observe-a_verify"] = _serve_schedule(
+        torch, f"observe-a K={SPEC_K}", adapter, spec, greedy,
+        max_seq_len=max_seq_len, replay=False, required=later)
+    vplan = FaultPlan()
+    veng, vrun, paths["observe-a_verify_nan"] = _serve_schedule(
+        torch, f"observe-a K={SPEC_K} nan", adapter, spec, greedy,
+        max_seq_len=max_seq_len, replay=False, required=later, faults=vplan,
+        events={0: _arm(OBSERVE_VERIFY_PLAN)})
+    vs = veng.summary()
+    log(f"[observe-a] K={SPEC_K} with {OBSERVE_VERIFY_PLAN!r}: fired "
+        f"{[(e['tick'], e['kind'], e.get('lane')) for e in vplan.log]}, "
+        f"request 1 {vrun['reqs'][1].finish_reason} after "
+        f"{len(vrun['reqs'][1].out_tokens)} tokens, quarantined_lanes "
+        f"{vs['quarantined_lanes']}, spec_ticks {vs['spec_ticks']}")
+    if (vrun["reqs"][1].finish_reason != "nan_logits"
+            or vs["quarantined_lanes"] != 1 or len(vplan.log) != 1
+            or veng.pool.pages_in_use):
+        raise AssertionError("[observe-a] the verify tick's NaN lane was "
+                             "not quarantined")
+    _survivor_partings(torch, f"observe-a K={SPEC_K}", vrun, vbase,
+                       [i for i in vrun["reqs"] if i != 1], check_max)
+    del veng, vrun, vbase
+
+    try:
+        load_quantized(artifact, device=DEV,
+                       faults=parse_fault_plan("corrupt_shard@shard=0"))
+    except ArtifactCorruption as e:
+        log(f"[observe-a] phase 6's artifact with corrupt_shard@shard=0: "
+            f"ArtifactCorruption ({e})")
+    else:
+        raise AssertionError("[observe-a] corrupt_shard@shard=0 loaded")
+
+    # ---- (b) telemetry ---------------------------------------------------
+    want_launches = {k: v * L for k, v in PHASE4_LAUNCHES_PER_LAYER.items()}
+    walls = []
+    traced = None
+    for i, trace in enumerate((False, True, True, False)):
+        tracer = Tracer(sync=True) if trace else None
+        _, reqs, rec = serve_requests(torch, qm, prompts, gen=gen,
+                                      arrive=arrive, args=SERVE_ARGS,
+                                      tracer=tracer)
+        tag = f"observe-b_{'traced' if trace else 'untraced'}_{i}"
+        paths[tag] = rec["launches"]
+        walls.append((trace, rec["tick_s"], rec["ticks"]))
+        got = {k: rec["launches"][k] for k in want_launches}
+        if got != want_launches:
+            raise AssertionError(f"[{tag}] launches {got}, phase 4 "
+                                 f"launches {want_launches}")
+        if trace and traced is None:
+            traced = (tracer, reqs, rec)
+    tracer, reqs, rec = traced
+    path = WORK_DIR / "observe_trace.json"
+    tracer.export_chrome_trace(path)
+    n_ev = validate_chrome_trace(json.loads(path.read_text()))
+    path.unlink()
+    pb = phase_breakdown(tracer.spans)
+    covered = sum(p["time_s"] for p in pb["phases"].values())
+    s = rec["summary"]
+    ttft = [r.t_first - r.arrival for r in reqs]
+    itl = [b - a for r in reqs for a, b in zip(r.token_times,
+                                               r.token_times[1:])]
+    pct = {f"{n}_p{q}": float(np.percentile(np.asarray(v), q))
+           for n, v in (("ttft_s", ttft), ("itl_s", itl)) for q in (50, 99)}
+    same_pct = all(s[k] == v for k, v in pct.items())
+    log(f"[observe-b] traced run (sync tracer): {len(tracer)} spans, "
+        f"{n_ev} trace events valid; {pb['root_count']} step roots over "
+        f"{rec['ticks']} ticks; phases "
+        f"{ {k: round(p['time_s'], 4) for k, p in pb['phases'].items()} } "
+        f"cover {covered:.4f} of {rec['tick_s']:.4f} s of tick wall "
+        f"({covered / rec['tick_s']:.1%}, gate {SPAN_COVERAGE_MIN:.0%}; "
+        f"{pb['coverage']:.1%} of the step spans); engine percentiles "
+        f"{ {k: round(s[k], 6) for k in pct} } equal those of token_times: "
+        f"{'yes' if same_pct else 'NO'}")
+    if (pb["root_count"] != rec["ticks"]
+            or covered < SPAN_COVERAGE_MIN * rec["tick_s"] or not same_pct):
+        raise AssertionError("[observe-b] the trace does not cover the "
+                             "ticks, or the engine's percentiles differ")
+    log("[observe-b] tick wall per run, alternating (a finding, not a "
+        "claim): " + ", ".join(
+            f"{'traced' if t else 'untraced'} {w / n * 1e3:.2f} ms x {n}"
+            for t, w, n in walls))
+    if profile:
+        prof = _decode_dispatch_profile(torch, adapter, SERVE_ARGS, prompts)
+        log(f"[observe-b] torch.profiler over one decode tick: ranges "
+            f"{prof['ranges']}, quant_matmul kernels launched inside "
+            f"{prof['qmm_inside']} of {prof['qmm_kernels']} in the tick "
+            f"(counters: {prof['counted']['quant_matmul']}; 7 x {L} = "
+            f"{7 * L}); trace events by category {prof['categories']}")
+        if (len(prof["ranges"]) != 1 or prof["qmm_inside"] != 7 * L
+                or prof["qmm_kernels"] != 7 * L
+                or prof["counted"]["quant_matmul"] != 7 * L):
+            raise AssertionError("[observe-b] the decode dispatch range "
+                                 "does not hold the tick's quant_matmul "
+                                 "launches")
+    del traced, tracer, reqs
+
+    # ---- (c) quality -----------------------------------------------------
+    canary = make_calibration(cfg.vocab, n_segments=CANARY_PROMPTS,
+                              seg_len=CANARY_LEN, seed=seed + 1234)
+    qargs = _args(canary_every=CANARY_EVERY, shadow_rate=1.0, seed=seed)
+    engine = build_engine(adapter, max_seq_len=max_seq_len, args=qargs)
+    engine.attach_canary(canary)
+    _sync(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    qrun = _run_ticked(engine, schedule)
+    _sync(torch)
+    paths["observe-c_quality"] = _counts()
+    qs = engine.summary()
+    same = all(qrun["reqs"][i].out_tokens == base["reqs"][i].out_tokens
+               for i in base["reqs"])
+    before = _counts()
+    offline = teacher_forced_nll(adapter, canary)
+    probe = {k: v - before[k] for k, v in _counts().items()}
+    log(f"[observe-c] canary_every {CANARY_EVERY} ticks, shadow_rate 1.0: "
+        f"{qs['steps']} ticks in {time.perf_counter() - t0:.2f}s; streams "
+        f"equal to (a)'s fault-free run: {'yes' if same else 'NO'}; "
+        f"canary_runs {qs['canary_runs']}, canary_nll {qs['canary_nll']!r}, "
+        f"offline teacher_forced_nll {offline!r} (equal: "
+        f"{'yes' if offline == qs['canary_nll'] else 'NO'}); act_absmax "
+        f"{qs['act_absmax']:.4g}, act_sat {qs['act_sat']:.3g}; one probe "
+        f"launches quant_matmul {probe['quant_matmul']}, kron_mul "
+        f"{probe['kron_mul']}; pages_in_use {engine.pool.pages_in_use}")
+    if (not same or qs["canary_runs"] < 2 or offline != qs["canary_nll"]
+            or probe["quant_matmul"] != 7 * L or engine.pool.pages_in_use):
+        raise AssertionError("[observe-c] the canary touched traffic, or "
+                             "its gauge differs from the offline NLL")
+    got = torch.as_tensor(teacher_forced_logits(adapter, canary), device=DEV)
+    with torch.no_grad():
+        want = qm.logits(torch.as_tensor(canary, dtype=torch.int64,
+                                         device=DEV), plain=True).float()
+    dmax = float((got - want).abs().max())
+    nll_plain = _nll_from_logits(want.cpu().numpy(), canary)
+    log(f"[observe-c] canary probe against the recompute oracle "
+        f"(logits(plain=True)): logit max |diff| {dmax:.4f} (tol "
+        f"{LOGIT_ATOL}), NLL {offline:.6f} against {nll_plain:.6f}, |diff| "
+        f"{abs(offline - nll_plain):.2e} (tol 2 x max |diff| = "
+        f"{2 * dmax:.2e})")
+    if dmax > LOGIT_ATOL or abs(offline - nll_plain) > 2 * dmax:
+        raise AssertionError("[observe-c] the canary probe disagrees with "
+                             "the recompute oracle")
+    diffs = engine.metrics.histogram("shadow_max_abs_logit_diff").samples
+    flips = unexplained = 0
+    for r in qrun["reqs"].values():
+        full = np.concatenate([r.prompt, np.asarray(r.out_tokens, np.int32)])
+        rows = teacher_forced_logits(adapter, full[None])[0][
+            len(r.prompt) - 1: len(r.prompt) - 1 + len(r.out_tokens)]
+        served = np.stack(r.step_logits)
+        d = float(np.abs(served - rows).max())
+        top2 = np.sort(rows, axis=-1)[:, -2:]
+        flip = np.argmax(served, -1) != np.argmax(rows, -1)
+        flips += int(flip.sum())
+        unexplained += int((flip & (top2[:, 1] - top2[:, 0] >= 2 * d)).sum())
+    log(f"[observe-c] shadow: samples {qs['shadow_samples']}, tokens "
+        f"{qs['shadow_tokens']}, max_abs_logit_diff per sample "
+        f"{[round(x, 4) for x in diffs]} (tol {LOGIT_ATOL}), "
+        f"shadow_token_flips {qs['shadow_token_flips']} (recounted "
+        f"{flips}; at a margin >= 2 x max |diff|: {unexplained})")
+    if (qs["shadow_samples"] != len(schedule) or max(diffs) > LOGIT_ATOL
+            or flips != qs["shadow_token_flips"] or unexplained):
+        raise AssertionError("[observe-c] shadow sampling disagrees")
+    del engine, qrun
+
+    base_json = WORK_DIR / "quality_baseline.json"
+    rc = quality_report.main([str(artifact), "--write-baseline",
+                              str(base_json)])
+    obj = load_baseline(base_json)
+    n = len(obj["proxy_loss"])
+    obj["proxy_loss"] = {k: v / 2 for k, v in obj["proxy_loss"].items()}
+    halved = WORK_DIR / "quality_baseline_halved.json"
+    halved.write_text(json.dumps(obj))
+    cli = ["--device", DEV, "--load-quantized", str(artifact), "--paged",
+           "--paged-prefill", "--requests", "2", "--prompt-len", "16",
+           "--gen", "4", "--quality-strict", "--quality-baseline"]
+    rc_own = serve_cli.main([*cli, str(base_json)])
+    try:
+        serve_cli.main([*cli, str(halved)])
+        refused = None
+    except SystemExit as e:
+        refused = str(e)
+    log(f"[observe-c] quality_report --write-baseline: rc {rc}, {n} "
+        f"layers; serve --quality-strict against it: rc {rc_own}; "
+        f"against every proxy loss halved: {refused!r}")
+    if rc != 0 or rc_own != 0 or not refused \
+            or not refused.startswith(f"refusing to serve: {n} layer"):
+        raise AssertionError("[observe-c] the quality baseline round "
+                             "trip failed")
+    del qm, adapter
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[observe] phase 10 passed in {time.perf_counter() - t_phase:.1f}s")
+    return paths
+
+
 REPLACES = {
     "quant_matmul": "src/repro/kernels/quant_matmul/kernel.py:60",
     "paged_decode": "src/repro/kernels/paged_attention/kernel.py:164",
@@ -2614,13 +3068,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     speculative = phase_speculative(torch, seed=args.seed,
                                     layers=args.layers)
+    torch.cuda.empty_cache()
+    observe = phase_observe(torch, seed=args.seed, layers=args.layers,
+                            check_max=served["check"]["max_diff"],
+                            artifact=quant["artifact"])
     # launches: each kernel on the path that runs it — the synthetic serve
     # for the serving kernels, the quantize run for ldlq and kron_mul, the
-    # hadamard linear for hadamard; phases 7's, 8's and 9's paths beside them
+    # hadamard linear for hadamard; phases 7's to 10's paths beside them
     paths = {"serve": served["launches"], "quantize": quant["launches"],
              "hadamard_linear": quant["hadamard_launches"],
              "serve_quantized": quant["serve_launches"], **dense,
-             **lifecycle, **speculative}
+             **lifecycle, **speculative, **observe}
     main_path = {"ldlq": "quantize", "kron_mul": "quantize",
                  "hadamard": "hadamard_linear"}
     kernels = []

@@ -130,12 +130,15 @@ def latest_step(directory) -> Optional[int]:
 
 def load_arrays(
     directory, *, step: Optional[int] = None, verify: bool = True,
+    _corrupt_shards=(),
 ) -> tuple[dict[str, np.ndarray], int, dict, set]:
     """Load a checkpoint as a flat ``path -> array`` dict.
 
     ``verify``: check each shard's SHA-256 against the manifest and raise
     :class:`ArtifactCorruption` on mismatch; manifests written before
-    digests existed load with a warning.  Returns (arrays, step, meta,
+    digests existed load with a warning.  ``_corrupt_shards`` is the
+    fault-injection hook: listed shard indices are treated as if their
+    bytes had rotted (see serve/faults.py).  Returns (arrays, step, meta,
     bf16_keys)."""
     directory = pathlib.Path(directory)
     if step is None:
@@ -154,6 +157,8 @@ def load_arrays(
         spath = path / f"shard_{i:05d}.npz"
         if verify and digests is not None:
             actual = _sha256(spath)
+            if i in _corrupt_shards:
+                actual = "0" * 64
             if actual != digests[i]:
                 raise ArtifactCorruption(i, spath, digests[i], actual)
         with np.load(spath) as z:

@@ -27,7 +27,14 @@ cached full prompt pages into new requests (refcounted, copy-on-write);
 from seed ``sample_seed + i``) sample instead of the greedy argmax, on the
 device inside the paged dispatch unless ``--host-sample``;
 ``--speculative K`` (with ``--paged``) drafts up to K tokens per lane
-(``--draft ngram``) and verifies them in one dispatch.  ``--check``
+(``--draft ngram``) and verifies them in one dispatch.  ``--fault-plan``
+injects faults (``serve/faults.py``) and ``--screen-logits`` quarantines a
+lane whose logits carry NaN/Inf; ``--trace-out`` (``--trace-sync``) writes
+a Chrome/Perfetto trace of the engine's spans and ``--metrics-every``
+prints metric snapshots; ``--canary-every`` / ``--canary-prompts`` /
+``--canary-len`` and ``--shadow-rate`` run the quality canaries, and
+``--quality-baseline`` (``--quality-threshold``, ``--quality-strict``)
+audits a loaded artifact's quality section.  ``--check``
 verifies the engine's greedy tokens against the full-prefix recompute
 oracle (with ``--kv-int8``: a gather-dense engine over the same int8
 pages) and exits nonzero on divergence; every run exits nonzero if a page
@@ -84,10 +91,10 @@ def quantized_generate(qm, prompt: torch.Tensor, gen: int) -> torch.Tensor:
 
 def build_engine(adapter, *, max_seq_len: int, args, record_logits=False,
                  paged=None, paged_prefill=None, prefix_cache=None,
-                 speculative=None, robust=True, tenants=None):
+                 speculative=None, robust=True, tenants=None, faults=None):
     """The engine the flags in ``args`` describe.  ``robust=False`` builds
-    a reference oracle: no deadlines, queue bound or tenants, so it
-    finishes every request."""
+    a reference oracle: no deadlines, queue bound, tenants, fault plan,
+    logit screen or quality probes, so it finishes every request."""
     from repro_torch.serve.engine import Engine, EngineConfig
 
     paged = args.paged if paged is None else paged
@@ -114,8 +121,42 @@ def build_engine(adapter, *, max_seq_len: int, args, record_logits=False,
         deadline_s=getattr(args, "deadline_s", None) if robust else None,
         max_queue=getattr(args, "max_queue", None) if robust else None,
         tenants=tenants if robust else None,
+        screen_logits=(getattr(args, "screen_logits", False) if robust
+                       else False),
+        canary_every=getattr(args, "canary_every", None) if robust else None,
+        shadow_rate=getattr(args, "shadow_rate", 0.0) if robust else 0.0,
+        shadow_seed=getattr(args, "seed", 0),
     )
-    return Engine(adapter, ecfg)
+    return Engine(adapter, ecfg, faults=faults if robust else None)
+
+
+def _audit_quality(meta: dict, args) -> None:
+    """``--quality-baseline``: compare the loaded artifact's quality section
+    with the baseline; print each regressed layer, and refuse to serve on
+    any under ``--quality-strict``."""
+    from repro_torch.serve.quality import check_artifact_quality, load_baseline
+
+    try:
+        baseline = load_baseline(args.quality_baseline)
+    except (FileNotFoundError, ValueError) as e:
+        raise SystemExit(f"--quality-baseline: {e}")
+    regressions = check_artifact_quality(meta.get("quality"), baseline,
+                                         threshold=args.quality_threshold)
+    for r in regressions:
+        cur = ("missing" if r["current"] is None
+               else format(r["current"], ".4g"))
+        print(f"[serve] QUALITY REGRESSION {r['layer']}: proxy "
+              f"{r['baseline']:.4g} -> {cur} "
+              f"(> {args.quality_threshold:.2f}x baseline)")
+    if regressions and args.quality_strict:
+        raise SystemExit(
+            f"refusing to serve: {len(regressions)} layer(s) regressed "
+            f"beyond {args.quality_threshold:.2f}x the quality baseline "
+            f"(drop --quality-strict to serve anyway)")
+    if not regressions:
+        print(f"[serve] quality baseline OK "
+              f"({len(baseline['proxy_loss'])} layers within "
+              f"{args.quality_threshold:.2f}x)")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -188,6 +229,56 @@ def parser() -> argparse.ArgumentParser:
                          "'name:rate:burst:priority' (rate in req/s, empty "
                          "or 'inf' = unlimited; priority 0 = highest), "
                          "e.g. 'paid:inf:4:0,free:2.0:4:1'")
+    ap.add_argument("--fault-plan", default=None, metavar="SPEC",
+                    help="deterministic fault injection for chaos drills: "
+                         "'kind[@key=val,...][;rule...]' with kinds "
+                         "alloc_fail|pool_exhausted|nan_logits|"
+                         "dispatch_error|corrupt_shard|cancel and keys "
+                         "tick/rid/shard/times, e.g. "
+                         "'alloc_fail@rid=0;cancel@rid=4,tick=6'")
+    ap.add_argument("--screen-logits", action="store_true",
+                    help="NaN/Inf-screen every step's logits per lane (one "
+                         "device reduction); a poisoned lane is quarantined "
+                         "(FAILS with finish_reason='nan_logits'), "
+                         "co-batched lanes decode on unharmed")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="record per-tick spans (step phases, dispatches, "
+                         "request lifecycle events) and write a "
+                         "Chrome/Perfetto trace-event JSON here")
+    ap.add_argument("--trace-sync", action="store_true",
+                    help="synchronize the card at span edges so span "
+                         "durations include device time (needs "
+                         "--trace-out; slows serving)")
+    ap.add_argument("--metrics-every", type=float, default=None,
+                    metavar="SECS",
+                    help="print a one-line metrics snapshot (counters, pool "
+                         "occupancy, TTFT/ITL/e2e p50+p99) to stderr every "
+                         "SECS seconds of engine time")
+    ap.add_argument("--canary-every", type=float, default=None,
+                    metavar="SECS",
+                    help="teacher-forced NLL probe over a pinned canary "
+                         "prompt set every SECS seconds (plus once at run "
+                         "start), out of band over the dense trunk")
+    ap.add_argument("--canary-prompts", type=int, default=2,
+                    help="canary set size (pinned sequences per probe)")
+    ap.add_argument("--canary-len", type=int, default=16,
+                    help="canary sequence length (tokens)")
+    ap.add_argument("--shadow-rate", type=float, default=0.0, metavar="F",
+                    help="re-score this deterministic fraction of finished "
+                         "requests against the dense trunk (max-abs-logit-"
+                         "diff and token-flip-rate histograms; crc32 "
+                         "selection)")
+    ap.add_argument("--quality-baseline", default=None, metavar="PATH",
+                    help="with --load-quantized: compare the artifact's "
+                         "quality section against this baseline JSON "
+                         "(launch/quality_report.py --write-baseline) and "
+                         "warn on proxy-loss regressions")
+    ap.add_argument("--quality-threshold", type=float, default=1.2,
+                    help="regression ratio for --quality-baseline "
+                         "(default 1.2x)")
+    ap.add_argument("--quality-strict", action="store_true",
+                    help="refuse to serve (exit nonzero) on any "
+                         "--quality-baseline regression instead of warning")
     ap.add_argument("--check", action="store_true",
                     help="verify engine tokens against the recompute path")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -200,12 +291,15 @@ def main(argv=None):
     from repro_torch.launch.quantize import fp_model
     from repro_torch.serve.adapter import CachedDecoder
     from repro_torch.serve.artifacts import ArtifactCorruption, load_quantized
-    from repro_torch.serve.scheduler import (
-        AdmissionRejected,
-        RequestState,
-        SamplingParams,
-    )
+    from repro_torch.serve.faults import AdmissionRejected, parse_fault_plan
+    from repro_torch.serve.scheduler import RequestState, SamplingParams
 
+    faults = None
+    if args.fault_plan:
+        try:
+            faults = parse_fault_plan(args.fault_plan)
+        except ValueError as e:
+            raise SystemExit(f"--fault-plan: {e}")
     tenants = None
     if args.tenants:
         from repro_torch.serve.frontdoor.admission import parse_tenants
@@ -232,6 +326,24 @@ def main(argv=None):
         raise SystemExit(
             "--check compares full fixed-length token streams; the "
             "references don't model early stop — drop --stop-token")
+    if args.trace_sync and not args.trace_out:
+        raise SystemExit(
+            "--trace-sync sharpens span timing for a recorded trace; "
+            "add --trace-out PATH")
+    if not 0.0 <= args.shadow_rate <= 1.0:
+        raise SystemExit(
+            f"--shadow-rate must be in [0, 1], got {args.shadow_rate}")
+    if args.canary_every is not None and args.canary_every <= 0:
+        raise SystemExit(
+            f"--canary-every must be > 0 seconds, got {args.canary_every}")
+    if args.quality_baseline and not args.load_quantized:
+        raise SystemExit(
+            "--quality-baseline audits an artifact's quality manifest; "
+            "add --load-quantized DIR (quantize with --out-dir first)")
+    if args.quality_strict and not args.quality_baseline:
+        raise SystemExit(
+            "--quality-strict needs a baseline to enforce; add "
+            "--quality-baseline PATH")
     if args.check and args.kv_int8 and not (args.paged or args.paged_prefill):
         raise SystemExit(
             "--kv-int8 --check needs --paged (and/or --paged-prefill): "
@@ -242,7 +354,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     if args.load_quantized:
         try:
-            qm, meta = load_quantized(args.load_quantized, device=device)
+            qm, meta = load_quantized(args.load_quantized, device=device,
+                                      faults=faults)
         except ArtifactCorruption as e:
             raise SystemExit(f"--load-quantized: {e}")
         except (FileNotFoundError, ValueError, KeyError) as e:
@@ -252,6 +365,8 @@ def main(argv=None):
         label = f"quip-{meta['quip_config']['bits']}bit[artifact]"
         print(f"[serve] loaded quantized artifact: {cfg.name} "
               f"{meta['quip_config']['bits']}-bit ({args.load_quantized})")
+        if args.quality_baseline:
+            _audit_quality(meta, args)
     else:
         from repro_torch.models.transformer import init_decoder
 
@@ -276,7 +391,19 @@ def main(argv=None):
                                seg_len=args.prompt_len, seed=args.seed + 3)
     max_seq_len = args.prompt_len + args.gen
     engine = build_engine(adapter, max_seq_len=max_seq_len, args=args,
-                          tenants=tenants)
+                          tenants=tenants, faults=faults)
+    if args.canary_every is not None:
+        # pinned off the traffic seed stream: the canary set stays fixed
+        # across runs, so the NLL gauge is comparable
+        engine.attach_canary(make_calibration(
+            cfg.vocab, n_segments=args.canary_prompts,
+            seg_len=args.canary_len, seed=args.seed + 1234))
+    tracer = None
+    if args.trace_out:
+        from repro_torch.serve.telemetry import Tracer
+
+        tracer = Tracer(sync=args.trace_sync)
+        engine.attach_tracer(tracer)
     stop_tokens = tuple(args.stop_token or ())
     try:  # bad sampling flags fail here, not as a capacity error below
         sampling = [SamplingParams(temperature=args.temperature,
@@ -303,7 +430,7 @@ def main(argv=None):
         submitted.append((i, req))
     engine.reset_clock()
     t0 = time.perf_counter()
-    done = engine.run()
+    done = engine.run(metrics_every=args.metrics_every)
     engine._sync_barrier()
     dt = time.perf_counter() - t0
     s = engine.summary()
@@ -322,6 +449,9 @@ def main(argv=None):
                 reasons[r.finish_reason] = reasons.get(r.finish_reason, 0) + 1
         outcome += f" reasons={reasons}"
     print(outcome)
+    if faults is not None:
+        print(f"[serve] faults injected: {len(faults.log)} "
+              f"({'; '.join(e['kind'] for e in faults.log)})")
     # every page must be back; the prefix trie keeps its own references
     leaked = engine.pool.pages_in_use - engine.pool.cached_pages
     if leaked != 0 or engine.pool._slots:
@@ -349,6 +479,28 @@ def main(argv=None):
               f"ttft_p99={s['ttft_s_p99'] * 1e3:.1f}ms "
               f"itl_p50={(s['itl_s_p50'] or 0) * 1e3:.2f}ms "
               f"queue_p50={(s['queue_s_p50'] or 0) * 1e3:.1f}ms")
+    if args.canary_every is not None:
+        print(f"[serve] quality: canary_nll={s['canary_nll']:.6f} "
+              f"canary_runs={s['canary_runs']} "
+              f"act_absmax={s['act_absmax']:.3g} act_sat={s['act_sat']:.2e}")
+    if args.shadow_rate > 0:
+        print(f"[serve] shadow: samples={s['shadow_samples']} "
+              f"tokens={s['shadow_tokens']} flips={s['shadow_token_flips']} "
+              f"max_abs_logit_diff_p99="
+              f"{s.get('shadow_max_abs_logit_diff_p99') or 0:.3g} "
+              f"flip_rate_p99={s.get('shadow_flip_rate_p99') or 0:.3g}")
+    if tracer is not None:
+        from repro_torch.serve.telemetry import phase_breakdown
+
+        tracer.export_chrome_trace(args.trace_out)
+        pb = phase_breakdown(tracer.spans)
+        phases = " ".join(
+            f"{name}={p['time_s'] * 1e3:.0f}ms({p['share']:.0%})"
+            for name, p in sorted(pb["phases"].items(),
+                                  key=lambda kv: -kv[1]["time_s"]))
+        print(f"[serve] trace: {len(tracer)} spans -> {args.trace_out} "
+              f"(dropped={tracer.dropped}) coverage={pb['coverage']:.0%} "
+              f"{phases}")
 
     if args.check:
         if args.kv_int8:

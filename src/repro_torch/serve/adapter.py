@@ -37,6 +37,15 @@ then temperature, nucleus filter and inverse CDF.
 Masking uses the same where-set convention as the recompute path
 (``finfo(float32).min``), so cached logits match it up to matmul
 reassociation.
+
+Engine hooks, as in the JAX package: ``faults`` (serve/faults.py) raises
+an armed ``dispatch_error`` at the entry of every dispatch, before any
+pool buffer is written, and writes NaN into the lanes an armed
+``nan_logits`` rule names, in place on the returned logits (in
+:meth:`decode_paged_sample` before the draw; in :meth:`verify_paged`
+after it, where the JAX package's fused dispatch drew from clean
+logits); ``tracer`` records one ``dispatch:*`` span per dispatch.
+:meth:`activation_probe` is the quality canaries' dense trunk.
 """
 from __future__ import annotations
 
@@ -54,7 +63,10 @@ from repro_torch.kernels.paged_attention.ops import (
 )
 from repro_torch.launch.quantize import fp_blocks
 from repro_torch.models import layers as L
+from repro_torch.serve.faults import NO_FAULTS, FaultPlan
 from repro_torch.serve.kv_cache import PagedKVPool
+from repro_torch.serve.quality import SAT_THRESHOLD
+from repro_torch.serve.telemetry import NULL_TRACER, Tracer
 
 __all__ = ["CachedDecoder", "sample_tokens", "uniform"]
 
@@ -143,6 +155,15 @@ def sample_tokens(logits: torch.Tensor, temps, top_ps, seeds, draws,
     return torch.where(temps[:, None] > 0, sampled, greedy).to(torch.int32)
 
 
+def _poison_lanes(logits: torch.Tensor, lanes: list) -> torch.Tensor:
+    """Overwrite the given batch lanes of ``logits`` with NaN, in place:
+    the nan_logits fault, what a rotted artifact or an unstable kernel
+    would hand the sampler.  Fault path only."""
+    if lanes:
+        logits[torch.as_tensor(lanes, device=logits.device)] = float("nan")
+    return logits
+
+
 def _int8_roundtrip(x: torch.Tensor) -> torch.Tensor:
     """Quantize-dequantize through the int8 page quantizer: the value a
     later read of this token's K/V sees after the pool's scatter."""
@@ -170,6 +191,12 @@ class CachedDecoder:
     embed: dict
     final_norm: dict
     blocks: list
+    # span sink for the dispatches; Engine.attach_tracer swaps in its live
+    # tracer (the NULL_TRACER default costs one no-op call)
+    tracer: Tracer = dataclasses.field(default=NULL_TRACER, repr=False)
+    # fault-injection plan; the engine points this at its own plan and
+    # keeps its dispatch context (tick, lane_rids)
+    faults: FaultPlan = dataclasses.field(default=NO_FAULTS, repr=False)
 
     def __post_init__(self):
         if self.cfg.family != "dense":
@@ -199,6 +226,11 @@ class CachedDecoder:
     def make_pool(self, **kw) -> PagedKVPool:
         return PagedKVPool(self.cfg, device=self.device, **kw)
 
+    def trace_tags(self) -> dict:
+        """Static tags merged into every span this adapter's tracer
+        exports (Engine.attach_tracer reads them once)."""
+        return {}
+
     def _place(self, *arrays):
         return [torch.as_tensor(np.asarray(a), dtype=torch.int32,
                                 device=self.device) for a in arrays]
@@ -227,6 +259,8 @@ class CachedDecoder:
 
         Returns (logits (B, T, V), k_new (L, B, T, KV, hd), v_new (same)).
         """
+        if self.faults.rules:
+            self.faults.check_dispatch()
         tokens, positions, ctx_len = self._place(tokens, positions, ctx_len)
         cfg = self.cfg
         x = L.embed(self.embed, tokens)
@@ -238,14 +272,17 @@ class CachedDecoder:
             new_v.append(v)
         x = L.norm_apply(self.final_norm, x, cfg)
         logits = L.lm_logits(self.embed, x)
+        if self.faults.rules:
+            _poison_lanes(logits, self.faults.nan_lanes())
         return logits, torch.stack(new_k), torch.stack(new_v)
 
-    def _block(self, blk, x, positions, ck, cv, ctx_len):
+    def _block(self, blk, x, positions, ck, cv, ctx_len, *,
+               kernel_proj: bool = False):
         cfg = self.cfg
         B, T, _ = x.shape
         S = ck.shape[1]
         h = L.norm_apply(blk["ln1"], x, cfg)
-        q, k, v = self._qkv(blk, h, positions)
+        q, k, v = self._qkv(blk, h, positions, kernel_proj=kernel_proj)
         k_all = torch.cat([ck.to(k.dtype), k], dim=1)
         v_all = torch.cat([cv.to(v.dtype), v], dim=1)
         s = L.gqa_scores(q, k_all, cfg)  # (B, KV, G, T, S+T)
@@ -259,8 +296,65 @@ class CachedDecoder:
         s = torch.where(mask[:, None, None], s, torch.full_like(s, L.NEG))
         o = L.gqa_out(torch.softmax(s, dim=-1), v_all, cfg)
         o = o.to(x.dtype).reshape(B, T, cfg.q_dim)
-        x = x + blk["attn.wo"](o)
-        return self._mlp(blk, x), k, v
+        x = x + self._proj(blk, "attn.wo", o, kernel_proj)
+        return self._mlp(blk, x, kernel_proj=kernel_proj), k, v
+
+    # ---- quality probe ---------------------------------------------------
+
+    @torch.no_grad()
+    def activation_probe(self, tokens):
+        """Teacher-forced causal forward over full sequences with
+        per-layer activation reductions (the quality canaries' probe).
+
+        tokens (B, S) int.  Returns ``(logits (B, S, V) float32 numpy,
+        {"absmax": (L+1,), "sat": (L+1,)})``: entry i is the hidden state
+        entering block i, entry L the final pre-norm hidden state; ``sat``
+        is the fraction of elements at or beyond
+        :data:`repro_torch.serve.quality.SAT_THRESHOLD`.  The sequence is
+        padded to the next power of two (causal attention: pad positions
+        cannot reach real ones, and are masked out of the reductions).
+        Runs the gather-dense trunk with an empty context, its projections
+        through the quant_matmul dispatch as the paged paths run them: the
+        KV pool is never touched, so an engine's traffic stays
+        token-identical.
+        """
+        tokens = np.asarray(tokens, np.int32)
+        if tokens.ndim != 2:
+            raise ValueError(f"tokens must be (B, S), got {tokens.shape}")
+        B, S = tokens.shape
+        Sp = 1
+        while Sp < S:
+            Sp <<= 1
+        padded = np.zeros((B, Sp), np.int32)
+        padded[:, :S] = tokens
+        positions = np.tile(np.arange(Sp, dtype=np.int32), (B, 1))
+        cfg = self.cfg
+        with self.tracer.span("dispatch:activation_probe", lanes=B, tokens=S):
+            toks, positions, ctx_len = self._place(padded, positions,
+                                                   np.zeros(B, np.int32))
+            ctx = torch.zeros((B, 0, cfg.n_kv_heads, cfg.head_dim),
+                              dtype=torch.float32, device=self.device)
+            valid = (torch.arange(Sp, device=self.device) < S)[None, :, None]
+            n_el = max(S * B, 1)
+            absmax, sat = [], []
+
+            def reduce(x):
+                ax = x.float().abs() * valid
+                absmax.append(ax.max())
+                sat.append((ax >= SAT_THRESHOLD).sum() / (n_el * x.shape[-1]))
+
+            x = L.embed(self.embed, toks)
+            for blk in self.blocks:
+                reduce(x)
+                x, _, _ = self._block(blk, x, positions, ctx, ctx, ctx_len,
+                                      kernel_proj=True)
+            reduce(x)
+            x = L.norm_apply(self.final_norm, x, cfg)
+            logits = L.lm_logits(self.embed, x)[:, :S].float().cpu().numpy()
+        return logits, {
+            "absmax": torch.stack(absmax).double().cpu().numpy(),
+            "sat": torch.stack(sat).double().cpu().numpy(),
+        }
 
     # ---- shared block pieces --------------------------------------------
 
@@ -298,7 +392,6 @@ class CachedDecoder:
 
     # ---- paged decode ----------------------------------------------------
 
-    @torch.no_grad()
     def decode_paged(self, tokens, positions, block_tables, ctx_len, pages,
                      offs, pool):
         """Fused decode step against ``pool`` (PagedKVPool), in place.
@@ -309,6 +402,35 @@ class CachedDecoder:
         into ``pool`` and returns logits (B, 1, V); the caller owns the
         host-side length accounting (``pool.note_written``).
         """
+        if self.faults.rules:
+            self.faults.check_dispatch()
+        with self.tracer.span("dispatch:decode_paged", lanes=len(tokens)):
+            logits = self._decode_trunk(tokens, positions, block_tables,
+                                        ctx_len, pages, offs, pool)
+        if self.faults.rules:
+            _poison_lanes(logits, self.faults.nan_lanes())
+        return logits
+
+    def decode_paged_sample(self, tokens, positions, block_tables, ctx_len,
+                            pages, offs, sampling, pool):
+        """:meth:`decode_paged` with :func:`sample_tokens` on the device;
+        ``sampling = (temps, top_ps, seeds, draws)`` per lane.  Returns
+        ``(sel (B, 1) int32, logits (B, 1, V))``."""
+        if self.faults.rules:
+            self.faults.check_dispatch()
+        with self.tracer.span("dispatch:decode_paged_sample",
+                              lanes=len(tokens)):
+            logits = self._decode_trunk(tokens, positions, block_tables,
+                                        ctx_len, pages, offs, pool)
+            if self.faults.rules:
+                _poison_lanes(logits, self.faults.nan_lanes())
+            args, greedy = self._place_sampling(sampling)
+            sel = sample_tokens(logits, *args, greedy_only=greedy)
+        return sel, logits
+
+    @torch.no_grad()
+    def _decode_trunk(self, tokens, positions, block_tables, ctx_len, pages,
+                      offs, pool):
         tokens, positions, bt, ctx_len = self._place(
             tokens, positions, block_tables, ctx_len)
         x = L.embed(self.embed, tokens)  # (B, 1, D)
@@ -322,16 +444,6 @@ class CachedDecoder:
         logits = L.lm_logits(self.embed, x)
         pool.scatter(pages, offs, torch.stack(new_k), torch.stack(new_v))
         return logits
-
-    def decode_paged_sample(self, tokens, positions, block_tables, ctx_len,
-                            pages, offs, sampling, pool):
-        """:meth:`decode_paged` with :func:`sample_tokens` on the device;
-        ``sampling = (temps, top_ps, seeds, draws)`` per lane.  Returns
-        ``(sel (B, 1) int32, logits (B, 1, V))``."""
-        logits = self.decode_paged(tokens, positions, block_tables, ctx_len,
-                                   pages, offs, pool)
-        args, greedy = self._place_sampling(sampling)
-        return sample_tokens(logits, *args, greedy_only=greedy), logits
 
     def _block_paged(self, blk, x, positions, layer, pool, bt, ctx_len):
         cfg = self.cfg
@@ -394,12 +506,18 @@ class CachedDecoder:
         and returns logits (B, C, V); the caller owns the length
         accounting (``pool.note_span_written``).
         """
-        tokens, positions, bt, ctx_len = self._place(
-            tokens, positions, block_tables, ctx_len)
-        logits, kn, vn = self._prefill_trunk(tokens, positions, bt, ctx_len,
-                                             pool, verify=False)
-        # (L, B, C, KV, hd) against (B, C) addresses
-        pool.scatter(pages, offs, kn, vn)
+        if self.faults.rules:
+            self.faults.check_dispatch()
+        with self.tracer.span("dispatch:prefill_paged", lanes=len(tokens),
+                              chunk=len(tokens[0])):
+            tokens, positions, bt, ctx_len = self._place(
+                tokens, positions, block_tables, ctx_len)
+            logits, kn, vn = self._prefill_trunk(tokens, positions, bt,
+                                                 ctx_len, pool, verify=False)
+            # (L, B, C, KV, hd) against (B, C) addresses
+            pool.scatter(pages, offs, kn, vn)
+        if self.faults.rules:
+            _poison_lanes(logits, self.faults.nan_lanes())
         return logits
 
     @torch.no_grad()
@@ -419,12 +537,18 @@ class CachedDecoder:
         Returns ``(sel (B, K+1) int32, n_acc (B,) int32, logits (B, K+1,
         V))``: lane b emits ``sel[b, :n_acc[b] + 1]``.
         """
-        tokens, positions, bt, ctx_len, drafts, n_drafts = self._place(
-            tokens, positions, block_tables, ctx_len, drafts, n_drafts)
-        logits, kn, vn = self._prefill_trunk(tokens, positions, bt, ctx_len,
-                                             pool, verify=True)
-        args, greedy = self._place_sampling(sampling)
-        sel = sample_tokens(logits, *args, greedy_only=greedy)
-        n_acc = _accept(sel, drafts, n_drafts)
-        pool.scatter(pages, offs, kn, vn)
+        if self.faults.rules:
+            self.faults.check_dispatch()
+        with self.tracer.span("dispatch:verify_paged", lanes=len(tokens),
+                              width=len(tokens[0])):
+            tokens, positions, bt, ctx_len, drafts, n_drafts = self._place(
+                tokens, positions, block_tables, ctx_len, drafts, n_drafts)
+            logits, kn, vn = self._prefill_trunk(tokens, positions, bt,
+                                                 ctx_len, pool, verify=True)
+            args, greedy = self._place_sampling(sampling)
+            sel = sample_tokens(logits, *args, greedy_only=greedy)
+            n_acc = _accept(sel, drafts, n_drafts)
+            pool.scatter(pages, offs, kn, vn)
+        if self.faults.rules:
+            _poison_lanes(logits, self.faults.nan_lanes())
         return sel, n_acc, logits

@@ -122,12 +122,17 @@ def linear_from_arrays(arrays: dict, meta: dict) -> QuantizedLinear:
                            use_kernel=meta.get("use_kernel", False))
 
 
-def load_quantized(directory, *, device=DEFAULT_DEVICE, verify: bool = True):
+def load_quantized(directory, *, device=DEFAULT_DEVICE, verify: bool = True,
+                   faults=None):
     """-> (QuantizedModel, meta), every tensor on ``device`` (the card
     unless the caller asks for ``"cpu"``).  ``verify`` checks shard SHA-256
-    digests (mismatch: :class:`ArtifactCorruption`)."""
+    digests (mismatch: :class:`ArtifactCorruption`).  ``faults``: an
+    optional :class:`~repro_torch.serve.faults.FaultPlan` whose armed
+    ``corrupt_shard`` rules force digest mismatches."""
     device = resolve_device(device)
-    arrays, _step, meta, bf16_keys = load_arrays(directory, verify=verify)
+    corrupt = faults.corrupt_shards() if faults is not None else ()
+    arrays, _step, meta, bf16_keys = load_arrays(
+        directory, verify=verify, _corrupt_shards=corrupt)
     if meta.get("kind") != "quip_quantized_model":
         raise ValueError(
             f"{directory} is not a quantized artifact "

@@ -39,6 +39,19 @@ lane from its own history (``serve/drafter.py``), verifies every lane's
 ``[last_emitted, drafts...]`` chunk in one ``(B, K+1)`` dispatch through
 the chunked-prefill kernel, emits the accepted prefix plus one token, and
 truncates the rejected tail's K/V.
+
+Telemetry, faults and quality are the JAX package's: a
+:class:`MetricsRegistry` holds the counters (``stats`` is a read view),
+the pool gauges, ``last_tick_age_s`` and the TTFT/ITL/queue/e2e
+histograms; :meth:`Engine.attach_tracer` wires one span tracer through the
+engine (a ``step`` root per tick over ``schedule``/``prefill``/``decode``/
+``verify``), the adapter and the scheduler; a :class:`FaultPlan` injects
+``alloc_fail``, ``pool_exhausted``, ``nan_logits``, ``dispatch_error``
+and ``cancel`` at their hooks, each firing counted as ``fault:<kind>``;
+``screen_logits`` quarantines a lane whose logits carry NaN/Inf after one
+``isfinite`` reduction on the device, of which only a ``(B,)`` bool
+reaches the host; ``canary_every`` and ``shadow_rate`` run the quality
+probes of ``serve/quality.py``.
 """
 from __future__ import annotations
 
@@ -51,19 +64,27 @@ import torch
 
 from repro_torch.serve.adapter import CachedDecoder, sample_tokens
 from repro_torch.serve.drafter import make_drafter
+from repro_torch.serve.faults import AdmissionRejected, FaultInjected, FaultPlan
 from repro_torch.serve.kv_cache import page_bucket, pages_needed
+from repro_torch.serve.quality import ShadowSampler, canary_probe
 from repro_torch.serve.scheduler import (
-    AdmissionRejected,
     Request,
     RequestState,
     SamplingParams,
     StepPlan,
     TokenBudgetFCFS,
 )
+from repro_torch.serve.telemetry import (
+    NULL_TRACER,
+    MetricsRegistry,
+    Tracer,
+    emit_metrics_line,
+)
 
 __all__ = ["Engine", "EngineConfig", "TickResult"]
 
-# counters the engine bumps on the hot path, in reporting order
+# counters the engine bumps on the hot path, in reporting order; the
+# ``stats`` mapping is a read view over exactly these
 _STAT_COUNTERS = (
     "steps",
     "decode_tokens",
@@ -80,8 +101,21 @@ _STAT_COUNTERS = (
     "cancelled",  # requests reaching CANCELLED
     "failed",  # requests reaching FAILED (any reason)
     "deadline_missed",  # FAILED specifically for blowing deadline_s
+    "quarantined_lanes",  # lanes the NaN/Inf screen pulled mid-batch
     "admission_rejected",  # submits refused with AdmissionRejected
+    # ---- quality canaries (serve/quality.py) ----
+    "canary_runs",  # out-of-band teacher-forced NLL probes run
+    "shadow_samples",  # finished requests the drift sampler re-scored
+    "shadow_tokens",  # emissions those samples covered
+    "shadow_token_flips",  # emissions whose serving/oracle argmax differ
 )
+
+
+def _lane_finite(logits: torch.Tensor) -> np.ndarray:
+    """Per-lane NaN/Inf screen: one ``isfinite`` reduction over a step's
+    logits on their device; only the (B,) bool crosses to the host."""
+    ok = torch.isfinite(logits).reshape(logits.shape[0], -1).all(dim=1)
+    return ok.cpu().numpy()
 
 
 @dataclasses.dataclass
@@ -126,6 +160,16 @@ class EngineConfig:
     # eviction-storm guard: a request evicted this many times FAILS
     # ("eviction_storm") instead of replaying its prefix forever
     max_evictions: Optional[int] = 8
+    # per-lane NaN/Inf screen on every step's logits: a poisoned lane is
+    # quarantined (FAILED, "nan_logits"), co-batched lanes unharmed
+    screen_logits: bool = False
+    # seconds between teacher-forced NLL probes over the pinned canary set
+    # (attach_canary); one probe also fires at run start
+    canary_every: Optional[float] = None
+    # fraction of requests re-scored against the dense trunk on finish
+    # (crc32 selection of (shadow_seed, rid))
+    shadow_rate: float = 0.0
+    shadow_seed: int = 0
 
     @property
     def pages_per_seq(self) -> int:
@@ -138,7 +182,9 @@ class EngineConfig:
 
 
 class Engine:
-    def __init__(self, adapter: CachedDecoder, ecfg: EngineConfig):
+    def __init__(self, adapter: CachedDecoder, ecfg: EngineConfig,
+                 tracer: Optional[Tracer] = None,
+                 faults: Optional[FaultPlan] = None):
         self.adapter = adapter
         self.ecfg = ecfg
         self.spec_k = ecfg.speculative_k
@@ -170,13 +216,45 @@ class Engine:
         )
         self.running: list[Request] = []
         self.finished: list[Request] = []
-        self.stats = dict.fromkeys(_STAT_COUNTERS, 0)
         self._tick_emitted: list = []
         self._tick_finished: list = []
+        # the engine owns the plan's dispatch context (tick, lane_rids) and
+        # points the pool's and the adapter's hooks at it; the default
+        # empty plan makes every hook an iteration over no rule
+        self.faults = faults if faults is not None else FaultPlan()
+        self.pool.faults = self.faults
+        adapter.faults = self.faults
+        self._fault_log_pos = 0  # plan.log entries already reconciled
         # deadline sweeps run once any request carries a deadline
         self._deadlines = ecfg.deadline_s is not None
+        self.metrics = MetricsRegistry()
+        for name in _STAT_COUNTERS:
+            self.metrics.counter(name)
+        for name, fn in self.pool.metrics_gauges().items():
+            self.metrics.gauge(name, fn=fn)
+        self.metrics.gauge("finished", fn=lambda: len(self.finished))
+        self.metrics.gauge("faults_injected", fn=lambda: len(self.faults.log))
+        # tick-stall watchdog: seconds since the last COMPLETED tick
+        self._last_tick_t = 0.0
+        self.metrics.gauge("last_tick_age_s", fn=self.last_tick_age_s)
+        for name in ("ttft_s", "itl_s", "queue_s", "e2e_s"):
+            self.metrics.histogram(name)
+        self.shadow = (
+            ShadowSampler(adapter, ecfg.shadow_rate, seed=ecfg.shadow_seed,
+                          metrics=self.metrics, tracer=NULL_TRACER)
+            if ecfg.shadow_rate > 0.0 else None)
+        if self.shadow is not None:
+            for name in ("shadow_max_abs_logit_diff", "shadow_flip_rate"):
+                self.metrics.histogram(name)
+        if ecfg.canary_every is not None and ecfg.canary_every <= 0:
+            raise ValueError(
+                f"canary_every must be > 0 seconds, got {ecfg.canary_every}")
+        self.canary_tokens: Optional[np.ndarray] = None
+        self.tracer = NULL_TRACER
         # engine-relative clock: arrival offsets are measured from here
         self._t0 = time.perf_counter()
+        if tracer is not None:
+            self.attach_tracer(tracer)
 
     # ---- submission -----------------------------------------------------
 
@@ -197,7 +275,7 @@ class Engine:
             raise ValueError("empty prompt")
         total = prompt.size + max_new
         if total > self.pool.seq_capacity_tokens():
-            self.stats["admission_rejected"] += 1
+            self.metrics.inc("admission_rejected")
             raise AdmissionRejected(
                 "over_capacity", retryable=False,
                 needed_pages=pages_needed(total, self.ecfg.page_size),
@@ -206,7 +284,7 @@ class Engine:
         # -1: even a full-prefix hit claims one copy-on-admit page
         cached = min(self.pool.cached_prefix_pages(prompt), need - 1)
         if need - cached > self.pool.n_pages - 1:
-            self.stats["admission_rejected"] += 1
+            self.metrics.inc("admission_rejected")
             raise AdmissionRejected(
                 "over_capacity", retryable=False,
                 needed_pages=need - cached,
@@ -219,10 +297,14 @@ class Engine:
                         else deadline_s),
             tenant=tenant, priority=priority,
         )
+        if self.shadow is not None:
+            # decided at submit so the decode paths keep this request's
+            # emission logits
+            req.shadow = self.shadow.selects(req.rid)
         try:
             self.scheduler.submit(req)
         except AdmissionRejected:
-            self.stats["admission_rejected"] += 1
+            self.metrics.inc("admission_rejected")
             raise
         if req.deadline_s is not None:
             self._deadlines = True
@@ -273,6 +355,69 @@ class Engine:
         self.spec_k = min(k, self.ecfg.speculative_k)
         return self.spec_k
 
+    # ---- telemetry and quality -----------------------------------------
+
+    @property
+    def stats(self) -> dict:
+        """Read view: the hot-path counters as a plain dict (the registry
+        is the source of truth; mutate via ``self.metrics``)."""
+        return {n: self.metrics.counter(n).value for n in _STAT_COUNTERS}
+
+    def attach_tracer(self, tracer: Tracer) -> None:
+        """Wire a tracer through the engine (phase spans), the adapter
+        (dispatch spans) and the scheduler (lifecycle events).  The
+        tracer's clock becomes the engine clock, and a ``sync=True``
+        tracer without a barrier gets :meth:`_sync_barrier`."""
+        tracer.clock = self.now
+        if tracer.sync and tracer.sync_fn is None:
+            tracer.sync_fn = self._sync_barrier
+        tracer.tags.update(self.adapter.trace_tags())
+        self.tracer = tracer
+        self.adapter.tracer = tracer
+        self.scheduler.tracer = tracer
+        if self.shadow is not None:
+            self.shadow.tracer = tracer
+
+    def attach_canary(self, tokens: np.ndarray) -> None:
+        """Pin the canary prompt set: (B, S) int32 token ids scored
+        teacher-forced by every canary probe (fixed, so the gauge stays
+        comparable across ticks and restarts)."""
+        tokens = np.asarray(tokens, np.int32)
+        if tokens.ndim == 1:
+            tokens = tokens[None]
+        if tokens.ndim != 2 or tokens.shape[1] < 2:
+            raise ValueError(
+                f"canary set must be (B, S>=2) token ids, got {tokens.shape}")
+        self.canary_tokens = tokens
+
+    def _run_canary(self) -> None:
+        """One out-of-band quality probe over the pinned canary set: the
+        NLL and per-layer activation absmax / saturation as gauges.  The
+        dense trunk runs with an empty context, so the pool is
+        untouched."""
+        nll, act = canary_probe(self.adapter, self.canary_tokens)
+        m = self.metrics
+        m.gauge("canary_nll").set(nll)
+        m.inc("canary_runs")
+        absmax, sat = act["absmax"], act["sat"]
+        m.gauge("act_absmax").set(float(absmax.max()))
+        m.gauge("act_sat").set(float(sat.max()))
+        for i in range(len(absmax)):
+            m.gauge(f"act_absmax:{i}").set(float(absmax[i]))
+            m.gauge(f"act_sat:{i}").set(float(sat[i]))
+        self.tracer.event(
+            "canary_probe", nll=nll,
+            act_absmax=float(absmax.max()), act_sat=float(sat.max()),
+            prompts=int(self.canary_tokens.shape[0]),
+            tokens=int(self.canary_tokens.size),
+        )
+
+    def _sync_barrier(self) -> None:
+        """Block until every enqueued device step has retired (nothing to
+        wait for on the CPU)."""
+        if self.pool.device.type == "cuda":
+            torch.cuda.synchronize(self.pool.device)
+
     # ---- main loop ------------------------------------------------------
 
     def now(self) -> float:
@@ -281,6 +426,18 @@ class Engine:
 
     def reset_clock(self) -> None:
         self._t0 = time.perf_counter()
+        self._last_tick_t = 0.0
+
+    def last_tick_age_s(self) -> float:
+        """Seconds since the last completed :meth:`tick` (since the clock
+        epoch if none has): a dispatch wedged inside a tick stops it."""
+        return self.now() - self._last_tick_t
+
+    def reset_stats(self) -> None:
+        """Zero the counters and latency histograms (after a warm-up run);
+        the pool's high-water mark rebases to its current use."""
+        self.metrics.reset()
+        self.pool.peak_pages_in_use = self.pool.pages_in_use
 
     @property
     def idle(self) -> bool:
@@ -290,56 +447,80 @@ class Engine:
         w = self.scheduler.waiting
         return w[0].arrival if w else None
 
-    def run(self, max_steps: Optional[int] = None) -> list[Request]:
+    def run(self, max_steps: Optional[int] = None,
+            metrics_every: Optional[float] = None) -> list[Request]:
         """Drive until every submitted request is finished."""
         from repro_torch.serve.lifecycle import run_to_completion
 
-        return run_to_completion(self, max_steps=max_steps)
+        return run_to_completion(self, max_steps=max_steps,
+                                 metrics_every=metrics_every)
+
+    _METRICS_LINE_KEYS = (
+        "steps", "decode_tokens", "prefill_tokens", "evictions",
+        "pages_in_use", "occupancy", "finished", "acceptance_rate",
+        "ttft_s_p50", "ttft_s_p99", "itl_s_p50", "itl_s_p99",
+        "e2e_s_p50", "e2e_s_p99", "canary_nll",
+    )
+
+    def _emit_metrics_snapshot(self) -> None:
+        emit_metrics_line(self.summary(), t=self.now(),
+                          keys=list(self._METRICS_LINE_KEYS))
 
     def step(self) -> bool:
         return self.tick().worked
 
     def tick(self) -> TickResult:
-        """One engine tick; returns what it emitted and finished."""
-        now = self.now()
-        self.scheduler.admit_arrivals(now)
-        if self._deadlines:
-            self._enforce_deadlines(now)
-        plan = self.scheduler.plan(self.running, self.pool, now=now)
-        self.stats["prefix_hit_tokens"] += plan.prefix_hit_tokens
-        decode = self._ensure_decode_pages(plan, now)
-        self._check_queue_head(now)
-        # drop chunks whose request the page-ensure pass evicted (or a
-        # deadline terminalized)
-        chunks = [(r, n) for r, n in plan.prefill
-                  if r.state is RequestState.PREFILL]
-        worked = False
-        if chunks:
-            if self.ecfg.paged_prefill:
-                self._run_prefill_batch(chunks, now)
-            else:
-                for req, n in chunks:
-                    self._run_prefill_chunk(req, n, now)
-            worked = True
-        if decode:
-            if self.spec_k:
-                self._run_decode_spec(decode, now)
-            else:
-                self._run_decode(decode, now)
-            worked = True
-        self.stats["steps"] += 1
+        """One engine tick; returns what it emitted and finished.  Spans:
+        ``step`` over ``schedule`` (arrivals, planning, page claims and
+        eviction), ``prefill`` and ``decode`` XOR ``verify``."""
+        tr = self.tracer
+        with tr.span("step"):
+            now = self.now()
+            with tr.span("schedule"):
+                if self.faults.rules:
+                    self.faults.tick = self.metrics.counter("steps").value
+                    for rid in self.faults.cancel_rids():
+                        self.cancel(rid)
+                self.scheduler.admit_arrivals(now)
+                if self._deadlines:
+                    self._enforce_deadlines(now)
+                plan = self.scheduler.plan(self.running, self.pool, now=now)
+                self.metrics.inc("prefix_hit_tokens", plan.prefix_hit_tokens)
+                decode = self._ensure_decode_pages(plan, now)
+                self._check_queue_head(now)
+                # drop chunks whose request the page-ensure pass evicted
+                # (or a fault, cancel or deadline terminalized)
+                chunks = [(r, n) for r, n in plan.prefill
+                          if r.state is RequestState.PREFILL]
+            worked = False
+            if chunks:
+                with tr.span("prefill", lanes=len(chunks),
+                             tokens=sum(n for _, n in chunks)):
+                    if self.ecfg.paged_prefill:
+                        self._run_prefill_batch(chunks, now)
+                    else:
+                        for req, n in chunks:
+                            self._run_prefill_chunk(req, n, now)
+                worked = True
+            if decode:
+                if self.spec_k:
+                    with tr.span("verify", lanes=len(decode)):
+                        self._run_decode_spec(decode, now)
+                else:
+                    with tr.span("decode", lanes=len(decode)):
+                        self._run_decode(decode, now)
+                worked = True
+            self.metrics.inc("steps")
+            if self.faults.rules:
+                self._reconcile_faults()
         result = TickResult(worked=worked, t=now, emitted=self._tick_emitted,
                             finished=self._tick_finished)
         self._tick_emitted = []
         self._tick_finished = []
+        self._last_tick_t = self.now()  # watchdog: tick COMPLETED
         return result
 
     # ---- internals ------------------------------------------------------
-
-    def _sync_barrier(self) -> None:
-        """Block until every enqueued device step has retired."""
-        if self.pool.device.type == "cuda":
-            torch.cuda.synchronize(self.pool.device)
 
     @staticmethod
     def _select_token(req: Request, logits: np.ndarray) -> int:
@@ -389,19 +570,29 @@ class Engine:
         self.pool.release(victim.slot)
         self.running.remove(victim)
         self.scheduler.requeue(victim)
-        self.stats["evictions"] += 1
+        self.metrics.inc("evictions")
+        self.tracer.event(
+            "request_evicted", rid=victim.rid,
+            generated=len(victim.out_tokens), n_evictions=victim.n_evictions,
+        )
 
     def _ensure_decode_pages(self, plan: StepPlan, now: float) -> list[Request]:
         """Claim a page for each decode lane's next token, evicting under
         pressure.  Lanes are served best-class-oldest-first and the victim
         is always the worst-class NEWEST running request — possibly the
         asking lane itself — so requests already granted pages this step
-        are never clawed back, and low classes yield pages to high ones."""
+        are never clawed back, and low classes yield pages to high ones.
+        An armed ``alloc_fail`` rule fails the targeted lane's claim
+        terminally (FAILED, "alloc_fail")."""
         active = []
+        faults = self.faults if self.faults.rules else None
         lane_key = lambda r: (r.priority or 0, r.arrival, r.rid)
         for r in sorted(plan.decode, key=lane_key):
             if r.state is not RequestState.DECODE:
                 continue  # evicted (or terminalized) as a side effect
+            if faults is not None and faults.fire("alloc_fail", rid=r.rid):
+                self._fail(r, "alloc_fail", now)
+                continue
             while not self.pool.extend(r.slot, self.pool.length(r.slot) + 1):
                 self._evict(max(self.running, key=lane_key), now)
                 if r.state is not RequestState.DECODE:
@@ -421,7 +612,7 @@ class Engine:
         for r in expired:
             if r in sch.queue:
                 sch.queue.remove(r)
-            self.stats["deadline_missed"] += 1
+            self.metrics.inc("deadline_missed")
             self._fail(r, "deadline", now)
 
     def _check_queue_head(self, now: float) -> None:
@@ -438,6 +629,35 @@ class Engine:
             q.popleft()
             self._fail(head, "capacity", now)
 
+    def _reconcile_faults(self) -> None:
+        """Turn this tick's fault firings (plan.log) into telemetry: one
+        ``fault:<kind>`` counter bump and one trace event each."""
+        log = self.faults.log
+        for entry in log[self._fault_log_pos:]:
+            self.metrics.inc("fault:" + entry["kind"])
+            self.tracer.event("fault_injected", **entry)
+        self._fault_log_pos = len(log)
+
+    def _screen_lanes(self, lanes: list[Request], logits, now: float) -> None:
+        """Quarantine lanes whose logits carry NaN/Inf (:func:`_lane_finite`):
+        the poisoned lane FAILS ("nan_logits") while co-batched lanes keep
+        their untouched logit rows."""
+        ok = _lane_finite(logits)
+        for b, r in enumerate(lanes):
+            if ok[b] or r.state.terminal:
+                continue
+            self.metrics.inc("quarantined_lanes")
+            self._fail(r, "nan_logits", now)
+
+    def _fail_dispatch(self, lanes, exc: FaultInjected, now: float) -> None:
+        """A dispatch_error fired at the adapter entry: nothing ran and no
+        pool length advanced.  Fail only the targeted request; surviving
+        lanes retry next tick and recompute the identical step."""
+        for r in lanes:
+            if r is not None and r.rid == exc.rid and not r.state.terminal:
+                self._fail(r, "dispatch_error", now)
+                return
+
     def _terminalize(self, req: Request, state: RequestState, reason: str,
                      now: float) -> None:
         req.state = state
@@ -450,6 +670,7 @@ class Engine:
             self.running.remove(req)
         self.finished.append(req)
         self._tick_finished.append(req)
+        self.metrics.inc("finish:" + reason)
 
     def _finish(self, req: Request, now: float) -> None:
         reason = (
@@ -457,32 +678,69 @@ class Engine:
             else "length"
         )
         self._terminalize(req, RequestState.FINISHED, reason, now)
+        # lifecycle latencies of FINISHED requests (a cancelled or failed
+        # one has no honest end-to-end time)
+        m = self.metrics
+        m.histogram("ttft_s").observe(req.t_first - req.arrival)
+        m.histogram("e2e_s").observe(now - req.arrival)
+        if req.t_admitted is not None:
+            m.histogram("queue_s").observe(req.t_admitted - req.arrival)
+        itl = m.histogram("itl_s")
+        for a, b in zip(req.token_times, req.token_times[1:]):
+            itl.observe(b - a)
+        self.tracer.event(
+            "request_finished", rid=req.rid, tokens=len(req.out_tokens),
+            e2e_s=now - req.arrival, n_evictions=req.n_evictions,
+        )
+        if req.shadow and self.shadow is not None:
+            self.shadow.observe(req)
 
     def _cancel(self, req: Request, now: float) -> None:
         self._terminalize(req, RequestState.CANCELLED, "cancelled", now)
-        self.stats["cancelled"] += 1
+        self.metrics.inc("cancelled")
+        self.tracer.event(
+            "request_cancelled", rid=req.rid, tokens=len(req.out_tokens),
+        )
 
     def _fail(self, req: Request, reason: str, now: float) -> None:
         if req in self.scheduler.queue:
             self.scheduler.queue.remove(req)
         self._terminalize(req, RequestState.FAILED, reason, now)
-        self.stats["failed"] += 1
+        self.metrics.inc("failed")
+        self.tracer.event(
+            "request_failed", rid=req.rid, reason=reason,
+            tokens=len(req.out_tokens), n_evictions=req.n_evictions,
+        )
+
+    def _keeps_logits(self, req: Request) -> bool:
+        """Whether ``req``'s emission logits are kept: under --check
+        (``record_logits``) and for shadow-sampled requests only."""
+        return self.ecfg.record_logits or req.shadow
 
     def _emit(self, req: Request, token: int, logits, now: float) -> None:
-        req.emit(token, now, logits if self.ecfg.record_logits else None)
+        req.emit(token, now, logits if self._keeps_logits(req) else None)
         self._tick_emitted.append((req, token))
+        if len(req.out_tokens) == 1:
+            self.tracer.event("first_token", rid=req.rid,
+                              ttft_s=now - req.arrival)
 
     def _after_prefill_chunk(self, req: Request, n: int, last_logits,
                              now: float) -> None:
         """Advance, register cached prompt pages, and emit the first
         generated token when the prefix completes."""
         req.prefill_pos += n
-        self.stats["prefill_tokens"] += n
+        self.metrics.inc("prefill_tokens", n)
         if self.pool.prefix_cache:
             covered = min(req.prefill_pos, len(req.prompt))
             self.pool.register_prefix(req.slot, req.prompt[:covered])
         if req.prefill_pos == len(req.prefix):
+            # the boundary row crosses to the host for the first token
+            # anyway; the screen reads that copy
             last = last_logits.float().cpu().numpy()
+            if self.ecfg.screen_logits and not np.all(np.isfinite(last)):
+                self.metrics.inc("quarantined_lanes")
+                self._fail(req, "nan_logits", now)
+                return
             req.state = RequestState.DECODE
             self._emit(req, self._boundary_token(req, last), last, now)
             if req.done:
@@ -496,8 +754,19 @@ class Engine:
         chunk[0, :n] = prefix[start : start + n]
         positions = (np.arange(C, dtype=np.int32) + start)[None]
         ctx_k, ctx_v = self.pool.gather([req.slot])
-        logits, k_new, v_new = self.adapter(
-            chunk, positions, ctx_k, ctx_v, np.asarray([start], np.int32))
+        if self.faults.rules:
+            self.faults.lane_rids = (req.rid,)
+            # only the boundary chunk's last logit is consumed; NaN in an
+            # earlier chunk's discarded logits is unobservable
+            self.faults.poison_rids = (
+                (req.rid,) if start + n == len(prefix) else ())
+        try:
+            logits, k_new, v_new = self.adapter(
+                chunk, positions, ctx_k, ctx_v,
+                np.asarray([start], np.int32))
+        except FaultInjected as e:
+            self._fail_dispatch([req], e, now)
+            return  # prefill_pos unchanged: a survivor replans as-is
         self.pool.write_span(req.slot, start, n, k_new[:, 0], v_new[:, 0])
         self._after_prefill_chunk(req, n, logits[0, n - 1], now)
 
@@ -523,12 +792,22 @@ class Engine:
         pages, offs = self.pool.span_addresses(slots, starts, ns, C)
         bt = self.pool.block_table(slots)
         bt = bt[:, : self._active_pages(int(ctx_len.max(initial=1)))]
-        logits = self.adapter.prefill_paged(
-            tokens, positions, bt, ctx_len, pages, offs, self.pool)
+        if self.faults.rules:
+            self.faults.lane_rids = tuple(r.rid for r, _ in chunks)
+            self.faults.poison_rids = tuple(
+                r.rid for r, n in chunks
+                if r.prefill_pos + n == len(r.prefix))
+        try:
+            logits = self.adapter.prefill_paged(
+                tokens, positions, bt, ctx_len, pages, offs, self.pool)
+        except FaultInjected as e:
+            # lengths never advanced: surviving chunks replan next tick
+            # and recompute the identical K/V
+            self._fail_dispatch([r for r, _ in chunks], e, now)
+            return
         self.pool.note_span_written(slots, starts, ns)
-        self.stats["prefill_batches"] += 1
-        self.stats["prefill_batch_size"] = max(
-            self.stats["prefill_batch_size"], len(chunks))
+        self.metrics.inc("prefill_batches")
+        self.metrics.counter("prefill_batch_size").peak(len(chunks))
         for b, (r, n) in enumerate(chunks):
             self._after_prefill_chunk(r, n, logits[b, n - 1], now)
 
@@ -569,35 +848,51 @@ class Engine:
             positions[b, 0] = ctx_len[b]
         pos_list = [int(p) for p in positions[:, 0]]
         sel = None
-        if self.ecfg.paged_decode:
-            bt = self.pool.block_table(slots)
-            bt = bt[:, : self._active_pages(int(ctx_len.max(initial=1)))]
-            pages, offs = self.pool.addresses(slots, pos_list)
-            if self.ecfg.device_sample:
-                sel, logits = self.adapter.decode_paged_sample(
-                    tokens, positions, bt, ctx_len, pages, offs,
-                    self._sampling_arrays(decode, B), self.pool)
-                sel = sel[:, 0].cpu().numpy()
+        if self.faults.rules:
+            self.faults.lane_rids = tuple(r.rid for r in decode)
+            self.faults.poison_rids = self.faults.lane_rids
+        try:
+            if self.ecfg.paged_decode:
+                bt = self.pool.block_table(slots)
+                bt = bt[:, : self._active_pages(int(ctx_len.max(initial=1)))]
+                pages, offs = self.pool.addresses(slots, pos_list)
+                if self.ecfg.device_sample:
+                    sel, logits = self.adapter.decode_paged_sample(
+                        tokens, positions, bt, ctx_len, pages, offs,
+                        self._sampling_arrays(decode, B), self.pool)
+                    sel = sel[:, 0].cpu().numpy()
+                else:
+                    logits = self.adapter.decode_paged(
+                        tokens, positions, bt, ctx_len, pages, offs,
+                        self.pool)
+                self.pool.note_written(slots, pos_list)
             else:
-                logits = self.adapter.decode_paged(
-                    tokens, positions, bt, ctx_len, pages, offs, self.pool)
-            self.pool.note_written(slots, pos_list)
-        else:
-            ctx_k, ctx_v = self.pool.gather(slots)
-            logits, k_new, v_new = self.adapter(
-                tokens, positions, ctx_k, ctx_v, ctx_len)
-            self.pool.write(slots, pos_list, k_new[:, :, 0], v_new[:, :, 0])
-        logits_np = None
-        if sel is None or self.ecfg.record_logits:
-            logits_np = logits[:, 0].float().cpu().numpy()
-        for b, r in enumerate(decode):
-            tok = (int(sel[b]) if sel is not None
-                   else self._select_token(r, logits_np[b]))
-            self._emit(r, tok, None if logits_np is None else logits_np[b],
-                       now)
-            self.stats["decode_tokens"] += 1
-            if r.done:
-                self._finish(r, now)
+                ctx_k, ctx_v = self.pool.gather(slots)
+                logits, k_new, v_new = self.adapter(
+                    tokens, positions, ctx_k, ctx_v, ctx_len)
+                self.pool.write(slots, pos_list, k_new[:, :, 0],
+                                v_new[:, :, 0])
+        except FaultInjected as e:
+            # nothing dispatched, lengths untouched: fail the target only;
+            # surviving lanes redo the identical step next tick
+            self._fail_dispatch(decode, e, now)
+            return
+        if self.ecfg.screen_logits:
+            self._screen_lanes(decode, logits, now)
+        with self.tracer.span("emit", lanes=len(decode)):
+            logits_np = None
+            if sel is None or any(self._keeps_logits(r) for r in decode):
+                logits_np = logits[:, 0].float().cpu().numpy()
+            for b, r in enumerate(decode):
+                if r.state.terminal:
+                    continue  # quarantined by the screen this tick
+                tok = (int(sel[b]) if sel is not None
+                       else self._select_token(r, logits_np[b]))
+                self._emit(r, tok,
+                           None if logits_np is None else logits_np[b], now)
+                self.metrics.inc("decode_tokens")
+                if r.done:
+                    self._finish(r, now)
 
     def _run_decode_spec(self, decode: list[Request], now: float) -> None:
         """One speculative tick: draft up to K tokens per lane, verify every
@@ -616,27 +911,29 @@ class Engine:
         n_drafts = np.zeros((B,), np.int32)
         starts = [0] * B
         widths = [0] * B
-        for b, r in enumerate(decode):
-            slots[b] = r.slot
-            length = self.pool.length(r.slot)
-            # opportunistic draft, capped by the request's remaining
-            # tokens, the slot's capacity and free pages: drafting never
-            # evicts (the +1 page was claimed by _ensure_decode_pages)
-            room = min(K, r.max_new - len(r.out_tokens) - 1,
-                       self.pool.seq_capacity_tokens() - (length + 1))
-            prop = (self.drafter.propose(r.prefix, room) if room > 0
-                    else np.zeros(0, np.int32))
-            n = len(prop)
-            while n > 0 and not self.pool.extend(r.slot, length + 1 + n):
-                n -= 1
-            tokens[b, 0] = r.out_tokens[-1]
-            tokens[b, 1 : 1 + n] = prop[:n]
-            drafts[b, :n] = prop[:n]
-            n_drafts[b] = n
-            positions[b] += length
-            ctx_len[b] = length
-            starts[b], widths[b] = length, 1 + n
-            self.stats["draft_tokens"] += n
+        with self.tracer.span("draft", lanes=len(decode)):
+            for b, r in enumerate(decode):
+                slots[b] = r.slot
+                length = self.pool.length(r.slot)
+                # opportunistic draft, capped by the request's remaining
+                # tokens, the slot's capacity and free pages: drafting
+                # never evicts (the +1 page was claimed by
+                # _ensure_decode_pages)
+                room = min(K, r.max_new - len(r.out_tokens) - 1,
+                           self.pool.seq_capacity_tokens() - (length + 1))
+                prop = (self.drafter.propose(r.prefix, room) if room > 0
+                        else np.zeros(0, np.int32))
+                n = len(prop)
+                while n > 0 and not self.pool.extend(r.slot, length + 1 + n):
+                    n -= 1
+                tokens[b, 0] = r.out_tokens[-1]
+                tokens[b, 1 : 1 + n] = prop[:n]
+                drafts[b, :n] = prop[:n]
+                n_drafts[b] = n
+                positions[b] += length
+                ctx_len[b] = length
+                starts[b], widths[b] = length, 1 + n
+                self.metrics.inc("draft_tokens", n)
         pages, offs = self.pool.span_addresses(slots, starts, widths, W)
         bt = self.pool.block_table(slots)
         bt = bt[:, : self._active_pages(int(ctx_len.max(initial=1)))]
@@ -646,43 +943,62 @@ class Engine:
             # the host re-selects from the logits
             else (np.zeros(B, np.float32), np.ones(B, np.float32),
                   np.zeros(B, np.int32), np.zeros(B, np.int32)))
-        sel, n_acc, logits = self.adapter.verify_paged(
-            tokens, positions, bt, ctx_len, pages, offs, drafts, n_drafts,
-            sampling, self.pool)
+        if self.faults.rules:
+            self.faults.lane_rids = tuple(r.rid for r in decode)
+            self.faults.poison_rids = self.faults.lane_rids
+        try:
+            sel, n_acc, logits = self.adapter.verify_paged(
+                tokens, positions, bt, ctx_len, pages, offs, drafts,
+                n_drafts, sampling, self.pool)
+        except FaultInjected as e:
+            self._fail_dispatch(decode, e, now)
+            # unmap the opportunistic draft pages: lengths never advanced,
+            # so surviving lanes re-draft from ctx_len next tick
+            for b, r in enumerate(decode):
+                if not r.state.terminal:
+                    self.pool.truncate(r.slot, starts[b])
+            return
         self.pool.note_span_written(slots, starts, widths)
-        self.stats["spec_ticks"] += 1
-        self.stats["spec_lanes"] += len(decode)
-        logits_np = None
-        if not self.ecfg.device_sample or self.ecfg.record_logits:
-            logits_np = logits.float().cpu().numpy()
-        sel, n_acc = sel.cpu().numpy(), n_acc.cpu().numpy()
-        extra = 0
-        for b, r in enumerate(decode):
-            length = int(ctx_len[b])
-            emitted = 0
-            i = 0
-            while True:
-                tok = (int(sel[b, i]) if self.ecfg.device_sample
-                       else self._select_token(r, logits_np[b, i]))
-                self._emit(r, tok, None if logits_np is None
-                           else logits_np[b, i], now)
-                emitted += 1
-                if self.ecfg.device_sample:
-                    if r.done or i >= int(n_acc[b]):
+        if self.ecfg.screen_logits:
+            self._screen_lanes(decode, logits, now)
+        self.metrics.inc("spec_ticks")
+        self.metrics.inc("spec_lanes", len(decode))
+        with self.tracer.span("emit", lanes=len(decode)):
+            logits_np = None
+            if (not self.ecfg.device_sample
+                    or any(self._keeps_logits(r) for r in decode)):
+                logits_np = logits.float().cpu().numpy()
+            sel, n_acc = sel.cpu().numpy(), n_acc.cpu().numpy()
+            extra = 0
+            for b, r in enumerate(decode):
+                if r.state.terminal:
+                    continue  # quarantined by the screen; slot freed
+                length = int(ctx_len[b])
+                emitted = 0
+                i = 0
+                while True:
+                    tok = (int(sel[b, i]) if self.ecfg.device_sample
+                           else self._select_token(r, logits_np[b, i]))
+                    self._emit(r, tok, None if logits_np is None
+                               else logits_np[b, i], now)
+                    emitted += 1
+                    if self.ecfg.device_sample:
+                        if r.done or i >= int(n_acc[b]):
+                            break
+                    elif r.done or i >= n_drafts[b] or tok != drafts[b, i]:
                         break
-                elif r.done or i >= n_drafts[b] or tok != drafts[b, i]:
-                    break
-                i += 1
-            self.stats["decode_tokens"] += emitted
-            self.stats["accepted_tokens"] += emitted - 1
-            self.stats["rolled_back_tokens"] += widths[b] - emitted
-            extra += emitted - 1
-            if r.done:
-                self._finish(r, now)  # releases the slot: no rollback
-            else:
-                # the last emitted token's K/V is computed next tick (it is
-                # the new last_emitted), so the valid length is ctx + emitted
-                self.pool.truncate(r.slot, length + emitted)
+                    i += 1
+                self.metrics.inc("decode_tokens", emitted)
+                self.metrics.inc("accepted_tokens", emitted - 1)
+                self.metrics.inc("rolled_back_tokens", widths[b] - emitted)
+                extra += emitted - 1
+                if r.done:
+                    self._finish(r, now)  # releases the slot: no rollback
+                else:
+                    # the last emitted token's K/V is computed next tick
+                    # (it is the new last_emitted), so the valid length is
+                    # ctx + emitted
+                    self.pool.truncate(r.slot, length + emitted)
         # accepted extras beyond the planned one per lane charge the next
         # step's budget; rejected drafts were never charged
         self.scheduler.charge_accepted(extra)
@@ -690,18 +1006,11 @@ class Engine:
     # ---- reporting ------------------------------------------------------
 
     def summary(self) -> dict:
-        """Counters, pool gauges, and latency percentiles (seconds) over
-        the FINISHED requests (a cancelled or failed one has no honest
-        end-to-end time)."""
-        s = dict(self.stats)
-        s.update(self.pool.gauges())
-        done = [r for r in self.finished if r.state is RequestState.FINISHED]
-        ttft = [r.t_first - r.arrival for r in done]
-        itl = [b - a for r in done for a, b in zip(r.token_times,
-                                                   r.token_times[1:])]
-        queue = [r.t_admitted - r.arrival for r in done
-                 if r.t_admitted is not None]
-        e2e = [r.t_finish - r.arrival for r in done]
+        """One metrics snapshot: every counter, every live pool gauge, the
+        latency histograms (``ttft_s_p50`` / ``itl_s_p99`` / ``queue_s_*``
+        / ``e2e_s_*``, None until a request finished) and the speculative
+        ratios."""
+        s = self.metrics.snapshot()
         # speculative health: how often the drafter was right, and tokens
         # one lane emits per verify it takes part in (1 = no benefit)
         s["acceptance_rate"] = s["accepted_tokens"] / max(1, s["draft_tokens"])
@@ -710,9 +1019,4 @@ class Engine:
         s["tokens_per_lane_tick"] = (
             s["decode_tokens"] / max(1, s["spec_lanes"])
             if s["spec_ticks"] else 1.0)
-        for name, vals in (("ttft_s", ttft), ("itl_s", itl),
-                           ("queue_s", queue), ("e2e_s", e2e)):
-            for q in (50, 99):
-                s[f"{name}_p{q}"] = (float(np.percentile(vals, q))
-                                     if vals else None)
         return s

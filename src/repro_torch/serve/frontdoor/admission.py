@@ -1,11 +1,13 @@
-"""Front-door admission: the ``--tenants`` spec parser."""
+"""Front-door admission: the ``--tenants`` spec parser, and the typed
+rejection (:class:`AdmissionRejected`, from ``serve/faults.py``)."""
 from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.serve.faults import AdmissionRejected
 from repro_torch.serve.scheduler import TenantPolicy
 
-__all__ = ["parse_tenants"]
+__all__ = ["AdmissionRejected", "parse_tenants"]
 
 
 def parse_tenants(spec: str) -> dict:

@@ -46,6 +46,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.layers import quantize_kv
+from repro_torch.serve.faults import NO_FAULTS
 
 __all__ = ["PagedKVPool", "pages_needed", "page_bucket"]
 
@@ -134,6 +135,9 @@ class PagedKVPool:
         self._next_node = 1
         self.cow_copies = 0  # pages copied before a write (COW + admit)
         self.prefix_hit_pages = 0  # pages mapped from the trie at admit
+        # fault-injection hooks (serve/faults.py); the engine points this
+        # at its plan — the inert default iterates an empty rule list
+        self.faults = NO_FAULTS
 
     # ---- accounting -----------------------------------------------------
 
@@ -189,6 +193,8 @@ class PagedKVPool:
         need_total = max(1, pages_needed(n_tokens, self.page_size))
         if not self._free_slots or need_total > self.max_pages_per_seq:
             return None
+        if self.faults.rules and self.faults.fire("pool_exhausted"):
+            return None  # injected transient exhaustion (admission defers)
         shared: list[int] = []
         if self.prefix_cache and tokens is not None:
             shared = [
@@ -227,6 +233,8 @@ class PagedKVPool:
         need = pages_needed(new_len, self.page_size) - len(st.pages)
         if need <= 0:
             return True
+        if self.faults.rules and self.faults.fire("pool_exhausted"):
+            return False  # injected transient exhaustion (evict/requeue)
         if len(st.pages) + need > self.max_pages_per_seq:
             return False
         if not self._available(need):
@@ -385,19 +393,23 @@ class PagedKVPool:
     def max_page_ref(self) -> int:
         return int(self._page_ref.max())
 
-    def gauges(self) -> dict:
-        """Every pool gauge by name, read now."""
+    def metrics_gauges(self) -> dict:
+        """Name -> zero-arg callback for every pool gauge, as
+        :class:`repro_torch.serve.telemetry.MetricsRegistry` registers
+        them: read at snapshot time, so the engine's registry reports live
+        pool state without the pool knowing about telemetry."""
         return {
-            "pages_in_use": self.pages_in_use,
-            "peak_pages_in_use": self.peak_pages_in_use,
-            "occupancy": self.occupancy,
-            "peak_occupancy": (self.peak_pages_in_use
-                               / max(1, self.n_pages - 1)),
-            "shared_pages": self.shared_pages,
-            "cached_pages": self.cached_pages,
-            "max_page_ref": self.max_page_ref,
-            "cow_copies": self.cow_copies,
-            "prefix_hit_pages": self.prefix_hit_pages,
+            "pages_in_use": lambda: self.pages_in_use,
+            "peak_pages_in_use": lambda: self.peak_pages_in_use,
+            "occupancy": lambda: self.occupancy,
+            "peak_occupancy": (
+                lambda: self.peak_pages_in_use / max(1, self.n_pages - 1)
+            ),
+            "shared_pages": lambda: self.shared_pages,
+            "cached_pages": lambda: self.cached_pages,
+            "max_page_ref": lambda: self.max_page_ref,
+            "cow_copies": lambda: self.cow_copies,
+            "prefix_hit_pages": lambda: self.prefix_hit_pages,
         }
 
     def _storage(self) -> list:

@@ -15,13 +15,18 @@ if TYPE_CHECKING:  # pragma: no cover - typing only
 __all__ = ["run_to_completion"]
 
 
-def run_to_completion(engine: "Engine",
-                      max_steps: Optional[int] = None) -> list["Request"]:
+def run_to_completion(engine: "Engine", max_steps: Optional[int] = None,
+                      metrics_every: Optional[float] = None
+                      ) -> list["Request"]:
     """Drive ``engine`` until every submitted request is terminal
     (FINISHED, CANCELLED or FAILED: each lands in ``engine.finished``).
 
     ``max_steps`` bounds ticks that DID work (a runaway-loop backstop);
     idle iterations waiting on future arrivals don't consume it.
+    ``metrics_every`` (seconds of engine time) emits a one-line metrics
+    snapshot to stderr at that period.  With ``canary_every`` configured
+    and a canary set attached, a canary probe runs at the start and then
+    at that period.
     """
     sch = engine.scheduler
     todo = sch.pending + len(engine.running)
@@ -32,6 +37,14 @@ def run_to_completion(engine: "Engine",
     max_steps = max_steps or 1000 + 20 * budget_tokens
     done0 = len(engine.finished)
     worked_steps = stalls = 0
+    next_metrics = (engine.now() + metrics_every if metrics_every
+                    else float("inf"))
+    canary_on = (engine.ecfg.canary_every is not None
+                 and engine.canary_tokens is not None)
+    if canary_on:
+        engine._run_canary()
+    next_canary = (engine.now() + engine.ecfg.canary_every if canary_on
+                   else float("inf"))
     while not engine.idle:
         if engine.tick().worked:
             worked_steps, stalls = worked_steps + 1, 0
@@ -49,6 +62,12 @@ def run_to_completion(engine: "Engine",
                     raise RuntimeError(
                         "engine stalled: pending requests but no step "
                         "makes progress (pool misconfigured?)")
+        if engine.now() >= next_metrics:
+            engine._emit_metrics_snapshot()
+            next_metrics = engine.now() + metrics_every
+        if engine.now() >= next_canary:
+            engine._run_canary()
+            next_canary = engine.now() + engine.ecfg.canary_every
     if len(engine.finished) - done0 != todo:
         raise RuntimeError("run ended with requests not terminal")
     return engine.finished[done0:]

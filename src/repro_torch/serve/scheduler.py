@@ -43,6 +43,9 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.serve.faults import AdmissionRejected
+from repro_torch.serve.telemetry import NULL_TRACER
+
 __all__ = [
     "AdmissionRejected",
     "Request",
@@ -55,43 +58,6 @@ __all__ = [
 ]
 
 _ids = itertools.count()
-
-
-class AdmissionRejected(ValueError):
-    """Typed admission backpressure from ``Engine.submit``.
-
-    ``retryable=True`` is transient (``queue_full``, ``rate_limited``):
-    back off — for ``retry_after_s`` when set — and resubmit.
-    ``retryable=False`` (``over_capacity``) means this engine can never
-    serve the request.  ``str()`` carries every detail."""
-
-    def __init__(self, reason: str, *, retryable: bool,
-                 needed_pages: Optional[int] = None,
-                 available_pages: Optional[int] = None,
-                 pending: Optional[int] = None,
-                 limit: Optional[int] = None,
-                 retry_after_s: Optional[float] = None,
-                 tenant: Optional[str] = None):
-        self.reason = reason
-        self.retryable = retryable
-        self.needed_pages = needed_pages
-        self.available_pages = available_pages
-        self.pending = pending
-        self.limit = limit
-        self.retry_after_s = retry_after_s
-        self.tenant = tenant
-        parts = [f"admission rejected ({reason})"]
-        if tenant is not None:
-            parts.append(f"tenant {tenant!r}")
-        if needed_pages is not None:
-            parts.append(f"needs {needed_pages} pages, "
-                         f"{available_pages} available")
-        if limit is not None:
-            parts.append(f"{pending} pending >= max_queue {limit}")
-        if retry_after_s is not None:
-            parts.append(f"retry after {retry_after_s:.3g}s")
-        parts.append("retryable" if retryable else "not retryable")
-        super().__init__("; ".join(parts))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,8 +180,11 @@ class Request:                    # list.remove/in on running queues
     t_first: Optional[float] = None
     t_finish: Optional[float] = None
     token_times: list = dataclasses.field(default_factory=list)
-    # optional per-emission last-token logits (tests/--check)
+    # per-emission last-token logits, kept under --check (record_logits)
+    # and for shadow-sampled requests, whose drift the oracle re-scores
     step_logits: list = dataclasses.field(default_factory=list)
+    # picked for shadow drift sampling (--shadow-rate) at submit
+    shadow: bool = False
     # the host draw's numpy generator, made on first use; it survives
     # eviction (the replayed request continues its draw sequence)
     _rng: Optional[np.random.Generator] = dataclasses.field(
@@ -291,6 +260,8 @@ class TokenBudgetFCFS:
         # speculative accept debt: tokens emitted beyond the one planned
         # per decode lane, charged against the NEXT step's budget
         self._accept_debt = 0
+        # lifecycle telemetry sink; the engine swaps in its live tracer
+        self.tracer = NULL_TRACER
 
     def charge_accepted(self, n_tokens: int) -> None:
         """Charge ``n_tokens`` accepted speculative tokens (beyond one per
@@ -414,6 +385,12 @@ class TokenBudgetFCFS:
             hit_tokens += r.prefill_pos
             if r.t_admitted is None:
                 r.t_admitted = now
+            self.tracer.event(
+                "request_admitted", rid=r.rid, queue_s=now - r.arrival,
+                prompt_tokens=len(r.prefix), cached_tokens=r.prefill_pos,
+                replay=r.n_evictions > 0, tenant=r.tenant,
+                priority=r.priority or 0,
+            )
             running.append(r)
             n = min(self.prefill_chunk, len(r.prefix) - r.prefill_pos, budget)
             prefill.append((r, n))
