@@ -123,14 +123,28 @@ Phases, each printing its own lines:
      the recompute oracle's, shadow drift within phase 5's limit, flips
      only at small margins, and the quality-baseline round trip
      (``quality_report.py --write-baseline``, ``serve.py
-     --quality-baseline --quality-strict``) on phase 6's artifact.
+     --quality-baseline --quality-strict``) on phase 6's artifact;
+ 11. tensor parallelism — ``serve/distributed.py`` with ranks sharing the
+     card on gloo (collectives staged through host memory; no TP speed is
+     measured so): (a) mp = 2, phase 4's model built by every rank from
+     its seed, phase 4's flags and schedule: streams equal phase 4's but
+     where its top-2 margin is below 2 x phase 5's max |diff|, phase 5's
+     check, each rank holding half the pool and half the packed codes and
+     launching phase 4's kernels (each rank's counts read through the
+     mesh); (b) mp = 2, K = 4 over int8 pages on phase 9's prompts with a
+     NaN in request 1's verify tick, against the same on one device
+     (``INT8_LOGIT_*``), the NaN lane alone quarantined; (c) mp = 4 at
+     ``TP4_LAYERS`` layers (2 KV heads a rank), phase 5's check.
 
 Phase 3 also runs kron_mul at every dense width's factors (16 x 32 to
 168 x 176, and 192 x 256, the largest the kernel takes), quant_matmul at
 the widest starcoder2-15b and llama2-70b projections, and paged prefill at
-G = 12.
+G = 12; and one rank's shapes at tensor parallelism 2 and 4
+(``QMM_TP_SHAPES``; paged decode and prefill at 4 and 2 KV heads, the
+verifier's C = 5 over int8 pages).
 
-The next-to-last line is a JSON record of the six kernels; the last line is
+The next-to-last line is a JSON record of the six kernels (each with its
+launches on every path, phase 11's by rank); the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Nothing of JAX or of the ``repro`` package is imported.
 """
@@ -197,6 +211,10 @@ SERVE_ARGS = argparse.Namespace(slots=8, page_size=16, pages=None,
 SERVE_KERNELS = ("quant_matmul", "paged_decode", "paged_prefill", "kron_mul")
 QUANT_KERNELS = ("ldlq", "kron_mul")
 
+# quant_matmul (K, M) of one rank at tensor parallelism 2 (phase 11):
+# column-parallel mlp.wi/wg (M = 17408 / 2), row-parallel mlp.wo and
+# attn.wo (K = 17408 / 2, 5120 / 2)
+QMM_TP_SHAPES = ((5120, 8704), (8704, 5120), (2560, 5120))
 # quant_matmul (K, M, B, bits): the qwen3-14b projections at decode (B 1,
 # 8) and prefill (64, 512) rows; the widest projections of starcoder2-15b
 # (mlp.wi, mlp.wo) and llama2-70b (mlp.wi) at 8 and 512 rows; 3 and 4 bits;
@@ -213,6 +231,7 @@ QMM_CASES = (
     + [(5120, 5120, 8, 3), (5120, 5120, 8, 4)]
     + [(5121, 1000, B, bits) for B in (5, 70) for bits in (2, 3, 4)]
     + [(17, 300, 3, 8), (17, 300, 20, 8)]
+    + [(K, M, B, 2) for (K, M) in QMM_TP_SHAPES for B in (8, 512)]
 )
 # ldlq (m, n, bits, stochastic): the qwen3-14b linears' (rows, columns) —
 # attn.wk/wv, attn.wq/wo, mlp.wi/wg, mlp.wo — at 2 and 4 bits, a ragged
@@ -366,6 +385,7 @@ def qmm_cases(torch, timer) -> dict:
     g.manual_seed(11)
     rep, pre = None, None
     worst = 0.0
+    tp = {}
     for K, M, B, bits in QMM_CASES:
         maxq = 2**bits - 1
         codes = torch.randint(0, maxq + 1, (M, K), generator=g,
@@ -437,8 +457,12 @@ def qmm_cases(torch, timer) -> dict:
         if (K, M, B, bits) == (5120, 17408, 512, 2):
             pre = dict(case="K=5120 M=17408 B=512 bits=2 (prefill mlp.wi)",
                        **row)
+        if (K, M) in QMM_TP_SHAPES and bits == 2:
+            tp[f"K={K} M={M} B={B}"] = {k: row[k] for k in (
+                "ms", "fused_ms", "plain_ms", "library_ms", "bound_ms")}
     rep["max_abs_err"] = worst
     rep["prefill"] = pre
+    rep["tp_rank"] = tp
     return rep
 
 
@@ -630,6 +654,38 @@ def decode_cases(torch, timer) -> dict:
         if not c["ok"]:
             raise AssertionError(f"paged_decode ({kind}, G=12) disagrees")
         del c
+    # one rank's KV heads at tensor parallelism 2 and 4 (phase 11): qwen3-14b's
+    # 8 KV heads as 4 and 2, G = 5
+    rep["tp_rank"] = {}
+    for KV_ in (4, 2):
+        for kind in ("bf16", "int8"):
+            c = _decode_check(torch, g, kind, B=B, KV=KV_, G=G, hd=hd,
+                              ps=ps, Pa=Pa, layer=layer, ctx_list=ctx_list)
+            worst = max(worst, c["err"])
+            q, kp, vp, bt, ctx, kw = (c[k] for k in ("q", "kp", "vp", "bt",
+                                                      "ctx", "kw"))
+            t_k = timer(lambda: paged_attention_kernel(q, kp, vp, bt, ctx,
+                                                       **kw))
+            t_p = timer(lambda: paged_attention_stats_ref(q, kp, vp, bt, ctx,
+                                                          **kw))
+            n_bytes = (q.numel() * 4 + _kv_bytes(ctx_list, KV_, hd, kind)
+                       + c["o"].numel() * 4 + 2 * c["m"].numel() * 4
+                       + bt.numel() * 4)
+            bms, by = bound_ms(n_bytes, 4.0 * sum(ctx_list) * KV_ * G * hd,
+                               TC_BF16_FLOP_S)
+            rep["tp_rank"][f"KV={KV_} {kind}"] = dict(
+                ms=t_k, plain_ms=t_p, bound_ms=bms)
+            log(f"[kernel] paged_decode {kind} pages B={B} KV={KV_} G={G} "
+                f"hd={hd} ctx={ctx_list} (one rank's heads): max_abs_err="
+                f"{c['err']:.3e} (tol {ATTN_ATOL}) empty-lane "
+                f"{'OK' if c['empty_ok'] else 'FAIL'}; ops.paged_gqa_decode "
+                f"max_abs_err={c['w_err']:.3e} {'OK' if c['ok'] else 'FAIL'}"
+                f" | kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+                f"{bms:.4f} ms ({by})")
+            if not c["ok"]:
+                raise AssertionError(f"paged_decode ({kind}, KV={KV_}) "
+                                     f"disagrees")
+            del c
     # the kernel's other compiled shapes: head dims padded to 128 and two
     # chunks of 128, group sizes off the exact buckets
     for kind, hd_, G_ in (("bf16", 64, 8), ("fp32", 256, 3), ("int8", 96, 2)):
@@ -779,6 +835,39 @@ def prefill_cases(torch, timer) -> dict:
             if not c["ok"]:
                 raise AssertionError(f"paged_prefill ({kind}, KV={KV_}, "
                                      f"G=12) disagrees")
+            del c
+    # one rank's KV heads at tensor parallelism 2 and 4 (phase 11), G = 5: a
+    # prefill chunk and, over int8 pages, the K = 4 verifier's (C = 5, the
+    # chunk's own K/V overridden on the diagonal)
+    rep["tp_rank"] = {}
+    for KV_ in (4, 2):
+        for kind, self_, C_ in (("bf16", False, C), ("int8", True, 5)):
+            c = _prefill_check(torch, g, kind, self_, B=B, KV=KV_, G=G, C=C_,
+                               hd=hd, ps=ps, Pa=Pa, layer=layer,
+                               ctx_list=ctx_list)
+            worst = max(worst, c["err"])
+            q, kc, vc, kp, vp, bt, ctx, kw = (
+                c[k] for k in ("q", "kc", "vc", "kp", "vp", "bt", "ctx",
+                               "kw"))
+            t_k = timer(lambda: paged_prefill_kernel(q, kc, vc, kp, vp, bt,
+                                                     ctx, **kw))
+            t_p = timer(lambda: paged_prefill_grouped_ref(q, kc, vc, kp, vp,
+                                                          bt, ctx, **kw))
+            n_chunk = kc.numel() * kc.element_size() * (4 if self_ else 2)
+            n_bytes = (q.numel() * 4 + _kv_bytes(ctx_list, KV_, hd, kind)
+                       + n_chunk + c["got"].numel() * 4 + bt.numel() * 4)
+            n_ops = sum(4.0 * G * C_ * hd * KV_ * (cl + (C_ + 1) / 2)
+                        for cl in ctx_list)
+            bms, by = bound_ms(n_bytes, n_ops, TC_BF16_FLOP_S)
+            case = f"KV={KV_} C={C_} {kind}" + (" +self" if self_ else "")
+            rep["tp_rank"][case] = dict(ms=t_k, plain_ms=t_p, bound_ms=bms)
+            log(f"[kernel] paged_prefill {case} pages B={B} G={G} hd={hd} "
+                f"(one rank's heads): max_abs_err={c['err']:.3e} (tol "
+                f"{ATTN_ATOL}); ops.paged_gqa_prefill max_abs_err="
+                f"{c['w_err']:.3e} {'OK' if c['ok'] else 'FAIL'} | kernel "
+                f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {bms:.4f} ms ({by})")
+            if not c["ok"]:
+                raise AssertionError(f"paged_prefill ({case}) disagrees")
             del c
     # the other head-dim instantiations (64 and 256, padded from 48 and 200)
     for kind, hd_, G_ in (("bf16", 48, 3), ("fp32", 256, 2), ("int8", 200, 4)):
@@ -1327,6 +1416,7 @@ def phase_serve(torch, *, seed: int, layers: int) -> dict:
                                 mean_atol=LOGIT_MEAN_ATOL)
     profile_ticks(torch, adapter, SERVE_ARGS, prompts)
     shutil.rmtree(art, ignore_errors=True)
+    rec["reqs"] = dict(enumerate(reqs))  # phase 11's baseline streams
     return rec
 
 
@@ -3018,6 +3108,241 @@ def phase_observe(torch, *, seed: int, layers: int, check_max: float,
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 11: tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+# phase 11's depths where not phase 4's: (b) K = 4 over int8 pages at
+# mp = 2 (a two-rank tick takes ~7x a one-device tick), (c) mp = 4
+# (qwen3-14b's 8 KV heads as 2 per rank)
+TP_SPEC_LAYERS, TP4_LAYERS = 8, 2
+# phase 11 (b)'s NaN: request 1's logits turn NaN inside its verify tick 4
+TP_NAN_PLAN = "nan_logits@rid={1},tick=4"
+
+
+def _tp_run(torch, tag: str, mesh, dist, args, schedule, *, max_seq_len: int,
+            events=None, faults=None) -> tuple:
+    """One tensor-parallel run of ``schedule`` with every rank's launch
+    counts set to 0 before it and read after it; the pool split and the
+    kernels of ``SERVE_KERNELS`` launched on every rank.  Returns (engine,
+    run, launches per rank)."""
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serve.distributed import (
+        rank_launch_counts,
+        reset_rank_counts,
+    )
+
+    engine = build_engine(dist, max_seq_len=max_seq_len, args=args,
+                          record_logits=True, faults=faults)
+    pool = engine.pool
+    _sync(torch)
+    reset_rank_counts(mesh)
+    t0 = time.perf_counter()
+    run = drive_schedule(engine, schedule, events=events)
+    _sync(torch)
+    wall = run["wall"] = time.perf_counter() - t0
+    per_rank = rank_launch_counts(mesh)
+    _leak_gate(tag, engine)
+    total = sum(len(r.out_tokens) for r in run["reqs"].values())
+    split = pool.total_bytes() // pool.device_bytes()
+    log(f"[{tag}] {len(schedule)} requests, {total} tokens in {wall:.2f}s "
+        f"over {run['ticks']} ticks ({wall / run['ticks'] * 1e3:.1f} ms a "
+        f"tick, {mesh.size} ranks on {mesh.backend}"
+        f"{', sharing one card: no TP speed' if mesh.staged else ''}); KV pool "
+        f"{pool.total_bytes()} B total, {pool.device_bytes()} B on each rank "
+        f"(1/{split}); kernel launches by rank "
+        + "; ".join(f"rank {r}: " + ", ".join(
+            f"{k} {c[k]}" for k in SERVE_KERNELS)
+            for r, c in enumerate(per_rank)))
+    missing = [(r, k) for r, c in enumerate(per_rank) for k in SERVE_KERNELS
+               if c[k] == 0 and not (k == "paged_decode" and args.speculative)]
+    if missing:
+        raise AssertionError(f"[{tag}] kernels never launched: {missing}")
+    if any(c != per_rank[0] for c in per_rank):
+        raise AssertionError(f"[{tag}] ranks launched different kernels")
+    return engine, run, per_rank
+
+
+def phase_tp(torch, *, seed: int, layers: int, served: dict,
+             check_max: float, cfg=None) -> dict:
+    """Phase 11: tensor-parallel serving (``serve/distributed.py``) with
+    ranks sharing the card on gloo.  (a) mp = 2: phase 4's synthetic 2-bit
+    model (built by every rank from its seed), flags and schedule; streams
+    equal phase 4's but where its top-2 margin is below 2 x phase 5's max
+    |diff|, logits within phase 5's gate of the recompute oracle, each
+    rank holding half the pool and half the packed codes.  (b) mp = 2, K =
+    4 speculative decode over int8 pages on phase 9's prompts at
+    ``TP_SPEC_LAYERS`` layers against the same on one device
+    (``INT8_LOGIT_*``), with request 1's logits NaN in a verify tick: that
+    lane alone quarantined.  (c) mp = 4 at ``TP4_LAYERS`` layers: 2 KV
+    heads a rank, phase 5's gate.  ``served``
+    is phase 4's record, ``check_max`` phase 5's max |diff|; ``cfg``
+    replaces the model (a rehearsal on the CPU).  Returns every run's
+    launches, by rank."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_calibration
+    from repro_torch.serve.adapter import CachedDecoder
+    from repro_torch.serve.distributed import (
+        DistributedCachedDecoder,
+        make_serving_mesh,
+        rank_weight_bytes,
+    )
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.serve.synthetic import synthetic_quantized_model
+
+    t_phase = time.perf_counter()
+    if cfg is None:
+        cfg = get_config("qwen3-14b")
+        if layers != cfg.n_layers:
+            log(f"[tp] DEPTH CUT: {layers} of {cfg.n_layers} layers "
+                f"(full width kept)")
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+    prompt_len, gen = 128, 32
+    max_seq_len = prompt_len + gen
+    arrive = (0, 0, 0, 0, 3, 5, 7, 9)
+    prompts = make_calibration(cfg.vocab, n_segments=len(arrive),
+                               seg_len=prompt_len, seed=seed + 3)
+    schedule = [(t, dict(prompt=p, max_new=gen))
+                for p, t in zip(prompts, arrive)]
+    paths = {}
+
+    def by_rank(tag, per_rank):
+        for r, c in enumerate(per_rank):
+            paths[f"{tag} rank{r}"] = c
+
+    # ---- (a) mp = 2, phase 4 ----------------------------------------------
+    t0 = time.perf_counter()
+    mesh = make_serving_mesh(1, 2, device=DEV)
+    log(f"[tp] {mesh.describe()}; started in "
+        f"{time.perf_counter() - t0:.1f}s")
+    try:
+        t0 = time.perf_counter()
+        dist = DistributedCachedDecoder.from_builder(
+            synthetic_quantized_model, mesh=mesh, cfg=cfg, seed=seed)
+        qm = synthetic_quantized_model(cfg, seed=seed, device=DEV)
+        full = sum(blk[n].packed.numel() * 4 for blk in qm.blocks
+                   for n in blk if hasattr(blk[n], "packed"))
+        per_rank = rank_weight_bytes(dist)
+        log(f"[tp-a] synthetic 2-bit {cfg.name} ({cfg.n_layers} layers) "
+            f"built by every rank in {time.perf_counter() - t0:.1f}s; "
+            f"packed codes {full} B whole, by rank {per_rank}")
+        if any(b * 2 != full for b in per_rank):
+            raise AssertionError("[tp-a] a rank does not hold half the codes")
+        eng, run, launches = _tp_run(torch, "tp-a mp=2", mesh, dist,
+                                     SERVE_ARGS, schedule,
+                                     max_seq_len=max_seq_len)
+        by_rank("tp-a mp=2", launches)
+        pool = eng.pool
+        if not dist._pool_sharded or pool.device_bytes() * 2 != \
+                pool.total_bytes():
+            raise AssertionError("[tp-a] the KV pool did not split in two")
+        base = served["reqs"]
+        max_d, mean_d, n_pos, firsts, _ = _compare_greedy(torch, run, {
+            "reqs": {i: base[i] for i in run["reqs"]}})
+        bound = 2 * check_max
+        unexplained = [f for f in firsts if f[2] >= bound]
+        log(f"[tp-a] against phase 4's run: {n_pos} positions, logit max "
+            f"|diff| {max_d:.4f}, mean {mean_d:.5f}; streams that part: "
+            f"{len(firsts)} (request, position, margin: {firsts}; all "
+            f"below 2 x phase 5's max |diff| = {bound:.4f}: "
+            f"{'yes' if not unexplained else 'NO'})")
+        if unexplained:
+            raise AssertionError("[tp-a] streams part from phase 4's")
+        check_logits(torch, qm, prompts, [run["reqs"][i]
+                                          for i in range(len(prompts))],
+                     atol=LOGIT_ATOL, mean_atol=LOGIT_MEAN_ATOL,
+                     tag="tp-a check")
+        del eng, run, dist, qm
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+
+        # ---- (b) mp = 2: K = 4 over int8 pages, a NaN lane ---------------
+        cfg_b = dataclasses.replace(
+            cfg, n_layers=min(TP_SPEC_LAYERS, cfg.n_layers))
+        dist = DistributedCachedDecoder.from_builder(
+            synthetic_quantized_model, mesh=mesh, cfg=cfg_b, seed=seed)
+        qm = synthetic_quantized_model(cfg_b, seed=seed, device=DEV)
+        spec_prompts = _spec_prompts(cfg.vocab, seed + 9)
+        greedy = [(t, dict(prompt=p, max_new=gen))
+                  for p, t in zip(spec_prompts, arrive)]
+        spec = _args(speculative=SPEC_K, draft="ngram", kv_int8=True,
+                     screen_logits=True)
+        _, one, paths["tp-b one device"] = _serve_schedule(
+            torch, f"tp-b one device K={SPEC_K} int8 {cfg_b.n_layers} "
+            f"layers",
+            CachedDecoder.from_quantized(qm), spec, greedy,
+            max_seq_len=max_seq_len, replay=False,
+            required=tuple(k for k in SERVE_KERNELS if k != "paged_decode"))
+        plan = FaultPlan()
+        eng, run, launches = _tp_run(
+            torch, f"tp-b mp=2 K={SPEC_K} int8 nan {cfg_b.n_layers} layers",
+            mesh, dist, spec,
+            greedy, max_seq_len=max_seq_len, faults=plan,
+            events={0: _arm(TP_NAN_PLAN)})
+        by_rank(f"tp-b mp=2 K={SPEC_K} int8", launches)
+        s = eng.summary()
+        log(f"[tp-b] {TP_NAN_PLAN!r}: fired "
+            f"{[(e['tick'], e['kind'], e.get('lane')) for e in plan.log]}, "
+            f"request 1 {run['reqs'][1].finish_reason} after "
+            f"{len(run['reqs'][1].out_tokens)} tokens, quarantined_lanes "
+            f"{s['quarantined_lanes']}, accepted {s['accepted_tokens']} of "
+            f"{s['draft_tokens']} drafts, spec_ticks {s['spec_ticks']}")
+        if (run["reqs"][1].finish_reason != "nan_logits"
+                or s["quarantined_lanes"] != 1 or len(plan.log) != 1
+                or s["accepted_tokens"] == 0):
+            raise AssertionError("[tp-b] the NaN lane was not quarantined "
+                                 "alone")
+        survivors = [i for i in run["reqs"] if i != 1]
+        max_d, mean_d, n_pos, firsts, _ = _compare_greedy(
+            torch, {"reqs": {i: run["reqs"][i] for i in survivors}}, one)
+        bound = 2 * max(check_max, max_d)
+        unexplained = [f for f in firsts if f[2] >= bound]
+        log(f"[tp-b] survivors against one device: {n_pos} positions, "
+            f"logit max |diff| {max_d:.4f} (tol {INT8_LOGIT_ATOL}), mean "
+            f"{mean_d:.5f} (tol {INT8_LOGIT_MEAN_ATOL}); streams that part: "
+            f"{len(firsts)} ({firsts}; all below {bound:.4f}: "
+            f"{'yes' if not unexplained else 'NO'})")
+        if (max_d > INT8_LOGIT_ATOL or mean_d > INT8_LOGIT_MEAN_ATOL
+                or unexplained):
+            raise AssertionError("[tp-b] int8 K=4 at mp=2 disagrees")
+        del eng, run, one, dist, qm
+    finally:
+        mesh.close()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- (c) mp = 4: two KV heads a rank ---------------------------------
+    cfg4 = dataclasses.replace(cfg, n_layers=min(TP4_LAYERS, cfg.n_layers))
+    t0 = time.perf_counter()
+    mesh = make_serving_mesh(1, 4, device=DEV)
+    log(f"[tp] {mesh.describe()}; started in "
+        f"{time.perf_counter() - t0:.1f}s")
+    try:
+        dist = DistributedCachedDecoder.from_builder(
+            synthetic_quantized_model, mesh=mesh, cfg=cfg4, seed=seed)
+        qm = synthetic_quantized_model(cfg4, seed=seed, device=DEV)
+        eng, run, launches = _tp_run(torch, f"tp-c mp=4 {cfg4.n_layers} "
+                                     f"layers", mesh, dist, SERVE_ARGS,
+                                     schedule, max_seq_len=max_seq_len)
+        by_rank("tp-c mp=4", launches)
+        if not dist._pool_sharded or eng.adapter._attn_cfg.n_kv_heads != \
+                cfg.n_kv_heads // 4:
+            raise AssertionError("[tp-c] the pool did not split over 4")
+        check_logits(torch, qm, prompts, [run["reqs"][i]
+                                          for i in range(len(prompts))],
+                     atol=LOGIT_ATOL, mean_atol=LOGIT_MEAN_ATOL,
+                     tag="tp-c check")
+        del eng, run, dist, qm
+    finally:
+        mesh.close()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[tp] phase 11 passed in {time.perf_counter() - t_phase:.1f}s")
+    return paths
+
+
 REPLACES = {
     "quant_matmul": "src/repro/kernels/quant_matmul/kernel.py:60",
     "paged_decode": "src/repro/kernels/paged_attention/kernel.py:164",
@@ -3072,13 +3397,16 @@ def main(argv=None) -> int:
     observe = phase_observe(torch, seed=args.seed, layers=args.layers,
                             check_max=served["check"]["max_diff"],
                             artifact=quant["artifact"])
+    torch.cuda.empty_cache()
+    tp = phase_tp(torch, seed=args.seed, layers=args.layers, served=served,
+                  check_max=served["check"]["max_diff"])
     # launches: each kernel on the path that runs it — the synthetic serve
     # for the serving kernels, the quantize run for ldlq and kron_mul, the
     # hadamard linear for hadamard; phases 7's to 10's paths beside them
     paths = {"serve": served["launches"], "quantize": quant["launches"],
              "hadamard_linear": quant["hadamard_launches"],
              "serve_quantized": quant["serve_launches"], **dense,
-             **lifecycle, **speculative, **observe}
+             **lifecycle, **speculative, **observe, **tp}
     main_path = {"ldlq": "quantize", "kron_mul": "quantize",
                  "hadamard": "hadamard_linear"}
     kernels = []
@@ -3096,7 +3424,7 @@ def main(argv=None) -> int:
             **{k: rep[k] for k in ("codes_differ_frac", "fused_ms",
                                    "plain_fused_ms", "library_fp32_ms",
                                    "terms", "decode", "prefill",
-                                   "dense_widths")
+                                   "dense_widths", "tp_rank")
                if k in rep},
             "launches_by_path": {p: c[name] for p, c in paths.items()},
         })

@@ -34,10 +34,14 @@ a Chrome/Perfetto trace of the engine's spans and ``--metrics-every``
 prints metric snapshots; ``--canary-every`` / ``--canary-prompts`` /
 ``--canary-len`` and ``--shadow-rate`` run the quality canaries, and
 ``--quality-baseline`` (``--quality-threshold``, ``--quality-strict``)
-audits a loaded artifact's quality section.  ``--check``
+audits a loaded artifact's quality section.  ``--mesh DP,MP`` serves
+tensor-parallel (``serve/distributed.py``): this process is rank 0 and
+starts the other ranks itself; packed codes, the KV pool and attention
+shard over the model axis.  ``--check``
 verifies the engine's greedy tokens against the full-prefix recompute
 oracle (with ``--kv-int8``: a gather-dense engine over the same int8
-pages) and exits nonzero on divergence; every run exits nonzero if a page
+pages, on one device also under ``--mesh``) and exits nonzero on
+divergence; every run exits nonzero if a page
 or slot is still held after the drain.
 
 Runs on the GPU (``--device cuda``, the default) through the hand-written
@@ -204,6 +208,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--draft", default="ngram", choices=("ngram",),
                     help="self-drafter for --speculative (ngram = prompt "
                          "lookup over each lane's own token history)")
+    ap.add_argument("--mesh", default=None, metavar="DP,MP",
+                    help="serve tensor-parallel over a (data, model) mesh of "
+                         "processes: packed weights + KV page pool + paged "
+                         "attention shard over the model axis "
+                         "(serve/distributed.py)")
     ap.add_argument("--host-sample", action="store_true",
                     help="draw tokens on the host (numpy softmax/top-p) "
                          "instead of on the device inside the paged "
@@ -288,11 +297,7 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    from repro_torch.launch.quantize import fp_model
-    from repro_torch.serve.adapter import CachedDecoder
-    from repro_torch.serve.artifacts import ArtifactCorruption, load_quantized
-    from repro_torch.serve.faults import AdmissionRejected, parse_fault_plan
-    from repro_torch.serve.scheduler import RequestState, SamplingParams
+    from repro_torch.serve.faults import parse_fault_plan
 
     faults = None
     if args.fault_plan:
@@ -352,16 +357,55 @@ def main(argv=None):
             "int8 page contents — without a paged path that oracle IS the "
             "engine under test")
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        from repro_torch.serve.distributed import make_serving_mesh
+
+        try:
+            dp, mp = (int(x) for x in args.mesh.split(","))
+        except ValueError:
+            raise SystemExit(f"--mesh expects DP,MP (e.g. 1,2), "
+                             f"got {args.mesh!r}")
+        try:
+            mesh = make_serving_mesh(dp, mp, device=device)
+        except ValueError as e:
+            raise SystemExit(f"--mesh: {e}")
+        print(f"[serve] {mesh.describe()}")
+    try:
+        return _serve(args, device, faults, tenants, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _serve(args, device, faults, tenants, mesh) -> int:
+    from repro_torch.launch.quantize import fp_model
+    from repro_torch.serve.adapter import CachedDecoder
+    from repro_torch.serve.artifacts import ArtifactCorruption, load_quantized
+    from repro_torch.serve.distributed import DistributedCachedDecoder
+    from repro_torch.serve.faults import AdmissionRejected
+    from repro_torch.serve.scheduler import RequestState, SamplingParams
+
+    adapter = qm = None
     if args.load_quantized:
         try:
-            qm, meta = load_quantized(args.load_quantized, device=device,
-                                      faults=faults)
+            if mesh is not None:
+                # every rank slices its packed codes on the host; the
+                # single-device copy is the --check oracle's
+                adapter, meta = DistributedCachedDecoder.load(
+                    args.load_quantized, mesh=mesh, load_faults=faults)
+                if args.check:
+                    qm, _ = load_quantized(args.load_quantized,
+                                           device=device)
+            else:
+                qm, meta = load_quantized(args.load_quantized, device=device,
+                                          faults=faults)
         except ArtifactCorruption as e:
             raise SystemExit(f"--load-quantized: {e}")
         except (FileNotFoundError, ValueError, KeyError) as e:
             raise SystemExit(
                 f"--load-quantized: {e} (expected a port artifact directory)")
-        cfg = qm.cfg
+        cfg = adapter.cfg if qm is None else qm.cfg
         label = f"quip-{meta['quip_config']['bits']}bit[artifact]"
         print(f"[serve] loaded quantized artifact: {cfg.name} "
               f"{meta['quip_config']['bits']}-bit ({args.load_quantized})")
@@ -372,6 +416,10 @@ def main(argv=None):
 
         cfg = get_smoke_config(args.arch) if args.smoke else get_config(
             args.arch)
+        if cfg.family != "dense" and mesh is not None:
+            raise SystemExit(
+                "--mesh drives the dense-family engine adapter; other "
+                "families serve through the batch fallback (single device)")
         g = torch.Generator(device=device)
         g.manual_seed(args.seed)
         params = init_decoder(cfg, g, device=device)
@@ -382,10 +430,17 @@ def main(argv=None):
             qm = quantize_in_process(params, cfg, bits=args.bits,
                                      seed=args.seed)
             label = f"quip-{args.bits}bit"
+            if mesh is not None:
+                adapter = DistributedCachedDecoder.from_quantized(qm,
+                                                                  mesh=mesh)
         else:
             qm = fp_model(params, cfg)
             label = "fp"
-    adapter = CachedDecoder.from_quantized(qm)
+            if mesh is not None:
+                adapter = DistributedCachedDecoder.from_model(cfg, params,
+                                                              mesh=mesh)
+    if adapter is None:
+        adapter = CachedDecoder.from_quantized(qm)
 
     prompts = make_calibration(cfg.vocab, n_segments=args.requests,
                                seg_len=args.prompt_len, seed=args.seed + 3)
@@ -404,6 +459,10 @@ def main(argv=None):
 
         tracer = Tracer(sync=args.trace_sync)
         engine.attach_tracer(tracer)
+    if mesh is not None:
+        pool = engine.pool
+        print(f"[serve] mesh data={mesh.dp} model={mesh.mp}: KV pool "
+              f"{pool.total_bytes()} B total, {pool.device_bytes()} B/device")
     stop_tokens = tuple(args.stop_token or ())
     try:  # bad sampling flags fail here, not as a capacity error below
         sampling = [SamplingParams(temperature=args.temperature,
@@ -505,8 +564,12 @@ def main(argv=None):
     if args.check:
         if args.kv_int8:
             # int8 pages are lossy against the dense references: the
-            # oracle is a gather-dense engine over the same int8 pages
-            oracle = build_engine(adapter, max_seq_len=max_seq_len,
+            # oracle is a gather-dense engine over the same int8 pages,
+            # always on one device (so --mesh is held to the unsharded
+            # implementation)
+            oracle_adapter = (adapter if mesh is None
+                              else CachedDecoder.from_quantized(qm))
+            oracle = build_engine(oracle_adapter, max_seq_len=max_seq_len,
                                   args=args, paged=False,
                                   paged_prefill=False, prefix_cache=False,
                                   speculative=0, robust=False)

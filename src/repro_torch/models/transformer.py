@@ -17,7 +17,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["init_decoder"]
+__all__ = ["init_decoder", "decoder_axes"]
 
 
 def init_decoder(cfg: ArchConfig, generator: torch.Generator, *,
@@ -63,3 +63,27 @@ def init_decoder(cfg: ArchConfig, generator: torch.Generator, *,
         layers.append({"ln1": ones(d), "attn": attn, "ln2": ones(d),
                        "mlp": mlp})
     return {"embed": embed, "layers": layers, "final_norm": ones(d)}
+
+
+def decoder_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of the :func:`init_decoder` tree: ``{"embed", "layers",
+    "final_norm"}``, with ``"layers"`` one per-layer dict that holds for
+    every layer (the port keeps layers unstacked).  Weights are (in, out)."""
+    attn = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+            "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+    if cfg.qkv_bias:
+        attn.update(bq=("heads",), bk=("kv_heads",), bv=("kv_heads",))
+    if cfg.qk_norm:
+        attn.update(q_norm=("norm",), k_norm=("norm",))
+    mlp = {"wi": ("embed", "ff"), "wo": ("ff", "embed")}
+    if cfg.mlp == "swiglu":
+        mlp["wg"] = ("embed", "ff")
+    if cfg.mlp_bias:
+        mlp.update(bi=("ff",), bo=("norm",))
+    embed = {"tok": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        embed["head"] = ("embed", "vocab")
+    norm = {"scale": ("norm",)}
+    return {"embed": embed,
+            "layers": {"ln1": norm, "attn": attn, "ln2": norm, "mlp": mlp},
+            "final_norm": norm}

@@ -46,6 +46,14 @@ pool buffer is written, and writes NaN into the lanes an armed
 after it, where the JAX package's fused dispatch drew from clean
 logits); ``tracer`` records one ``dispatch:*`` span per dispatch.
 :meth:`activation_probe` is the quality canaries' dense trunk.
+
+Tensor parallelism (``serve/distributed.py``) overrides five hooks and
+nothing else: :meth:`_project` (the collectives around sharded
+projections), :meth:`_local_heads` / :meth:`_gather_heads` (attention over
+a rank's KV heads), ``_attn_cfg`` (the head counts attention sees) and
+the device step each dispatch makes (``_decode_trunk``,
+``_prefill_step``, ``_dense_step``, ``_probe_step``: host arrays and the
+pool in, device work and results out), which it replays on every rank.
 """
 from __future__ import annotations
 
@@ -261,8 +269,15 @@ class CachedDecoder:
         """
         if self.faults.rules:
             self.faults.check_dispatch()
+        logits, k_new, v_new = self._dense_step(tokens, positions, ctx_k,
+                                                ctx_v, ctx_len)
+        if self.faults.rules:
+            _poison_lanes(logits, self.faults.nan_lanes())
+        return logits, k_new, v_new
+
+    @torch.no_grad()
+    def _dense_step(self, tokens, positions, ctx_k, ctx_v, ctx_len):
         tokens, positions, ctx_len = self._place(tokens, positions, ctx_len)
-        cfg = self.cfg
         x = L.embed(self.embed, tokens)
         new_k, new_v = [], []
         for i, blk in enumerate(self.blocks):
@@ -270,11 +285,15 @@ class CachedDecoder:
                                   ctx_len)
             new_k.append(k)
             new_v.append(v)
-        x = L.norm_apply(self.final_norm, x, cfg)
-        logits = L.lm_logits(self.embed, x)
-        if self.faults.rules:
-            _poison_lanes(logits, self.faults.nan_lanes())
-        return logits, torch.stack(new_k), torch.stack(new_v)
+        return self._logits(x), torch.stack(new_k), torch.stack(new_v)
+
+    def _logits(self, x):
+        """Final norm and LM head; ``None`` where no one reads the logits
+        (a tensor-parallel worker rank)."""
+        if not self._want_logits:
+            return None
+        return L.lm_logits(self.embed, L.norm_apply(self.final_norm, x,
+                                                    self.cfg))
 
     def _block(self, blk, x, positions, ck, cv, ctx_len, *,
                kernel_proj: bool = False):
@@ -282,10 +301,11 @@ class CachedDecoder:
         B, T, _ = x.shape
         S = ck.shape[1]
         h = L.norm_apply(blk["ln1"], x, cfg)
-        q, k, v = self._qkv(blk, h, positions, kernel_proj=kernel_proj)
+        q, k, v = self._local_heads(
+            *self._qkv(blk, h, positions, kernel_proj=kernel_proj))
         k_all = torch.cat([ck.to(k.dtype), k], dim=1)
         v_all = torch.cat([cv.to(v.dtype), v], dim=1)
-        s = L.gqa_scores(q, k_all, cfg)  # (B, KV, G, T, S+T)
+        s = L.gqa_scores(q, k_all, self._attn_cfg)  # (B, KV, G, T, S+T)
         # context keys: valid below each lane's ctx_len; new keys: causal
         # within the chunk (their positions are >= every context position)
         dev = x.device
@@ -294,9 +314,10 @@ class CachedDecoder:
         mask_new = torch.tril(torch.ones(T, T, dtype=torch.bool, device=dev))
         mask = torch.cat([mask_ctx, mask_new.expand(B, T, T)], dim=-1)
         s = torch.where(mask[:, None, None], s, torch.full_like(s, L.NEG))
-        o = L.gqa_out(torch.softmax(s, dim=-1), v_all, cfg)
+        o = self._gather_heads(
+            L.gqa_out(torch.softmax(s, dim=-1), v_all, self._attn_cfg))
         o = o.to(x.dtype).reshape(B, T, cfg.q_dim)
-        x = x + self._proj(blk, "attn.wo", o, kernel_proj)
+        x = x + self._project(blk, ("attn.wo",), o, kernel_proj)[0]
         return self._mlp(blk, x, kernel_proj=kernel_proj), k, v
 
     # ---- quality probe ---------------------------------------------------
@@ -328,35 +349,47 @@ class CachedDecoder:
         padded = np.zeros((B, Sp), np.int32)
         padded[:, :S] = tokens
         positions = np.tile(np.arange(Sp, dtype=np.int32), (B, 1))
-        cfg = self.cfg
         with self.tracer.span("dispatch:activation_probe", lanes=B, tokens=S):
-            toks, positions, ctx_len = self._place(padded, positions,
-                                                   np.zeros(B, np.int32))
-            ctx = torch.zeros((B, 0, cfg.n_kv_heads, cfg.head_dim),
-                              dtype=torch.float32, device=self.device)
-            valid = (torch.arange(Sp, device=self.device) < S)[None, :, None]
-            n_el = max(S * B, 1)
-            absmax, sat = [], []
+            logits, act = self._probe_step(padded, positions, S)
+        return logits, act
 
-            def reduce(x):
-                ax = x.float().abs() * valid
-                absmax.append(ax.max())
-                sat.append((ax >= SAT_THRESHOLD).sum() / (n_el * x.shape[-1]))
+    @torch.no_grad()
+    def _probe_step(self, padded, positions, S: int):
+        B, Sp = padded.shape
+        acfg = self._attn_cfg
+        toks, positions, ctx_len = self._place(padded, positions,
+                                               np.zeros(B, np.int32))
+        ctx = torch.zeros((B, 0, acfg.n_kv_heads, acfg.head_dim),
+                          dtype=torch.float32, device=self.device)
+        valid = (torch.arange(Sp, device=self.device) < S)[None, :, None]
+        n_el = max(S * B, 1)
+        absmax, sat = [], []
 
-            x = L.embed(self.embed, toks)
-            for blk in self.blocks:
-                reduce(x)
-                x, _, _ = self._block(blk, x, positions, ctx, ctx, ctx_len,
-                                      kernel_proj=True)
+        def reduce(x):
+            ax = x.float().abs() * valid
+            absmax.append(ax.max())
+            sat.append((ax >= SAT_THRESHOLD).sum() / (n_el * x.shape[-1]))
+
+        x = L.embed(self.embed, toks)
+        for blk in self.blocks:
             reduce(x)
-            x = L.norm_apply(self.final_norm, x, cfg)
-            logits = L.lm_logits(self.embed, x)[:, :S].float().cpu().numpy()
-        return logits, {
+            x, _, _ = self._block(blk, x, positions, ctx, ctx, ctx_len,
+                                  kernel_proj=True)
+        reduce(x)
+        logits = self._logits(x)
+        if logits is None:
+            return None, None
+        return logits[:, :S].float().cpu().numpy(), {
             "absmax": torch.stack(absmax).double().cpu().numpy(),
             "sat": torch.stack(sat).double().cpu().numpy(),
         }
 
     # ---- shared block pieces --------------------------------------------
+
+    # head counts attention runs at (a tensor-parallel rank: its own)
+    _attn_cfg = property(lambda self: self.cfg)
+    # whether the trunks compute logits (a tensor-parallel worker: no)
+    _want_logits = True
 
     @staticmethod
     def _proj(blk, name, h, kernel: bool):
@@ -367,14 +400,30 @@ class CachedDecoder:
             return f(h, use_kernel=True)
         return f(h)
 
+    def _project(self, blk, names, h, kernel: bool) -> list:
+        """The projections ``names`` of one input ``h``."""
+        return [self._proj(blk, n, h, kernel) for n in names]
+
+    @staticmethod
+    def _local_heads(q, k, v):
+        """The (q, k, v) heads this process attends (all of them)."""
+        return q, k, v
+
+    @staticmethod
+    def _gather_heads(o):
+        """Attention output (..., heads, hd) of every head from this
+        process's share."""
+        return o
+
     def _qkv(self, blk, h, positions, *, kernel_proj: bool = False):
         """(q, k, v) each (B, T, heads, hd), qk-normed + RoPE'd."""
         cfg = self.cfg
         B, T, _ = h.shape
-        proj = lambda n: self._proj(blk, n, h, kernel_proj)
-        q = proj("attn.wq").reshape(B, T, cfg.n_heads, cfg.head_dim)
-        k = proj("attn.wk").reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
-        v = proj("attn.wv").reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+        q, k, v = self._project(blk, ("attn.wq", "attn.wk", "attn.wv"), h,
+                                kernel_proj)
+        q = q.reshape(B, T, cfg.n_heads, cfg.head_dim)
+        k = k.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+        v = v.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
         if cfg.qk_norm:
             q = L.rms_norm(q, blk["q_norm"], cfg.norm_eps)
             k = L.rms_norm(k, blk["k_norm"], cfg.norm_eps)
@@ -385,10 +434,14 @@ class CachedDecoder:
     def _mlp(self, blk, x, *, kernel_proj: bool = False):
         cfg = self.cfg
         h = L.norm_apply(blk["ln2"], x, cfg)
-        gate = (self._proj(blk, "mlp.wg", h, kernel_proj)
-                if cfg.mlp == "swiglu" else None)
-        up = L.mlp_act(self._proj(blk, "mlp.wi", h, kernel_proj), gate, cfg)
-        return x + self._proj(blk, "mlp.wo", up, kernel_proj)
+        if cfg.mlp == "swiglu":
+            gate, wi = self._project(blk, ("mlp.wg", "mlp.wi"), h,
+                                     kernel_proj)
+        else:
+            gate, wi = None, self._project(blk, ("mlp.wi",), h,
+                                           kernel_proj)[0]
+        up = L.mlp_act(wi, gate, cfg)
+        return x + self._project(blk, ("mlp.wo",), up, kernel_proj)[0]
 
     # ---- paged decode ----------------------------------------------------
 
@@ -440,8 +493,7 @@ class CachedDecoder:
                                         ctx_len)
             new_k.append(k)
             new_v.append(v)
-        x = L.norm_apply(self.final_norm, x, self.cfg)
-        logits = L.lm_logits(self.embed, x)
+        logits = self._logits(x)
         pool.scatter(pages, offs, torch.stack(new_k), torch.stack(new_v))
         return logits
 
@@ -449,13 +501,14 @@ class CachedDecoder:
         cfg = self.cfg
         B = x.shape[0]
         h = L.norm_apply(blk["ln1"], x, cfg)
-        q, k, v = self._qkv(blk, h, positions, kernel_proj=True)
+        q, k, v = self._local_heads(
+            *self._qkv(blk, h, positions, kernel_proj=True))
         o = paged_gqa_decode(
             q[:, 0], k[:, 0], v[:, 0], pool.k, pool.v, bt, ctx_len,
             layer=layer, k_scale=pool.k_scale, v_scale=pool.v_scale,
         )
-        o = o.to(x.dtype).reshape(B, 1, cfg.q_dim)
-        x = x + self._proj(blk, "attn.wo", o, True)
+        o = self._gather_heads(o).to(x.dtype).reshape(B, 1, cfg.q_dim)
+        x = x + self._project(blk, ("attn.wo",), o, True)[0]
         return self._mlp(blk, x, kernel_proj=True), k[:, 0], v[:, 0]
 
     # ---- paged batched prefill and the speculative verifier -------------
@@ -477,21 +530,32 @@ class CachedDecoder:
         for i, blk in enumerate(self.blocks):
             B, C, _ = x.shape
             h = L.norm_apply(blk["ln1"], x, cfg)
-            q, k, v = self._qkv(blk, h, positions, kernel_proj=True)
+            q, k, v = self._local_heads(
+                *self._qkv(blk, h, positions, kernel_proj=True))
             ka, va = (_int8_roundtrip(k), _int8_roundtrip(v)) if rt else (k, v)
             o = attend(
                 q, ka, va, pool.k, pool.v, bt, ctx_len, layer=i,
                 k_scale=pool.k_scale, v_scale=pool.v_scale,
                 k_self=k if rt else None, v_self=v if rt else None,
             )
-            o = o.to(x.dtype).reshape(B, C, cfg.q_dim)
-            x = x + self._proj(blk, "attn.wo", o, True)
+            o = self._gather_heads(o).to(x.dtype).reshape(B, C, cfg.q_dim)
+            x = x + self._project(blk, ("attn.wo",), o, True)[0]
             x = self._mlp(blk, x, kernel_proj=True)
             new_k.append(k)
             new_v.append(v)
-        x = L.norm_apply(self.final_norm, x, cfg)
-        return L.lm_logits(self.embed, x), torch.stack(new_k), torch.stack(
-            new_v)
+        return self._logits(x), torch.stack(new_k), torch.stack(new_v)
+
+    @torch.no_grad()
+    def _prefill_step(self, tokens, positions, block_tables, ctx_len, pages,
+                      offs, pool, *, verify: bool):
+        """Place the host arrays, run :meth:`_prefill_trunk` and scatter
+        the chunk's K/V ((L, B, C, KV, hd) against (B, C) addresses)."""
+        tokens, positions, bt, ctx_len = self._place(
+            tokens, positions, block_tables, ctx_len)
+        logits, kn, vn = self._prefill_trunk(tokens, positions, bt, ctx_len,
+                                             pool, verify=verify)
+        pool.scatter(pages, offs, kn, vn)
+        return logits
 
     @torch.no_grad()
     def prefill_paged(self, tokens, positions, block_tables, ctx_len, pages,
@@ -510,12 +574,9 @@ class CachedDecoder:
             self.faults.check_dispatch()
         with self.tracer.span("dispatch:prefill_paged", lanes=len(tokens),
                               chunk=len(tokens[0])):
-            tokens, positions, bt, ctx_len = self._place(
-                tokens, positions, block_tables, ctx_len)
-            logits, kn, vn = self._prefill_trunk(tokens, positions, bt,
-                                                 ctx_len, pool, verify=False)
-            # (L, B, C, KV, hd) against (B, C) addresses
-            pool.scatter(pages, offs, kn, vn)
+            logits = self._prefill_step(tokens, positions, block_tables,
+                                        ctx_len, pages, offs, pool,
+                                        verify=False)
         if self.faults.rules:
             _poison_lanes(logits, self.faults.nan_lanes())
         return logits
@@ -541,14 +602,13 @@ class CachedDecoder:
             self.faults.check_dispatch()
         with self.tracer.span("dispatch:verify_paged", lanes=len(tokens),
                               width=len(tokens[0])):
-            tokens, positions, bt, ctx_len, drafts, n_drafts = self._place(
-                tokens, positions, block_tables, ctx_len, drafts, n_drafts)
-            logits, kn, vn = self._prefill_trunk(tokens, positions, bt,
-                                                 ctx_len, pool, verify=True)
+            logits = self._prefill_step(tokens, positions, block_tables,
+                                        ctx_len, pages, offs, pool,
+                                        verify=True)
+            drafts, n_drafts = self._place(drafts, n_drafts)
             args, greedy = self._place_sampling(sampling)
             sel = sample_tokens(logits, *args, greedy_only=greedy)
             n_acc = _accept(sel, drafts, n_drafts)
-            pool.scatter(pages, offs, kn, vn)
         if self.faults.rules:
             _poison_lanes(logits, self.faults.nan_lanes())
         return sel, n_acc, logits

@@ -123,12 +123,14 @@ def linear_from_arrays(arrays: dict, meta: dict) -> QuantizedLinear:
 
 
 def load_quantized(directory, *, device=DEFAULT_DEVICE, verify: bool = True,
-                   faults=None):
+                   faults=None, placer=None):
     """-> (QuantizedModel, meta), every tensor on ``device`` (the card
     unless the caller asks for ``"cpu"``).  ``verify`` checks shard SHA-256
     digests (mismatch: :class:`ArtifactCorruption`).  ``faults``: an
     optional :class:`~repro_torch.serve.faults.FaultPlan` whose armed
-    ``corrupt_shard`` rules force digest mismatches."""
+    ``corrupt_shard`` rules force digest mismatches.  ``placer(key,
+    host_tensor)``, if given, places each leaf instead (the tensor-parallel
+    loader keeps packed codes on the host to slice them there)."""
     device = resolve_device(device)
     corrupt = faults.corrupt_shards() if faults is not None else ()
     arrays, _step, meta, bf16_keys = load_arrays(
@@ -150,7 +152,7 @@ def load_quantized(directory, *, device=DEFAULT_DEVICE, verify: bool = True,
         t = torch.from_numpy(arrays[key])
         if key in bf16_keys:
             t = t.view(torch.bfloat16)
-        return t.to(device)
+        return t.to(device) if placer is None else placer(key, t)
 
     def subtree(prefix: str) -> dict:
         plen = len(prefix)

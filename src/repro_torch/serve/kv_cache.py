@@ -33,6 +33,14 @@ The host-side bookkeeping is the JAX package's, decision for decision
 (free-list order, refcounts, trie contents and LRU order), so block tables
 match it exactly.  Writes and page copies are in place on the pool
 tensors where the JAX package used donated functional updates.
+
+Under tensor parallelism (``serve/distributed.py``) each rank's tensors
+hold only its KV heads (``kv_shards`` ranks split them): ``device_bytes``
+is one rank's share, ``total_bytes`` the whole pool's.  The device-side
+steps the host calls outside a dispatch — a page copy, a gather, the
+gather-dense path's write — each go through one method
+(``_copy_page``, ``gather_table``, ``_write_scatter``) that the
+distributed pool replays on every rank.
 """
 from __future__ import annotations
 
@@ -98,6 +106,7 @@ class PagedKVPool:
         dtype: Optional[torch.dtype] = None,
         prefix_cache: bool = False,
         device=DEFAULT_DEVICE,
+        kv_shards: int = 1,
     ):
         if n_pages < 2:
             raise ValueError("need >= 2 pages (page 0 is reserved scratch)")
@@ -107,6 +116,7 @@ class PagedKVPool:
         self.n_slots = n_slots
         self.max_pages_per_seq = max_pages_per_seq
         self.device = resolve_device(device)
+        self.kv_shards = kv_shards
         fp = getattr(torch, cfg.dtype)
         dt = fp if dtype is None else dtype
         # fp dtype handed out by gather (and used for dequantized int8 reads)
@@ -355,10 +365,13 @@ class PagedKVPool:
         """Claim a free page and copy ``src`` into it across all layers
         (a plain in-place tensor copy on the pool's device)."""
         dst = self._claim()
-        for store in self._storage():
-            store[:, dst].copy_(store[:, src])
+        self._copy_page(src, dst)
         self.cow_copies += 1
         return dst
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        for store in self._storage():
+            store[:, dst].copy_(store[:, src])
 
     def _ensure_private(self, slot: int, logical_page: int) -> int:
         """Copy-on-write guard: if the slot's logical page is mapped by
@@ -418,9 +431,15 @@ class PagedKVPool:
             out += [self.k_scale, self.v_scale]
         return out
 
-    def total_bytes(self) -> int:
-        """Bytes of KV page storage (values and int8 scales)."""
+    def device_bytes(self) -> int:
+        """Bytes of KV page storage (values and int8 scales) on this
+        process's device."""
         return sum(t.numel() * t.element_size() for t in self._storage())
+
+    def total_bytes(self) -> int:
+        """Bytes of the whole pool, over every rank that holds a share of
+        its KV heads."""
+        return self.device_bytes() * self.kv_shards
 
     # ---- addressing -----------------------------------------------------
 
@@ -515,7 +534,11 @@ class PagedKVPool:
     def gather(self, slot_ids: list[Optional[int]]):
         """-> (k, v) each (L, B, max_pages_per_seq*page_size, KV, hd) in the
         pool's fp dtype (int8 pools dequantize on the way out)."""
-        bt = torch.as_tensor(self.block_table(slot_ids), dtype=torch.int64,
+        return self.gather_table(self.block_table(slot_ids))
+
+    def gather_table(self, block_table: np.ndarray):
+        """:meth:`gather` of the pages a ``(B, Pa)`` block table names."""
+        bt = torch.as_tensor(block_table, dtype=torch.int64,
                              device=self.device)
         out = []
         for store, scales in ((self.k, self.k_scale), (self.v, self.v_scale)):
@@ -531,7 +554,7 @@ class PagedKVPool:
         """Scatter one token per lane: k_new/v_new (L, B, KV, hd); advances
         each written slot's valid length to ``positions[b] + 1``."""
         pages, offs = self.addresses(slot_ids, positions)
-        self.scatter(pages, offs, k_new, v_new)
+        self._write_scatter(pages, offs, k_new, v_new)
         self.note_written(slot_ids, positions)
 
     def write_span(self, slot: int, start: int, n_valid: int, k_new,
@@ -541,5 +564,10 @@ class PagedKVPool:
         padded tail goes to the scratch page."""
         T = k_new.shape[1]
         pages, offs = self.span_addresses([slot], [start], [n_valid], T)
-        self.scatter(pages[0], offs[0], k_new, v_new)
+        self._write_scatter(pages[0], offs[0], k_new, v_new)
         self.note_span_written([slot], [start], [n_valid])
+
+    def _write_scatter(self, pages, offs, k_new, v_new) -> None:
+        """The scatter of :meth:`write` and :meth:`write_span`: values the
+        gather-dense forward returned."""
+        self.scatter(pages, offs, k_new, v_new)

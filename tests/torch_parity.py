@@ -208,3 +208,73 @@ def assert_streams_agree(got, want, *, floor, draws_on_device=True,
                                   g.out_tokens[n], delta=delta,
                                   floor=floor) for u in us), (i, n)
     return partings
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel engines (tests/test_torch_distributed*.py)
+# ---------------------------------------------------------------------------
+
+# engine logits, TP against single device: the row-parallel sums add the
+# ranks' fp32 partials (read ~1e-6); against the JAX engine as
+# tests/test_torch_engine.py
+TP_RTOL = TP_ATOL = 2e-3
+
+
+def tp_knobs(prompts, gen, **kw) -> dict:
+    """EngineConfig knobs of the reference TP tests (tests/
+    test_distributed.py ``_run_engine``), logits recorded."""
+    out = dict(max_seq_len=prompts.shape[1] + gen, n_slots=4, page_size=4,
+               token_budget=32, prefill_chunk=8, paged_decode=True,
+               record_logits=True)
+    out.update(kw)
+    return out
+
+
+def tp_drive(adapter, eng_cls, cfg_cls, prompts, gen, *, arrive=None,
+             sampling=None, **kw):
+    """One engine of either package over ``prompts`` on the tick clock of
+    :func:`drive_ticks` (request i before tick ``arrive[i]``, default 0).
+    Returns (engine, run)."""
+    eng = eng_cls(adapter, cfg_cls(**tp_knobs(prompts, gen, **kw)))
+    arrive = arrive or [0] * len(prompts)
+    extra = {} if sampling is None else {"sampling": sampling}
+    sched = [(t, dict(prompt=np.asarray(p), max_new=gen, **extra))
+             for t, p in zip(arrive, prompts)]
+    return eng, drive_ticks(eng, sched)
+
+
+def run_tokens(run) -> list:
+    return [list(map(int, run.reqs[i].out_tokens)) for i in sorted(run.reqs)]
+
+
+def run_logits(run) -> list:
+    return [np.stack(run.reqs[i].step_logits) for i in sorted(run.reqs)]
+
+
+def three_engines(adapters, prompts, gen, **kw):
+    """The JAX engine, the port's engine and the port's TP engine
+    (``adapters`` in that order) on one schedule: streams identical,
+    logits within ``TP_RTOL``/``TP_ATOL``, no page held after the drain.
+    Returns the TP engine and its run."""
+    from repro.serve import Engine as RefEngine
+    from repro.serve import EngineConfig as RefEngineConfig
+    from repro_torch.serve.engine import Engine, EngineConfig
+
+    ref_a, port_a, tp_a = adapters
+    _, ref = tp_drive(ref_a, RefEngine, RefEngineConfig, prompts, gen, **kw)
+    _, port = tp_drive(port_a, Engine, EngineConfig, prompts, gen, **kw)
+    eng, tp = tp_drive(tp_a, Engine, EngineConfig, prompts, gen, **kw)
+    assert run_tokens(tp) == run_tokens(port) == run_tokens(ref)
+    for a, b, c in zip(run_logits(tp), run_logits(port), run_logits(ref)):
+        np.testing.assert_allclose(a, b, rtol=TP_RTOL, atol=TP_ATOL)
+        np.testing.assert_allclose(a, c, rtol=TP_RTOL, atol=TP_ATOL)
+    assert eng.pool.pages_in_use == eng.pool.cached_pages
+    assert not eng.pool._slots
+    return eng, tp
+
+
+def smoke_prompts(n: int, seg_len: int, seed: int) -> np.ndarray:
+    from repro.data import make_calibration
+
+    return np.asarray(make_calibration(256, n_segments=n, seg_len=seg_len,
+                                       seed=seed).tokens)
