@@ -134,7 +134,28 @@ Phases, each printing its own lines:
      mesh); (b) mp = 2, K = 4 over int8 pages on phase 9's prompts with a
      NaN in request 1's verify tick, against the same on one device
      (``INT8_LOGIT_*``), the NaN lane alone quarantined; (c) mp = 4 at
-     ``TP4_LAYERS`` layers (2 KV heads a rank), phase 5's check.
+     ``TP4_LAYERS`` layers (2 KV heads a rank), phase 5's check;
+ 12. front door and fleet — (a) phase 4's model (rebuilt from its seed),
+     full width and depth, phase 4's flags with ``record_logits``, behind
+     ``FrontDoor.start_in_thread`` (the engine on one executor thread
+     whose initializer makes the card current): phase 4's eight prompts
+     from HTTP clients (seven SSE, one buffered; a burst of four, then one
+     every 100 ms), streams equal to phase 4's but where its top-2 margin
+     is below 2 x phase 5's max |diff|, phase 5's check on the front
+     door's requests, contiguous SSE indices, 413 for an over-capacity
+     body, a client reset mid-stream ending ``cancelled``, ``/healthz``
+     200, ``tick_errors`` 0, a clean drain, the four serving kernels
+     launched; TTFT and ITL at the client socket; (b) the same model
+     saved as an artifact and served by two replica processes of
+     ``python -m repro_torch.launch.serve --device cuda`` behind an
+     in-process ``Supervisor`` and ``FleetRouter``: eight greedy requests
+     and one sampled (T 0.8, top-p 0.9), replica 1 killed with SIGKILL
+     once every stream it holds is ``FLEET_KILL_AFTER`` tokens in; every
+     stream completes with contiguous indices, the spliced greedy streams
+     equal (a)'s under the margin rule and the sampled one an
+     uninterrupted sampled run on the card but within the CDF rounding of
+     a bucket edge; replica 1 restarts (generation 2) and serves a later
+     request; ``tick_errors`` 0 on every replica; the fleet drain clean.
 
 Phase 3 also runs kron_mul at every dense width's factors (16 x 32 to
 168 x 176, and 192 x 256, the largest the kernel takes), quant_matmul at
@@ -1291,7 +1312,8 @@ def serve_requests(torch, qm, prompts, *, gen: int, arrive, args,
         raise AssertionError(f"kernels never launched on the serve path: "
                              f"{missing}")
     return adapter, reqs, {"launches": launches, "tok_s": total / wall,
-                           "tick_s": tick_s, "ticks": tick, "summary": s}
+                           "tick_s": tick_s, "ticks": tick, "summary": s,
+                           "peak_bytes": peak}
 
 
 def check_logits(torch, qm, prompts, reqs, *, atol, mean_atol,
@@ -2731,11 +2753,11 @@ def _run_ticked(engine, schedule) -> dict:
 
 
 def _survivor_partings(torch, tag: str, run: dict, base: dict, survivors,
-                       check_max: float) -> None:
+                       check_max: float) -> float:
     """Survivors of a faulted run against the fault-free run: logits
     within phase 5's limit, streams equal but where the fault-free run's
     top-2 margin is below 2 x phase 5's max |diff| (or 2 x this pair's, if
-    larger)."""
+    larger).  Returns this pair's max |diff|."""
     max_d, mean_d, n_pos, firsts, _ = _compare_greedy(
         torch, {"reqs": {i: run["reqs"][i] for i in survivors}}, base)
     bound = 2 * max(check_max, max_d)
@@ -2747,6 +2769,7 @@ def _survivor_partings(torch, tag: str, run: dict, base: dict, survivors,
         f"{bound:.4f}: {'yes' if not unexplained else 'NO'})")
     if max_d > LOGIT_ATOL or unexplained:
         raise AssertionError(f"[{tag}] a fault reached a survivor")
+    return max_d
 
 
 def _arm(spec: str):
@@ -3343,6 +3366,480 @@ def phase_tp(torch, *, seed: int, layers: int, served: dict,
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the HTTP/SSE front door and the replica fleet
+# ---------------------------------------------------------------------------
+
+# (a) the front door's traffic: phase 4's eight prompts, request FD_BUFFERED
+# buffered and the rest SSE, a burst of four then one every FD_GAP_S
+FD_BUFFERED = 5
+FD_GAP_S = 0.1
+# (b) the fleet: the sampled request (T 0.8, top-p 0.9) on prompt
+# FLEET_SAMPLED_PROMPT with seed FLEET_SAMPLE_SEED; replica 1 is killed
+# (SIGKILL) once every stream routed to it holds FLEET_KILL_AFTER tokens
+FLEET_SAMPLED_PROMPT, FLEET_SAMPLE_SEED = 0, 11
+FLEET_KILL_AFTER = 4
+# extra replica flags (a CPU rehearsal slows its replicas' ticks with a
+# replica_slow fault plan, so the kill lands mid-stream)
+FLEET_EXTRA_ARGS: list = []
+# how long a client waits on its socket, seconds
+CLIENT_TIMEOUT_S = 60
+
+
+def _http_stream(port: int, body: dict, out: dict, *,
+                 abort_after=None) -> None:
+    """One client of ``POST /v1/generate`` (run on a thread): the status,
+    and every SSE frame with the time it reached this socket (or the
+    buffered payload); ``abort_after`` = n resets the connection (RST)
+    after n token frames.  Fills ``out``."""
+    import http.client
+    import socket
+    import struct
+
+    out["t_send"] = time.perf_counter()
+    c = http.client.HTTPConnection("127.0.0.1", port,
+                                   timeout=CLIENT_TIMEOUT_S)
+    try:
+        c.request("POST", "/v1/generate", json.dumps(body),
+                  {"Content-Type": "application/json"})
+        r = c.getresponse()
+        out["status"] = r.status
+        if r.status != 200 or not body.get("stream", True):
+            out["body"] = json.loads(r.read())
+            out["t_done"] = time.perf_counter()
+            return
+        frames, event = [], None
+        while True:
+            line = r.fp.readline()
+            if not line:
+                break
+            if line.startswith(b"event: "):
+                event = line[7:].strip().decode()
+            elif line.startswith(b"data: "):
+                frames.append((time.perf_counter(), event,
+                               json.loads(line[6:])))
+                n_tok = sum(1 for f in frames if f[1] == "token")
+                if abort_after is not None and n_tok >= abort_after:
+                    sock = r.fp.raw._sock
+                    sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                                    struct.pack("ii", 1, 0))
+                    r.close()
+                    sock.close()
+                    break
+                if event == "done":
+                    break
+        out["frames"] = frames
+    except Exception as e:  # reported by the caller's gates
+        out["error"] = repr(e)
+    finally:
+        c.close()
+
+
+def _stream_tokens(tag: str, out: dict) -> tuple:
+    """(tokens, rid) of one finished client: status 200, SSE frame indices
+    contiguous from 0, one done frame carrying the same tokens."""
+    if "error" in out or out.get("status") != 200:
+        raise AssertionError(f"[{tag}] client failed: {out.get('status')} "
+                             f"{out.get('error') or out.get('body')}")
+    if "frames" not in out:
+        return out["body"]["tokens"], out["body"]["rid"]
+    toks = [d["token"] for _, ev, d in out["frames"] if ev == "token"]
+    idx = [d["i"] for _, ev, d in out["frames"] if ev == "token"]
+    done = [d for _, ev, d in out["frames"] if ev == "done"]
+    if idx != list(range(len(toks))) or len(done) != 1 \
+            or done[0]["tokens"] != toks:
+        raise AssertionError(f"[{tag}] SSE frames not contiguous or not "
+                             f"closed by one done frame: indices {idx}")
+    return toks, done[0]["rid"]
+
+
+def _client_latency(outs) -> str:
+    """TTFT and ITL p50/p99 at the client socket, over the SSE clients."""
+    import numpy as np
+
+    ttft, itl = [], []
+    for o in outs:
+        ts = [t for t, ev, _ in o.get("frames", ()) if ev == "token"]
+        if ts:
+            ttft.append(ts[0] - o["t_send"])
+            itl.extend(np.diff(ts))
+
+    def pct(xs, q):
+        return float(np.percentile(xs, q)) * 1e3 if len(xs) else 0.0
+
+    return (f"ttft p50 {pct(ttft, 50):.1f} ms p99 {pct(ttft, 99):.1f} ms; "
+            f"itl p50 {pct(itl, 50):.1f} ms p99 {pct(itl, 99):.1f} ms "
+            f"(at the client socket, {len(ttft)} SSE streams)")
+
+
+def _get(port: int, path: str) -> tuple:
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    try:
+        c.request("GET", path)
+        r = c.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        c.close()
+
+
+def _wait_for(pred, timeout: float, what: str) -> None:
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if pred():
+            return
+        time.sleep(0.02)
+    raise AssertionError(f"timed out after {timeout:.0f}s waiting for "
+                         f"{what}")
+
+
+def _splice_partings(torch, tag: str, streams: dict, base: dict,
+                     bound: float) -> list:
+    """Token streams that came over the wire (no logits) against a greedy
+    run's requests: equal but where the run's top-2 margin at the first
+    parting is below ``bound``."""
+    firsts, bad = [], []
+    for i, toks in streams.items():
+        ref = base[i]
+        n = next((k for k, (a, b) in enumerate(zip(toks, ref.out_tokens))
+                  if a != b), None)
+        if n is None:
+            if len(toks) != len(ref.out_tokens):
+                bad.append((i, "length"))
+            continue
+        top2 = torch.topk(torch.as_tensor(ref.step_logits[n]).float(),
+                          2).values
+        margin = float(top2[0] - top2[1])
+        firsts.append((i, n, round(margin, 4)))
+        if margin >= bound:
+            bad.append((i, n))
+    log(f"[{tag}] {len(streams)} streams against the in-process ones: "
+        f"{len(firsts)} part (request, position, margin: {firsts}); all "
+        f"below {bound:.4f}: {'yes' if not bad else 'NO ' + str(bad)}")
+    if bad:
+        raise AssertionError(f"[{tag}] a stream parts where no logit "
+                             f"error explains it")
+    return firsts
+
+
+def _sampled_splice(torch, tag: str, toks, ref, *, delta: float,
+                    floor: float) -> None:
+    """A sampled stream that came over the wire against an uninterrupted
+    sampled run of the same request on the card: equal up to the first
+    parting, which :func:`_draw_explained` must admit on the run's logits
+    with every logit moved by up to ``delta`` (the replica's logits do not
+    cross the wire: twice the drift measured between two batchings of the
+    same requests) and the CDF by ``floor`` (both draws' float32
+    rounding, twice each)."""
+    from repro_torch.serve.adapter import uniform
+
+    sp = ref.sampling
+    n = next((k for k, (a, b) in enumerate(zip(toks, ref.out_tokens))
+              if a != b), None)
+    if n is None:
+        ok = len(toks) == len(ref.out_tokens)
+        note = "equal"
+    else:
+        u = float(uniform(torch.tensor(sp.seed), torch.tensor(n)))
+        ok, dist = _draw_explained(ref.step_logits[n], sp.temperature,
+                                   sp.top_p, u, toks[n], delta=delta,
+                                   floor=floor)
+        note = f"part at {n} (edge distance {dist:.3g})"
+    log(f"[{tag}] sampled stream (T {sp.temperature}, top-p {sp.top_p}, "
+        f"seed {sp.seed}) against the uninterrupted run on the card: "
+        f"{note}; admitted with |dlogit| <= {delta:.4f}, CDF floor "
+        f"{floor:.3g}: {'yes' if ok else 'NO'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] the sampled splice parts where no "
+                             f"rounding explains it")
+
+
+def phase_frontdoor(torch, *, seed: int, layers: int, served: dict,
+                    check_max: float, cfg=None) -> dict:
+    """Phase 12: (a) phase 4's model (rebuilt from its seed, full width,
+    ``layers`` deep) behind ``FrontDoor`` in this process, phase 4's
+    prompts sent by HTTP clients, the streams held to phase 4's
+    (``served``) and to the recompute oracle; (b) the same model as an
+    artifact served by two replica processes of ``launch/serve.py`` behind
+    an in-process ``Supervisor`` and ``FleetRouter``, replica 1 killed
+    (SIGKILL) mid-stream and restarted.  ``check_max`` is phase 5's max
+    |diff|.  ``cfg`` replaces the model (a rehearsal on the CPU at a small
+    one).  Returns (a)'s kernel launches."""
+    import dataclasses
+    import os
+    import signal
+    import threading
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_calibration
+    from repro_torch.kernels import reset_counts
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serve.adapter import CachedDecoder
+    from repro_torch.serve.artifacts import save_quantized
+    from repro_torch.serve.fleet import (
+        FleetRouter,
+        ProcessReplicaFactory,
+        Supervisor,
+        prefix_key,
+        rendezvous_rank,
+        replica_command,
+    )
+    from repro_torch.serve.frontdoor import FrontDoor, leak_gate
+    from repro_torch.serve.scheduler import SamplingParams
+    from repro_torch.serve.synthetic import (
+        QUIP_CONFIG,
+        synthetic_quantized_model,
+    )
+
+    t_phase = time.perf_counter()
+    if cfg is None:
+        cfg = get_config("qwen3-14b")
+        if layers != cfg.n_layers:
+            log(f"[frontdoor] DEPTH CUT: {layers} of {cfg.n_layers} layers "
+                f"(full width kept)")
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+    args = _args()
+    prompt_len, gen = 128, 32
+    max_seq_len = prompt_len + gen
+    n_req = 8
+    prompts = make_calibration(cfg.vocab, n_segments=n_req,
+                               seg_len=prompt_len, seed=seed + 3)
+    base = served["reqs"]
+    bound = 2 * check_max
+    qm = synthetic_quantized_model(cfg, seed=seed, device=DEV)
+
+    # ---- (a) the front door in this process -----------------------------
+    engine = build_engine(CachedDecoder.from_quantized(qm),
+                          max_seq_len=max_seq_len, args=args,
+                          record_logits=True)
+    fd = FrontDoor(engine, port=0, drain_timeout_s=30.0, tick_stall_s=60.0)
+    _sync(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    fd.start_in_thread()
+    outs = [{} for _ in range(n_req)]
+    threads = []
+    for i in range(n_req):
+        body = {"prompt": prompts[i].tolist(), "max_new": gen,
+                "stream": i != FD_BUFFERED}
+        th = threading.Thread(target=_http_stream,
+                              args=(fd.port, body, outs[i]))
+        th.start()
+        threads.append(th)
+        if i >= 3:
+            time.sleep(FD_GAP_S)
+    status, health = _get(fd.port, "/healthz")
+    for th in threads:
+        th.join(2 * CLIENT_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    streams, rids = {}, {}
+    for i, o in enumerate(outs):
+        streams[i], rids[i] = _stream_tokens("frontdoor", o)
+    log(f"[frontdoor] FrontDoor on 127.0.0.1:{fd.port}: {n_req} requests "
+        f"({n_req - 1} SSE, 1 buffered), a burst of 4 then one every "
+        f"{FD_GAP_S * 1e3:.0f} ms: {sum(map(len, streams.values()))} tokens "
+        f"in {wall:.2f}s; /healthz during the run {status} "
+        f"{health['status']}; {_client_latency(outs)}")
+    if status != 200 or health["status"] != "ok":
+        raise AssertionError("[frontdoor] /healthz did not answer ok")
+    # an over-capacity body, then a client that vanishes mid-stream
+    over, cut = {}, {}
+    _http_stream(fd.port, {"prompt": prompts[0].tolist(),
+                           "max_new": 10_000}, over)
+    _http_stream(fd.port, {"prompt": prompts[1].tolist(), "max_new": gen},
+                 cut, abort_after=3)
+    m = engine.metrics
+    _wait_for(lambda: m.counter("finish:cancelled").value >= 1, 60,
+              "the disconnected request to end cancelled")
+    status_m, metricsz = _get(fd.port, "/metricsz")
+    report = fd.drain_and_join(timeout=120)
+    launches = _counts()
+    s = engine.summary()
+    by_rid = {r.rid: r for r in engine.finished}
+    reqs = [by_rid[rids[i]] for i in range(n_req)]
+    cancelled = [r for r in engine.finished
+                 if r.finish_reason == "cancelled"]
+    n_cut = len([f for f in cut.get("frames", ()) if f[1] == "token"])
+    log(f"[frontdoor] over-capacity body: {over.get('status')} "
+        f"{over.get('body', {}).get('error')}; client reset after {n_cut} "
+        f"tokens: {len(cancelled)} request ended cancelled after "
+        f"{[len(r.out_tokens) for r in cancelled]} tokens, "
+        f"client_disconnects {s['client_disconnects']}; /metricsz "
+        f"{status_m} tick_errors {metricsz.get('tick_errors')}; drain: "
+        + " / ".join(report.lines()) + f"; tick_errors {s['tick_errors']}; "
+        f"kernel launches {launches}")
+    if over.get("status") != 413 or \
+            over["body"].get("error") != "over_capacity":
+        raise AssertionError("[frontdoor] over-capacity body not refused "
+                             "with 413")
+    if len(cancelled) != 1 or s["client_disconnects"] < 1:
+        raise AssertionError("[frontdoor] the disconnected client's "
+                             "request did not end cancelled")
+    if s["tick_errors"] or metricsz.get("tick_errors"):
+        raise AssertionError(f"[frontdoor] {s['tick_errors']} ticks raised")
+    if not report.clean or report.exit_code != 0 \
+            or leak_gate(engine.pool) != (0, 0):
+        raise AssertionError("[frontdoor] the drain's leak gate failed")
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"[frontdoor] kernels never launched behind "
+                             f"the front door: {missing}")
+    fd_reqs = dict(enumerate(reqs))
+    # the logits' drift between two batchings of the same requests (phase
+    # 4's tick schedule, this wall-clock one): (b)'s sampled gate
+    drift = _survivor_partings(torch, "frontdoor", {"reqs": fd_reqs},
+                               {"reqs": base}, range(n_req), check_max)
+    check_logits(torch, qm, prompts, reqs, atol=LOGIT_ATOL,
+                 mean_atol=LOGIT_MEAN_ATOL, tag="frontdoor check")
+
+    # the uninterrupted sampled run (b)'s splice is held to, on the card
+    sp = SamplingParams(temperature=SAMPLE_TEMP, top_p=SAMPLE_TOP_P,
+                        seed=FLEET_SAMPLE_SEED)
+    solo = build_engine(CachedDecoder.from_quantized(qm),
+                        max_seq_len=max_seq_len, args=args,
+                        record_logits=True)
+    sampled_ref = solo.submit(prompts[FLEET_SAMPLED_PROMPT], max_new=gen,
+                              sampling=sp)
+    solo.run()
+    lg = torch.as_tensor(np.stack(sampled_ref.step_logits)).to(DEV)
+    cdf_err = _cdf_rounding(torch, lg, SAMPLE_TEMP, SAMPLE_TOP_P)
+    art = WORK_DIR / "fleet_artifact"
+    shutil.rmtree(art, ignore_errors=True)
+    save_quantized(art, qm, QUIP_CONFIG, extra_meta={"seed": seed})
+    del qm, engine, fd, solo, lg
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        peak = served["peak_bytes"]
+        free, total = torch.cuda.mem_get_info()
+        log(f"[fleet] two replicas of phase 4's engine need about 2 x "
+            f"{peak / 2**30:.2f} GiB (phase 4's peak "
+            f"torch.cuda.max_memory_allocated) beside their CUDA contexts; "
+            f"the card has {free / 2**30:.2f} of {total / 2**30:.2f} GiB "
+            f"free")
+        if 2 * peak > free:
+            raise AssertionError("[fleet] two replicas do not fit the card")
+    t_a = time.perf_counter() - t_phase
+
+    # ---- (b) two replica processes behind the router --------------------
+    t_b = time.perf_counter()
+    affinity = [rendezvous_rank(prefix_key(p), 2)[0] for p in prompts]
+    if sorted(set(affinity)) != [0, 1] \
+            or affinity[FLEET_SAMPLED_PROMPT] != 1:
+        raise AssertionError(f"[fleet] the prompts' affinity {affinity} "
+                             f"does not reach both replicas")
+    tail = ["--load-quantized", str(art), "--paged", "--paged-prefill",
+            "--device", DEV, "--slots", str(args.slots), "--page-size",
+            str(args.page_size), "--token-budget", str(args.token_budget),
+            "--prefill-chunk", str(args.prefill_chunk), "--prompt-len",
+            str(prompt_len), "--gen", str(gen), "--drain-timeout-s", "30",
+            "--tick-stall-s", "60", *FLEET_EXTRA_ARGS]
+    factory = ProcessReplicaFactory(replica_command(tail))
+    sup = Supervisor(factory, 2, probe_interval_s=0.5, start_timeout_s=600,
+                     max_restarts=1, backoff_base_s=0.5,
+                     replica_drain_timeout_s=90)
+    router = FleetRouter(sup, port=0, drain_timeout_s=60,
+                         stream_idle_timeout_s=120)
+    drained = False
+    try:
+        router.start_in_thread()
+        h0, h1 = sup.handles
+        log(f"[fleet] 2 replicas of `python -m repro_torch.launch.serve "
+            f"{' '.join(tail)}` ready in {time.perf_counter() - t_b:.1f}s "
+            f"(pids {h0.pid}, {h1.pid}); router on 127.0.0.1:{router.port};"
+            f" prompts' affinity {affinity}")
+        bodies = [{"prompt": p.tolist(), "max_new": gen} for p in prompts]
+        bodies.append({"prompt": prompts[FLEET_SAMPLED_PROMPT].tolist(),
+                       "max_new": gen, "temperature": SAMPLE_TEMP,
+                       "top_p": SAMPLE_TOP_P, "seed": FLEET_SAMPLE_SEED})
+        fouts = [{} for _ in bodies]
+        threads = []
+        for i, body in enumerate(bodies):
+            th = threading.Thread(target=_http_stream,
+                                  args=(router.port, body, fouts[i]))
+            th.start()
+            threads.append(th)
+            if i >= 3:
+                time.sleep(FD_GAP_S)
+        # every stream on replica 1 mid-way: read its /metricsz, kill -9
+        n_on1 = sum(1 for a in affinity + [1] if a == 1)
+
+        def midway():
+            entries = [e for e in router.journal.live() if e.replica == 1]
+            return h1.routed >= n_on1 and entries and all(
+                len(e.tokens) >= FLEET_KILL_AFTER for e in entries)
+
+        _wait_for(midway, 300, "every stream on replica 1 to be mid-way")
+        _, m1 = _get(h1.port, "/metricsz")
+        held = sorted(len(e.tokens) for e in router.journal.live()
+                      if e.replica == 1)
+        t_kill = time.perf_counter()
+        os.kill(h1.pid, signal.SIGKILL)
+        log(f"[fleet] SIGKILL to replica 1 (pid {h1.pid}) holding "
+            f"{len(held)} streams at {held} tokens; its tick_errors "
+            f"{m1['tick_errors']}, steps {m1['steps']}")
+        for th in threads:
+            th.join(2 * CLIENT_TIMEOUT_S)
+        fstreams = {i: _stream_tokens("fleet", o)[0]
+                    for i, o in enumerate(fouts)}
+        _, fz = _get(router.port, "/fleetz")
+        routed = [r["routed"] for r in fz["replicas"]]
+        log(f"[fleet] {len(bodies)} requests ({n_req} greedy, 1 sampled) "
+            f"through the router: failovers {fz['router']['failovers']}, "
+            f"routed per replica {routed}, served "
+            f"{[r['served'] for r in fz['replicas']]}; "
+            f"{_client_latency(fouts)}")
+        if min(routed) == 0 or fz["router"]["failovers"] < 1:
+            raise AssertionError("[fleet] no failover, or a replica got no "
+                                 "request")
+        _splice_partings(torch, "fleet greedy",
+                         {i: fstreams[i] for i in range(n_req)}, fd_reqs,
+                         bound)
+        _sampled_splice(torch, "fleet sampled", fstreams[n_req],
+                        sampled_ref, delta=2 * drift, floor=4 * cdf_err)
+        # the restarted replica serves a later request
+        _wait_for(lambda: h1.state == "healthy" and h1.generation == 2, 600,
+                  "replica 1 to restart")
+        t_restart = time.perf_counter() - t_kill
+        later_i = next(i for i in range(n_req) if affinity[i] == 1
+                       and i != FLEET_SAMPLED_PROMPT)
+        served_before = h1.served
+        later = {}
+        _http_stream(router.port, bodies[later_i], later)
+        later_toks = _stream_tokens("fleet later", later)[0]
+        # the router counts a stream served after relaying its done frame
+        _wait_for(lambda: h1.served == served_before + 1, 30,
+                  "the restarted replica to serve the later request")
+        _splice_partings(torch, "fleet restarted", {later_i: later_toks},
+                         fd_reqs, bound)
+        errs = {h.index: _get(h.port, "/metricsz")[1]["tick_errors"]
+                for h in sup.handles}
+        log(f"[fleet] replica 1 back as generation {h1.generation} (pid "
+            f"{h1.pid}) {t_restart:.1f}s after the kill, served request "
+            f"{later_i}; tick_errors by replica {errs} (killed incarnation "
+            f"{m1['tick_errors']})")
+        if any(errs.values()) or m1["tick_errors"]:
+            raise AssertionError("[fleet] a replica's ticks raised")
+        frep = router.drain_and_join(timeout=300)
+        drained = True
+    finally:
+        if not drained:  # no more restarts; stop every replica started
+            sup._draining = True
+            for h in sup.handles:
+                factory.kill(h)
+    if not frep.clean or frep.exit_code != 0 or frep.failed \
+            or frep.replicas[1]["restarts"] != 1 \
+            or any(r["exit_code"] != 0 for r in frep.replicas):
+        raise AssertionError("[fleet] the fleet drain was not clean")
+    shutil.rmtree(art, ignore_errors=True)
+    log(f"[frontdoor] phase 12 passed in "
+        f"{time.perf_counter() - t_phase:.1f}s ((a) {t_a:.1f}s, (b) "
+        f"{time.perf_counter() - t_b:.1f}s)")
+    return {"frontdoor": launches}
+
+
 REPLACES = {
     "quant_matmul": "src/repro/kernels/quant_matmul/kernel.py:60",
     "paged_decode": "src/repro/kernels/paged_attention/kernel.py:164",
@@ -3400,13 +3897,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     tp = phase_tp(torch, seed=args.seed, layers=args.layers, served=served,
                   check_max=served["check"]["max_diff"])
+    torch.cuda.empty_cache()
+    frontdoor = phase_frontdoor(torch, seed=args.seed, layers=args.layers,
+                                served=served,
+                                check_max=served["check"]["max_diff"])
     # launches: each kernel on the path that runs it — the synthetic serve
     # for the serving kernels, the quantize run for ldlq and kron_mul, the
     # hadamard linear for hadamard; phases 7's to 10's paths beside them
     paths = {"serve": served["launches"], "quantize": quant["launches"],
              "hadamard_linear": quant["hadamard_launches"],
              "serve_quantized": quant["serve_launches"], **dense,
-             **lifecycle, **speculative, **observe, **tp}
+             **lifecycle, **speculative, **observe, **tp, **frontdoor}
     main_path = {"ldlq": "quantize", "kron_mul": "quantize",
                  "hadamard": "hadamard_linear"}
     kernels = []

@@ -37,7 +37,17 @@ prints metric snapshots; ``--canary-every`` / ``--canary-prompts`` /
 audits a loaded artifact's quality section.  ``--mesh DP,MP`` serves
 tensor-parallel (``serve/distributed.py``): this process is rank 0 and
 starts the other ranks itself; packed codes, the KV pool and attention
-shard over the model axis.  ``--check``
+shard over the model axis.  ``--http-port PORT`` serves over HTTP/SSE
+instead of the fixed workload (``serve/frontdoor/``: ``POST
+/v1/generate``, ``/healthz``, ``/readyz``, ``/metricsz``; SIGTERM/SIGINT
+drain through the leak gate, ``--drain-timeout-s``, ``--tick-stall-s``,
+``--no-ladder``); ``--fleet N`` serves N such replica processes of this
+CLI behind one supervised router on ``--router-port``
+(``serve/fleet/``: prefix affinity, typed rejections passed through,
+journaled mid-stream failover with ``--probe-interval-s``,
+``--max-restarts``, ``--restart-backoff-s``, and ``--replica-fault
+IDX:SPEC`` arming a fault plan on one replica's first incarnation, e.g.
+``'1:replica_kill@tick=40'``).  ``--check``
 verifies the engine's greedy tokens against the full-prefix recompute
 oracle (with ``--kv-int8``: a gather-dense engine over the same int8
 pages, on one device also under ``--mesh``) and exits nonzero on
@@ -51,6 +61,7 @@ Asking for ``cuda`` where there is none is an error, never a fallback.
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 import numpy as np
@@ -62,6 +73,31 @@ from repro_torch.device import resolve_device
 
 __all__ = ["resolve_device", "quantized_generate", "quantize_in_process",
            "build_engine", "main"]
+
+# flags of the fleet parent (router and supervisor) that must not reach a
+# replica process; --http-port/--http-host go too, since the factory
+# appends fresh ones per spawn
+_FLEET_ONLY_FLAGS = frozenset((
+    "--fleet", "--router-port", "--probe-interval-s", "--max-restarts",
+    "--restart-backoff-s", "--replica-fault", "--http-port",
+    "--http-host",
+))
+
+
+def _replica_argv(argv: list) -> list:
+    """A replica's command tail: ``argv`` without the fleet-only flags
+    (``--flag value`` and ``--flag=value``).  Flags must be spelled out in
+    full on a fleet command line: an argparse abbreviation would slip
+    past this filter."""
+    out, i = [], 0
+    while i < len(argv):
+        arg = argv[i]
+        if arg.split("=", 1)[0] in _FLEET_ONLY_FLAGS:
+            i += 1 if "=" in arg else 2
+            continue
+        out.append(arg)
+        i += 1
+    return out
 
 
 def quantize_in_process(params: dict, cfg, *, bits: int, seed: int,
@@ -238,6 +274,49 @@ def parser() -> argparse.ArgumentParser:
                          "'name:rate:burst:priority' (rate in req/s, empty "
                          "or 'inf' = unlimited; priority 0 = highest), "
                          "e.g. 'paid:inf:4:0,free:2.0:4:1'")
+    ap.add_argument("--http-port", type=int, default=None, metavar="PORT",
+                    help="serve over HTTP/SSE instead of the fixed batch: "
+                         "start the asyncio front door on this port (0 = "
+                         "ephemeral), POST /v1/generate + healthz/readyz/"
+                         "metricsz; SIGTERM/SIGINT drain gracefully")
+    ap.add_argument("--http-host", default="127.0.0.1",
+                    help="front-door bind address (default 127.0.0.1)")
+    ap.add_argument("--drain-timeout-s", type=float, default=5.0,
+                    metavar="SECS",
+                    help="graceful-drain budget: in-flight lanes past this "
+                         "get cancelled (pages still released exactly)")
+    ap.add_argument("--tick-stall-s", type=float, default=10.0,
+                    metavar="SECS",
+                    help="tick-stall watchdog threshold: /healthz flips "
+                         "to 503 'wedged' when the engine has not "
+                         "COMPLETED a tick in this long (the supervisor "
+                         "hard-restarts wedged replicas)")
+    ap.add_argument("--fleet", type=int, default=None, metavar="N",
+                    help="serve N data-parallel replica processes (each "
+                         "this CLI + an ephemeral --http-port) behind "
+                         "one supervised router; implies HTTP serving")
+    ap.add_argument("--router-port", type=int, default=0, metavar="PORT",
+                    help="fleet router bind port (0 = ephemeral; with "
+                         "--fleet)")
+    ap.add_argument("--probe-interval-s", type=float, default=0.5,
+                    metavar="SECS",
+                    help="supervisor health-probe period (with --fleet)")
+    ap.add_argument("--max-restarts", type=int, default=3, metavar="N",
+                    help="give-up circuit breaker: park a replica slot "
+                         "as 'gone' after N restarts (with --fleet)")
+    ap.add_argument("--restart-backoff-s", type=float, default=0.5,
+                    metavar="SECS",
+                    help="base restart backoff, doubling per restart "
+                         "(with --fleet)")
+    ap.add_argument("--replica-fault", action="append", default=None,
+                    metavar="IDX:SPEC",
+                    help="arm a --fault-plan SPEC on replica IDX's FIRST "
+                         "incarnation only (repeatable; with --fleet) — "
+                         "e.g. '1:replica_kill@tick=40' for a crash "
+                         "drill whose respawn comes back clean")
+    ap.add_argument("--no-ladder", action="store_true",
+                    help="disable the load-shedding degradation ladder "
+                         "(spec K shrink -> spec off -> shed lowest class)")
     ap.add_argument("--fault-plan", default=None, metavar="SPEC",
                     help="deterministic fault injection for chaos drills: "
                          "'kind[@key=val,...][;rule...]' with kinds "
@@ -313,6 +392,10 @@ def main(argv=None):
             tenants = parse_tenants(args.tenants)
         except ValueError as e:
             raise SystemExit(f"--tenants: {e}")
+    if args.http_port is not None and args.check:
+        raise SystemExit(
+            "--check drives a fixed in-process workload; the HTTP front "
+            "door serves whatever clients send — drop one of the two")
     if args.speculative and not args.paged:
         raise SystemExit(
             "--speculative verifies drafts over the paged pool (the "
@@ -349,6 +432,30 @@ def main(argv=None):
         raise SystemExit(
             "--quality-strict needs a baseline to enforce; add "
             "--quality-baseline PATH")
+    if args.fleet is None:
+        for flag, val, default in (
+                ("--router-port", args.router_port, 0),
+                ("--replica-fault", args.replica_fault, None)):
+            if val != default:
+                raise SystemExit(f"{flag} only applies to a replica "
+                                 f"fleet; add --fleet N")
+    else:
+        if args.fleet < 1:
+            raise SystemExit(f"--fleet needs >= 1 replica, got {args.fleet}")
+        if args.check:
+            raise SystemExit(
+                "--check drives a fixed in-process workload; --fleet "
+                "serves HTTP replicas — drop one of the two")
+        if args.http_port is not None:
+            raise SystemExit(
+                "--fleet assigns each replica its own ephemeral "
+                "--http-port; use --router-port for the client-facing "
+                "port")
+    if args.mesh and (args.http_port is not None or args.fleet is not None):
+        raise SystemExit(
+            "--mesh serves from one controller process over its ranks; "
+            "the front door and the fleet do not drive a mesh yet — drop "
+            "--mesh, or --http-port / --fleet")
     if args.check and args.kv_int8 and not (args.paged or args.paged_prefill):
         raise SystemExit(
             "--kv-int8 --check needs --paged (and/or --paged-prefill): "
@@ -356,6 +463,8 @@ def main(argv=None):
             "independent oracle is the gather-dense engine over the same "
             "int8 page contents — without a paged path that oracle IS the "
             "engine under test")
+    if args.fleet is not None:
+        return _serve_fleet(args, argv)
     device = resolve_device(args.device)
     mesh = None
     if args.mesh:
@@ -376,6 +485,83 @@ def main(argv=None):
     finally:
         if mesh is not None:
             mesh.close()
+
+
+def _serve_fleet(args, argv) -> int:
+    """The fleet parent: builds no model; spawns ``--fleet`` replica
+    copies of this CLI (fleet flags stripped, a fresh ``--http-port`` per
+    spawn) and serves the router in front of them until a drain."""
+    import asyncio
+
+    from repro_torch.serve.faults import parse_fault_plan
+    from repro_torch.serve.fleet import (
+        FleetRouter,
+        ProcessReplicaFactory,
+        Supervisor,
+        replica_command,
+    )
+
+    first_spawn: dict[int, list] = {}
+    for spec in args.replica_fault or ():
+        idx_s, sep, plan = spec.partition(":")
+        if not sep or not idx_s.isdigit():
+            raise SystemExit(f"--replica-fault expects IDX:SPEC, got {spec!r}")
+        idx = int(idx_s)
+        if not 0 <= idx < args.fleet:
+            raise SystemExit(
+                f"--replica-fault: replica {idx} out of range for "
+                f"--fleet {args.fleet}")
+        try:  # validated here, where the error is attributable
+            parse_fault_plan(plan)
+        except ValueError as e:
+            raise SystemExit(f"--replica-fault {spec!r}: {e}")
+        first_spawn.setdefault(idx, []).extend(["--fault-plan", plan])
+    tail = _replica_argv(list(argv) if argv is not None else sys.argv[1:])
+    factory = ProcessReplicaFactory(replica_command(tail),
+                                    host=args.http_host,
+                                    first_spawn_args=first_spawn)
+    sup = Supervisor(factory, args.fleet, host=args.http_host,
+                     probe_interval_s=args.probe_interval_s,
+                     max_restarts=args.max_restarts,
+                     backoff_base_s=args.restart_backoff_s,
+                     replica_drain_timeout_s=args.drain_timeout_s + 30.0)
+    router = FleetRouter(sup, host=args.http_host, port=args.router_port,
+                         drain_timeout_s=args.drain_timeout_s)
+    report = asyncio.run(router.serve_forever())
+    return report.exit_code
+
+
+def _serve_http(args, engine, tracer) -> int:
+    """``--http-port``: the front door over ``engine`` until SIGTERM or
+    SIGINT drains it; the exit code is the leak gate's."""
+    import asyncio
+
+    from repro_torch.serve.frontdoor import FrontDoor
+
+    fd = FrontDoor(engine, host=args.http_host, port=args.http_port,
+                   drain_timeout_s=args.drain_timeout_s,
+                   ladder=not args.no_ladder, tick_stall_s=args.tick_stall_s)
+    report = asyncio.run(fd.serve_forever())
+    s = engine.summary()
+    for line in report.lines():
+        print(f"[serve] {line}")
+    fin = " ".join(f"{k}={v}" for k, v in sorted(s.items())
+                   if k.startswith("finish:"))
+    if fin:
+        print(f"[serve] finish reasons: {fin}")
+    print(f"[serve] http: requests={s['http_requests']} "
+          f"rejections={s['http_rejections']} "
+          f"shed={s['shed_requests']} "
+          f"disconnects={s['client_disconnects']} "
+          f"ladder_escalations={s.get('ladder_escalations', 0)} "
+          f"ladder_deescalations={s.get('ladder_deescalations', 0)}")
+    if s["tick_errors"]:
+        print(f"[serve] tick_errors={s['tick_errors']}: ticks raised and "
+              f"were skipped")
+    if tracer is not None:
+        tracer.export_chrome_trace(args.trace_out)
+        print(f"[serve] trace: {len(tracer)} spans -> {args.trace_out}")
+    return report.exit_code
 
 
 def _serve(args, device, faults, tenants, mesh) -> int:
@@ -463,6 +649,8 @@ def _serve(args, device, faults, tenants, mesh) -> int:
         pool = engine.pool
         print(f"[serve] mesh data={mesh.dp} model={mesh.mp}: KV pool "
               f"{pool.total_bytes()} B total, {pool.device_bytes()} B/device")
+    if args.http_port is not None:
+        return _serve_http(args, engine, tracer)
     stop_tokens = tuple(args.stop_token or ())
     try:  # bad sampling flags fail here, not as a capacity error below
         sampling = [SamplingParams(temperature=args.temperature,

@@ -262,14 +262,26 @@ class Engine:
                sampling: Optional[SamplingParams] = None,
                stop_tokens: tuple = (), deadline_s: Optional[float] = None,
                tenant: str = "default",
-               priority: Optional[int] = None) -> Request:
+               priority: Optional[int] = None,
+               resume_tokens: tuple = ()) -> Request:
         """Submit a request, or raise a typed :class:`AdmissionRejected`:
         not retryable when it can never fit this pool (per-sequence or
         total capacity, discounting full prompt pages the prefix cache
         already holds), retryable when the tenant's bucket is overdrawn or
         the bounded queue is full.  ``deadline_s`` overrides
         ``EngineConfig.deadline_s``; ``priority`` pins the class (None
-        inherits the tenant policy's)."""
+        inherits the tenant policy's).
+
+        ``resume_tokens`` are tokens a previous attempt already emitted
+        (fleet failover): the request prefills over ``prompt +
+        resume_tokens``, as an evicted request replays, and emits on from
+        emission index ``len(resume_tokens)``.  ``max_new`` stays the
+        whole budget, resumed tokens included, so the admission forecast
+        ``prompt + max_new`` already counts them.  Greedy streams and
+        device-sampled ones (the draw keys on ``fold_in(seed, emission
+        index)``) then equal an uninterrupted run; the host draw's
+        generator cannot be fast-forwarded, so it carries no such
+        guarantee."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -289,6 +301,16 @@ class Engine:
                 "over_capacity", retryable=False,
                 needed_pages=need - cached,
                 available_pages=self.pool.n_pages - 1)
+        resume = [int(t) for t in resume_tokens]
+        if resume:
+            if len(resume) >= max_new:
+                raise ValueError(
+                    f"resume_tokens already meets max_new "
+                    f"({len(resume)} >= {max_new}); nothing to resume")
+            if resume[-1] in tuple(stop_tokens):
+                raise ValueError(
+                    "resume_tokens ends on a stop token; the original "
+                    "stream already finished")
         req = Request(
             prompt=prompt, max_new=max_new, arrival=arrival,
             sampling=sampling or SamplingParams(),
@@ -297,6 +319,12 @@ class Engine:
                         else deadline_s),
             tenant=tenant, priority=priority,
         )
+        if resume:
+            # the state an eviction leaves: prefill covers req.prefix =
+            # prompt + resume, token_times backfilled with the arrival
+            req.out_tokens = resume
+            req.token_times = [arrival] * len(resume)
+            req.resumed = len(resume)
         if self.shadow is not None:
             # decided at submit so the decode paths keep this request's
             # emission logits

@@ -173,6 +173,12 @@ class Request:                    # list.remove/in on running queues
     prefill_pos: int = 0  # tokens of ``prefix`` already written to pages
     out_tokens: list = dataclasses.field(default_factory=list)
     n_evictions: int = 0
+    # tokens a previous attempt on another replica already emitted (fleet
+    # failover, ``Engine.submit(resume_tokens=...)``): ``out_tokens`` starts
+    # with them, so emission indices, and the device draw's keys folded
+    # from them, go on where the dead replica stopped.  The stream layer
+    # does not send the first ``resumed`` again.
+    resumed: int = 0
 
     # timing (engine-relative seconds); ``t_admitted`` is the FIRST
     # admission — an evicted request keeps it

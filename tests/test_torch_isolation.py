@@ -23,6 +23,11 @@ leaked = sorted(m for m in sys.modules
 print(len(names), leaked)
 assert not leaked, leaked
 assert len(names) >= 25, names
+for name in ("repro_torch.serve.frontdoor.server",
+             "repro_torch.serve.frontdoor.wire",
+             "repro_torch.serve.fleet.router",
+             "repro_torch.serve.fleet.supervisor"):
+    assert name in names, name
 """
 
 
