@@ -155,14 +155,36 @@ Phases, each printing its own lines:
      equal (a)'s under the margin rule and the sampled one an
      uninterrupted sampled run on the card but within the CDF rounding of
      a bucket edge; replica 1 restarts (generation 2) and serves a later
-     request; ``tick_errors`` 0 on every replica; the fleet drain clean.
+     request; ``tick_errors`` 0 on every replica; the fleet drain clean;
+ 13. model families — ``build_model`` at full width, one run after another
+     with the card freed between them (``FAMILY_RUNS``): llama4-scout
+     (moe, top-1) at 4 of 48 layers in bf16 and with ``weight_bits`` 2,
+     arctic (moe, top-2, dense residual) at 1 of 35 layers, rwkv6 whole
+     and zamba2 (hybrid, the shared block 13 times a token) whole with
+     ``weight_bits`` 2.  Each serves eight prompts of 128 tokens, 32
+     generated, through ``greedy_generate`` in bf16 (launches counted
+     around it; quant_matmul once a projection a call; the real-capacity
+     prefill's MoE drops reported; the stream the argmax of the same
+     prefill and decode steps teacher-forced), and ``expert_hessians`` on
+     llama4-scout's layer-0 routed activations is held to plain
+     per-expert XᵀX (``EXPERT_H_RTOL``).  Then the same model in fp32,
+     where rounding neither hides a fault nor flips MoE routing, holds
+     prefill logits to the forward's at S - 1, teacher-forced decode
+     logits to the forward's (MoE at ``capacity_factor`` = experts /
+     top-k, where nothing drops) with the greedy stream the forward argmax
+     at every position but near ties, packed runs to their ``plain=True``
+     logits, and the chunked scans to their per-step oracles on one
+     full-width layer (``FAMILY_GATES``); each decode, packed and scan
+     gate must also fail a wrong run (a cache fault, a dropped K word, a
+     scan restarted every 16 tokens).
 
 Phase 3 also runs kron_mul at every dense width's factors (16 x 32 to
 168 x 176, and 192 x 256, the largest the kernel takes), quant_matmul at
-the widest starcoder2-15b and llama2-70b projections, and paged prefill at
-G = 12; and one rank's shapes at tensor parallelism 2 and 4
-(``QMM_TP_SHAPES``; paged decode and prefill at 4 and 2 KV heads, the
-verifier's C = 5 over int8 pages).
+the widest starcoder2-15b and llama2-70b projections and at phase 13's
+packed projections (``QMM_FAMILY_SHAPES``), and paged prefill at G = 12;
+and one rank's shapes at tensor parallelism 2 and 4 (``QMM_TP_SHAPES``;
+paged decode and prefill at 4 and 2 KV heads, the verifier's C = 5 over
+int8 pages, each with its SDPA yardstick).
 
 The next-to-last line is a JSON record of the six kernels (each with its
 launches on every path, phase 11's by rank); the last line is
@@ -242,7 +264,7 @@ QMM_TP_SHAPES = ((5120, 8704), (8704, 5120), (2560, 5120))
 # and ragged shapes -- K ending in a partial packed word, M not a multiple
 # of the 256-column tile, B not a multiple of the row block -- through both
 # kernels (B <= 16 and B > 16) at every bit width
-QMM_CASES = (
+QMM_CASES = tuple(
     [(K, M, B, 2) for (K, M) in ((5120, 5120), (5120, 1024), (5120, 17408),
                                  (17408, 5120))
      for B in (1, 8, 64, 512)]
@@ -254,6 +276,17 @@ QMM_CASES = (
     + [(17, 300, 3, 8), (17, 300, 20, 8)]
     + [(K, M, B, 2) for (K, M) in QMM_TP_SHAPES for B in (8, 512)]
 )
+# quant_matmul (K, M) of phase 13's packed projections, by model: decode
+# rows (B 8) and a prefill's (B 1024 = 8 x 128), 2-bit
+QMM_FAMILY_SHAPES = {
+    "llama4-scout-17b-a16e": ((5120, 5120), (5120, 1024)),
+    "arctic-480b": ((7168, 7168), (7168, 1024), (7168, 4864), (4864, 7168)),
+    "zamba2-7b": ((3584, 3584), (3584, 14336), (14336, 3584)),
+}
+QMM_FAMILY_CASES = {(K, M, B, 2): arch
+                    for arch, shapes in QMM_FAMILY_SHAPES.items()
+                    for (K, M) in shapes for B in (8, 1024)}
+QMM_CASES += tuple(c for c in QMM_FAMILY_CASES if c not in QMM_CASES)
 # ldlq (m, n, bits, stochastic): the qwen3-14b linears' (rows, columns) —
 # attn.wk/wv, attn.wq/wo, mlp.wi/wg, mlp.wo — at 2 and 4 bits, a ragged
 # row count, stochastic rounding, and a column count with no divisor in
@@ -406,7 +439,7 @@ def qmm_cases(torch, timer) -> dict:
     g.manual_seed(11)
     rep, pre = None, None
     worst = 0.0
-    tp = {}
+    tp, fam = {}, {}
     for K, M, B, bits in QMM_CASES:
         maxq = 2**bits - 1
         codes = torch.randint(0, maxq + 1, (M, K), generator=g,
@@ -481,9 +514,14 @@ def qmm_cases(torch, timer) -> dict:
         if (K, M) in QMM_TP_SHAPES and bits == 2:
             tp[f"K={K} M={M} B={B}"] = {k: row[k] for k in (
                 "ms", "fused_ms", "plain_ms", "library_ms", "bound_ms")}
+        if (K, M, B, bits) in QMM_FAMILY_CASES:
+            fam[f"{QMM_FAMILY_CASES[K, M, B, bits]} K={K} M={M} B={B}"] = {
+                k: row[k] for k in ("ms", "fused_ms", "plain_ms",
+                                    "library_ms", "bound_ms", "bound_by")}
     rep["max_abs_err"] = worst
     rep["prefill"] = pre
     rep["tp_rank"] = tp
+    rep["families"] = fam
     return rep
 
 
@@ -539,6 +577,52 @@ def _dense_kv(torch, kp, vp, ks, vs, bt, layer):
     return k, v
 
 
+def _sdpa_decode_ms(torch, timer, c, layer) -> float:
+    """The library yardstick of a decode case: one
+    ``scaled_dot_product_attention`` call (bf16, GQA) over K/V gathered
+    dense from the pages, each lane masked to its context."""
+    import torch.nn.functional as F
+
+    q, kp, vp, bt, ctx, kw = (c[k] for k in ("q", "kp", "vp", "bt", "ctx",
+                                              "kw"))
+    B, KV, G, hd = q.shape
+    kd, vd = _dense_kv(torch, kp, vp, kw["k_scale"], kw["v_scale"], bt,
+                       layer)
+    S = kd.shape[1]
+    qs = q.reshape(B, KV * G, 1, hd).to(torch.bfloat16)
+    kt, vt = kd.transpose(1, 2), vd.transpose(1, 2)  # (B, KV, S, hd)
+    mask = (torch.arange(S, device=DEV)[None, :] < ctx[:, None])
+    mask = mask[:, None, None, :]
+    return timer(lambda: F.scaled_dot_product_attention(
+        qs, kt, vt, attn_mask=mask, enable_gqa=True))
+
+
+def _sdpa_prefill_ms(torch, timer, c, layer) -> float:
+    """The library yardstick of a prefill case: one
+    ``scaled_dot_product_attention`` call (bf16, GQA) of the chunk's
+    queries over the context gathered dense from the pages and the chunk,
+    causal within the chunk (the verifier's diagonal override is not
+    modelled: the same work)."""
+    import torch.nn.functional as F
+
+    q, kc, vc, kp, vp, bt, ctx, kw = (c[k] for k in (
+        "q", "kc", "vc", "kp", "vp", "bt", "ctx", "kw"))
+    B, KV, G, C, hd = q.shape
+    kd, vd = _dense_kv(torch, kp, vp, kw["k_scale"], kw["v_scale"], bt,
+                       layer)
+    S = kd.shape[1]
+    kall = torch.cat([kd, kc.to(torch.bfloat16)], 1).transpose(1, 2)
+    vall = torch.cat([vd, vc.to(torch.bfloat16)], 1).transpose(1, 2)
+    del kd, vd
+    qs = q.reshape(B, KV * G, C, hd).to(torch.bfloat16)
+    m_ctx = (torch.arange(S, device=DEV)[None, :] < ctx[:, None])
+    m_ctx = m_ctx[:, None, :].expand(B, C, S)
+    causal = torch.tril(torch.ones(C, C, dtype=torch.bool, device=DEV))
+    mask = torch.cat([m_ctx, causal.expand(B, C, C)], -1)[:, None]
+    return timer(lambda: F.scaled_dot_product_attention(
+        qs, kall, vall, attn_mask=mask, enable_gqa=True))
+
+
 def _decode_check(torch, g, kind, *, B, KV, G, hd, ps, Pa, layer,
                   ctx_list):
     """The decode kernel entry's (o, m, l) and the adapter's fused entry
@@ -583,8 +667,6 @@ def _decode_check(torch, g, kind, *, B, KV, G, hd, ps, Pa, layer,
 
 
 def decode_cases(torch, timer) -> dict:
-    import torch.nn.functional as F
-
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention.kernel import paged_attention_kernel
     from repro_torch.kernels.paged_attention.ref import (
@@ -607,15 +689,7 @@ def decode_cases(torch, timer) -> dict:
             c["qh"], c["k_new"], c["v_new"], kp, vp, bt, ctx, **kw))
         t_p = timer(lambda: paged_attention_stats_ref(q, kp, vp, bt, ctx,
                                                       **kw))
-        kd, vd = _dense_kv(torch, kp, vp, kw["k_scale"], kw["v_scale"], bt,
-                           layer)
-        S = kd.shape[1]
-        qs = q.reshape(B, KV * G, 1, hd).to(torch.bfloat16)
-        kt, vt = kd.transpose(1, 2), vd.transpose(1, 2)  # (B, KV, S, hd)
-        mask = (torch.arange(S, device=DEV)[None, :] < ctx[:, None])
-        mask = mask[:, None, None, :]
-        t_l = timer(lambda: F.scaled_dot_product_attention(
-            qs, kt, vt, attn_mask=mask, enable_gqa=True))
+        t_l = _sdpa_decode_ms(torch, timer, c, layer)
         n_bytes = (q.numel() * 4 + _kv_bytes(ctx_list, KV, hd, kind)
                    + c["o"].numel() * 4 + 2 * c["m"].numel() * 4
                    + bt.numel() * 4)
@@ -689,20 +763,22 @@ def decode_cases(torch, timer) -> dict:
                                                        **kw))
             t_p = timer(lambda: paged_attention_stats_ref(q, kp, vp, bt, ctx,
                                                           **kw))
+            t_l = _sdpa_decode_ms(torch, timer, c, layer)
             n_bytes = (q.numel() * 4 + _kv_bytes(ctx_list, KV_, hd, kind)
                        + c["o"].numel() * 4 + 2 * c["m"].numel() * 4
                        + bt.numel() * 4)
             bms, by = bound_ms(n_bytes, 4.0 * sum(ctx_list) * KV_ * G * hd,
                                TC_BF16_FLOP_S)
             rep["tp_rank"][f"KV={KV_} {kind}"] = dict(
-                ms=t_k, plain_ms=t_p, bound_ms=bms)
+                ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bms)
             log(f"[kernel] paged_decode {kind} pages B={B} KV={KV_} G={G} "
                 f"hd={hd} ctx={ctx_list} (one rank's heads): max_abs_err="
                 f"{c['err']:.3e} (tol {ATTN_ATOL}) empty-lane "
                 f"{'OK' if c['empty_ok'] else 'FAIL'}; ops.paged_gqa_decode "
                 f"max_abs_err={c['w_err']:.3e} {'OK' if c['ok'] else 'FAIL'}"
-                f" | kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
-                f"{bms:.4f} ms ({by})")
+                f" | kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+                f"library(SDPA dense) {t_l:.4f} ms, bound {bms:.4f} ms "
+                f"({by})")
             if not c["ok"]:
                 raise AssertionError(f"paged_decode ({kind}, KV={KV_}) "
                                      f"disagrees")
@@ -765,8 +841,6 @@ def _prefill_check(torch, g, kind, self_, *, B, KV, G, C, hd, ps, Pa,
 
 
 def prefill_cases(torch, timer) -> dict:
-    import torch.nn.functional as F
-
     from repro_torch.kernels.paged_attention.kernel import paged_prefill_kernel
     from repro_torch.kernels.paged_attention.ref import (
         paged_prefill_grouped_ref,
@@ -790,20 +864,7 @@ def prefill_cases(torch, timer) -> dict:
                                                      ctx, **kw))
             t_p = timer(lambda: paged_prefill_grouped_ref(q, kc, vc, kp, vp,
                                                           bt, ctx, **kw))
-            kd, vd = _dense_kv(torch, kp, vp, kw["k_scale"], kw["v_scale"],
-                               bt, layer)
-            S = kd.shape[1]
-            kall = torch.cat([kd, kc.to(torch.bfloat16)], 1).transpose(1, 2)
-            vall = torch.cat([vd, vc.to(torch.bfloat16)], 1).transpose(1, 2)
-            qs = q.reshape(B, KV * G, C, hd).to(torch.bfloat16)
-            m_ctx = (torch.arange(S, device=DEV)[None, :] < ctx[:, None])
-            m_ctx = m_ctx[:, None, :].expand(B, C, S)
-            causal = torch.tril(torch.ones(C, C, dtype=torch.bool,
-                                           device=DEV))
-            mask = torch.cat([m_ctx, causal.expand(B, C, C)], -1)[:, None]
-            t_l = timer(lambda: F.scaled_dot_product_attention(
-                qs, kall, vall, attn_mask=mask, enable_gqa=True))
-            del kd, vd, kall, vall, mask
+            t_l = _sdpa_prefill_ms(torch, timer, c, layer)
             n_chunk = kc.numel() * kc.element_size() * (4 if self_ else 2)
             n_bytes = (q.numel() * 4 + _kv_bytes(ctx_list, KV, hd, kind)
                        + n_chunk + c["got"].numel() * 4 + bt.numel() * 4)
@@ -874,6 +935,7 @@ def prefill_cases(torch, timer) -> dict:
                                                      ctx, **kw))
             t_p = timer(lambda: paged_prefill_grouped_ref(q, kc, vc, kp, vp,
                                                           bt, ctx, **kw))
+            t_l = _sdpa_prefill_ms(torch, timer, c, layer)
             n_chunk = kc.numel() * kc.element_size() * (4 if self_ else 2)
             n_bytes = (q.numel() * 4 + _kv_bytes(ctx_list, KV_, hd, kind)
                        + n_chunk + c["got"].numel() * 4 + bt.numel() * 4)
@@ -881,12 +943,14 @@ def prefill_cases(torch, timer) -> dict:
                         for cl in ctx_list)
             bms, by = bound_ms(n_bytes, n_ops, TC_BF16_FLOP_S)
             case = f"KV={KV_} C={C_} {kind}" + (" +self" if self_ else "")
-            rep["tp_rank"][case] = dict(ms=t_k, plain_ms=t_p, bound_ms=bms)
+            rep["tp_rank"][case] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                        bound_ms=bms)
             log(f"[kernel] paged_prefill {case} pages B={B} G={G} hd={hd} "
                 f"(one rank's heads): max_abs_err={c['err']:.3e} (tol "
                 f"{ATTN_ATOL}); ops.paged_gqa_prefill max_abs_err="
                 f"{c['w_err']:.3e} {'OK' if c['ok'] else 'FAIL'} | kernel "
-                f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {bms:.4f} ms ({by})")
+                f"{t_k:.4f} ms, plain {t_p:.4f} ms, library(SDPA dense) "
+                f"{t_l:.4f} ms, bound {bms:.4f} ms ({by})")
             if not c["ok"]:
                 raise AssertionError(f"paged_prefill ({case}) disagrees")
             del c
@@ -3840,6 +3904,476 @@ def phase_frontdoor(torch, *, seed: int, layers: int, served: dict,
     return {"frontdoor": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the moe, rwkv and hybrid families through the Model facade
+# ---------------------------------------------------------------------------
+
+# (tag, arch, layers or None for the whole model, weight_bits): the runs of
+# phase 13 at full width, one after another; depth is cut only where the
+# model does not fit the card (llama4-scout 48 x 0.4 GB of bf16 experts,
+# arctic 35 x 26.8 GB)
+FAMILY_RUNS = (
+    ("llama4", "llama4-scout-17b-a16e", 4, 0),
+    ("llama4 packed", "llama4-scout-17b-a16e", 4, 2),
+    ("arctic", "arctic-480b", 1, 0),
+    ("rwkv6", "rwkv6-1.6b", None, 0),
+    ("zamba2 packed", "zamba2-7b", None, 2),
+)
+FAMILY_PROMPTS, FAMILY_PROMPT_LEN, FAMILY_GEN = 8, 128, 32
+# the chunked scans against their per-step oracles: one full-width layer,
+# T tokens
+SCAN_T = 64
+# the run whose layer-0 routed activations feed expert_hessians
+EXPERT_H_RUN = "llama4"
+# decode steps of the wrong runs that show each decode gate can fail
+WRONG_STEPS = 4
+# stated tolerances of phase 13's equivalence gates, by run, all in fp32
+# at full width: about twice what correct runs read (one H100, every
+# other check passing; PERF.md §6).  In bf16 the same runs read up to
+# 250x more (zamba2's 81 layers) and MoE routing flips on near ties, so
+# bf16 runs only the timed main path, held to its own teacher-forced
+# argmax.  Each decode, packed and scan gate must also fail a wrong run
+# (``_family_gates``); the wrong runs read 6.3-7.1 max |diff| against
+# logits of rms 1.0, and 0.87-0.95 of a scan oracle's largest value
+FAMILY_GATES = {
+    # prefill logits vs forward logits at S - 1, max |diff| (the same
+    # tokens and capacity; the forward's lm head is a larger GEMM); read
+    # 5.2e-6, 5.5e-6, 5.8e-6, 6.0e-6 and 3.8e-6
+    "prefill": {"llama4": 1.1e-5, "llama4 packed": 1.1e-5, "arctic": 1.2e-5,
+                "rwkv6": 1.2e-5, "zamba2 packed": 8e-6},
+    # teacher-forced decode logits vs forward logits, max and mean |diff|;
+    # read 3.1e-5 / 4.4e-6, 1.17e-3 / 9.5e-5, 2.7e-5 / 3.0e-6, 1.3e-5 /
+    # 9.7e-7 and 3.08e-3 / 2.8e-4
+    "decode": {"llama4": (6.3e-5, 8.8e-6), "llama4 packed": (2.4e-3, 1.9e-4),
+               "arctic": (5.4e-5, 6e-6), "rwkv6": (2.6e-5, 2e-6),
+               "zamba2 packed": (6.2e-3, 5.6e-4)},
+    # packed projections: quant_matmul's kernel vs its plain version,
+    # forward logits max and mean |diff|; read 1.35e-3 / 1.19e-4 and
+    # 1.05e-3 / 1.09e-4
+    "packed": {"llama4 packed": (2.7e-3, 2.4e-4),
+               "zamba2 packed": (2.1e-3, 2.2e-4)},
+    # chunked scan vs per-step oracle, max |diff| relative to the oracle's
+    # largest |value|; read 2.26e-6 and 1.38e-6
+    "scan": {"rwkv6": 4.5e-6, "zamba2 packed": 2.8e-6},
+}
+# expert_hessians vs a plain per-expert XᵀX: fp32, relative to max |H|;
+# an expert routed fewer tokens than EXPERT_H_MIN_TOKENS takes the shared H
+EXPERT_H_RTOL, EXPERT_H_MIN_TOKENS = 1e-5, 64
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def _family_projections(cfg) -> int:
+    """quant_matmul launches of one forward call (prefill or one decode
+    step) of a packed model: every attention and dense-MLP projection of
+    every layer (or every shared-block invocation)."""
+    attn = 4
+    mlp = 3 if cfg.mlp == "swiglu" else 2
+    if cfg.family == "hybrid":
+        return (attn + mlp) * (cfg.n_layers // cfg.shared_attn_period)
+    if cfg.family == "moe":
+        return (attn + (mlp if cfg.dense_residual else 0)) * cfg.n_layers
+    return (attn + mlp) * cfg.n_layers
+
+
+class _RouteRecorder:
+    """Records every ``moe_route`` call of the MoE layers (routed
+    activations, choices, keep masks and capacity) while installed."""
+
+    def __init__(self, L):
+        self.L, self.calls, self._orig = L, [], None
+
+    def __enter__(self):
+        self._orig = self.L.moe_route
+
+        def rec(p, xt, cfg):
+            r = self._orig(p, xt, cfg)
+            self.calls.append({"x": xt, **r})
+            return r
+
+        self.L.moe_route = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.L.moe_route = self._orig
+
+
+def _must_fail(tag: str, what: str, reading: str, passes: bool) -> None:
+    """A gate's wrong run: it must fail the gate, or the gate sees
+    nothing."""
+    log(f"[{tag}] wrong run ({what}): {reading}; fails the gate: "
+        f"{'no' if passes else 'yes'} {'FAIL' if passes else 'OK'}")
+    if passes:
+        raise AssertionError(f"[{tag}] the gate passes a wrong run "
+                             f"({what})")
+
+
+def _wrong_decodes(torch, cfg, cache) -> list:
+    """The decode gate's wrong runs, by family: cache faults the gate must
+    see, as (what, cache, position shift)."""
+    if cfg.family == "rwkv":
+        return [("layer states rotated by one layer",
+                 cache[1:] + cache[:1], 0)]
+    if cfg.family == "hybrid":
+        kv, mamba = cache["kv"], cache["mamba"]
+        return [("shared-block KV caches rotated by one invocation",
+                 {"mamba": mamba, "kv": kv[1:] + kv[:1]}, 0),
+                ("Mamba2 conv states zeroed after the prefill",
+                 {"mamba": [{**m, "conv": torch.zeros_like(m["conv"])}
+                            for m in mamba], "kv": kv}, 0)]
+    return [("each step stored and read one position late", cache, 1)]
+
+
+def _tail_dropped(tree):
+    """``tree`` with every packed leaf's last row of words (the last 32 /
+    bits inputs) read as codes 0: the packed gate's wrong run."""
+    if isinstance(tree, dict):
+        if "packed" in tree:
+            w = tree["packed"].clone()
+            w[-1] = 0
+            return {**tree, "packed": w}
+        return {k: _tail_dropped(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tail_dropped(v) for v in tree]
+    return tree
+
+
+def _scan_gate(torch, tag: str, scan, oracle, x, tol: float) -> float:
+    """A chunked scan against its per-step oracle on x (B, SCAN_T, D); the
+    wrong run restarts the scan every 16 tokens (no state carried)."""
+    want = oracle(x).float()
+    top = max(float(want.abs().max()), 1e-30)
+    rel = float((scan(x).float() - want).abs().max()) / top
+    bad = torch.cat([scan(x[:, i:i + 16]) for i in range(0, x.shape[1], 16)],
+                    dim=1)
+    rel_bad = float((bad.float() - want).abs().max()) / top
+    ok = rel <= tol
+    log(f"[{tag}] chunked vs per-step oracle, one full-width layer at T = "
+        f"{SCAN_T} (fp32): max |diff| {rel:.4e} of the oracle's max |value| "
+        f"(tol {tol}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] chunked scan disagrees with its "
+                             f"oracle")
+    _must_fail(tag, "the scan restarted every 16 tokens", f"{rel_bad:.4e}",
+               rel_bad <= tol)
+    return rel
+
+
+def _expert_hessian_gate(torch, tag: str, call: dict, n_experts: int):
+    """expert_hessians on layer 0's routed activations: the counts are the
+    routing's integer counts, each H a plain per-expert XᵀX, the starved
+    experts the shared H."""
+    from repro_torch.core.hessian import expert_hessians
+
+    X, top_e = call["x"].float(), call["top_e"]
+    t0 = time.perf_counter()
+    Hs, counts = expert_hessians(X, top_e, n_experts,
+                                 min_tokens=EXPERT_H_MIN_TOKENS)
+    _sync(torch)
+    t_h = time.perf_counter() - t0
+    want_counts = torch.bincount(top_e.reshape(-1), minlength=n_experts)
+    shared = torch.einsum("ti,tj->ij", X, X) / X.shape[0]
+    worst, starved = 0.0, []
+    for e in range(n_experts):
+        if int(want_counts[e]) < EXPERT_H_MIN_TOKENS:
+            starved.append(e)
+            want = shared
+        else:
+            Xe = X[(top_e == e).any(-1)]
+            want = torch.einsum("ti,tj->ij", Xe, Xe) / Xe.shape[0]
+        worst = max(worst, float((Hs[e] - want).abs().max())
+                    / float(want.abs().max()))
+    ok = (torch.equal(counts.long(), want_counts) and bool(starved)
+          and worst <= EXPERT_H_RTOL)
+    log(f"[{tag}] expert_hessians on layer 0's routed activations "
+        f"({X.shape[0]} tokens x {X.shape[1]}) in {t_h:.2f}s: counts "
+        f"{want_counts.tolist()} equal the routing's; starved (< "
+        f"{EXPERT_H_MIN_TOKENS} tokens) "
+        f"{starved} carry the shared H; max |H - plain XᵀX| / max |H| "
+        f"{worst:.3e} (tol {EXPERT_H_RTOL}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] expert_hessians disagree")
+
+
+def _init_family(torch, tag: str, cfg, seed: int):
+    from repro_torch.models.lm import build_model
+
+    model = build_model(cfg)
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    t0 = time.perf_counter()
+    params = model.init(g, device=DEV)
+    _sync(torch)
+    log(f"[{tag}] {cfg.name} ({cfg.family}): {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}"
+        f"{f', {cfg.n_experts} experts top-{cfg.top_k}' if cfg.n_experts else ''}"
+        f"{', dense residual' if cfg.dense_residual else ''}"
+        f"{f', weight_bits {cfg.weight_bits}' if cfg.weight_bits else ''}; "
+        f"params {_tree_bytes(params) / 1e9:.2f} GB on the card, drawn from "
+        f"seed {seed} in {time.perf_counter() - t0:.1f}s")
+    return model, params
+
+
+def _family_main(torch, tag: str, cfg, prompts, *, seed: int) -> dict:
+    """The main path in the model's own dtype: ``greedy_generate`` (launches
+    counted from 0 around it), then the same prefill and decode steps
+    teacher-forced on its stream, timed, whose argmax must be the stream.
+    Returns the launches and, for MoE, the recorded routing."""
+    from repro_torch.kernels import reset_counts
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models import layers as L
+
+    model, params = _init_family(torch, tag, cfg, seed)
+    B, S = prompts.shape
+    gen = FAMILY_GEN
+    greedy_generate(model, params, prompts[:, :8], 2)  # warm-up
+    _sync(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    with _RouteRecorder(L) as routes:
+        stream = greedy_generate(model, params, prompts, gen)
+        _sync(torch)
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    log(f"[{tag}] greedy_generate: {B} x ({S} + {gen}) in {wall:.2f}s "
+        f"({B * gen / wall:.1f} tok/s, no claim); kernel launches "
+        f"{launches}")
+    if cfg.n_experts:
+        drops = [(i, int((~c["keep"]).sum()), c["keep"].numel())
+                 for i, c in enumerate(routes.calls[:cfg.n_layers])]
+        log(f"[{tag}] the real-capacity prefill (capacity_factor "
+            f"{cfg.capacity_factor}, C = {routes.calls[0]['C']} of "
+            f"{B * S} tokens) dropped (layer, pairs, of): {drops}")
+    t0 = time.perf_counter()
+    lg, cache = model.prefill(params, {"tokens": prompts}, max_len=S + gen)
+    _sync(torch)
+    t_pre = time.perf_counter() - t0
+    dec = [lg]
+    t0 = time.perf_counter()
+    for j in range(gen - 1):
+        lg, cache = model.decode_step(params, stream[:, j:j + 1], cache,
+                                      S + j)
+        dec.append(lg)
+    _sync(torch)
+    t_dec = (time.perf_counter() - t0) / (gen - 1)
+    dec = torch.stack(dec, dim=1)
+    ok = (tuple(stream.shape) == (B, gen)
+          and bool(((stream >= 0) & (stream < cfg.vocab)).all())
+          and bool(torch.isfinite(dec).all())
+          and torch.equal(torch.argmax(dec, -1), stream))
+    log(f"[{tag}] prefill {t_pre * 1e3:.1f} ms, decode {t_dec * 1e3:.1f} ms "
+        f"a step; the stream ({B} x {gen} tokens in [0, {cfg.vocab})) is "
+        f"the argmax of the same prefill and decode steps teacher-forced, "
+        f"finite logits: {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] the stream is not its own argmax")
+    per_call = _family_projections(cfg)
+    if cfg.weight_bits and DEV == "cuda" \
+            and launches["quant_matmul"] != per_call * gen:
+        raise AssertionError(f"[{tag}] {launches['quant_matmul']} "
+                             f"quant_matmul launches, not {per_call} x "
+                             f"{gen}")
+    if tag == EXPERT_H_RUN:
+        _expert_hessian_gate(torch, tag, routes.calls[0], cfg.n_experts)
+    return launches
+
+
+def _family_gates(torch, tag: str, cfg, prompts, *, seed: int) -> None:
+    """The equivalence gates in fp32 at full width (``FAMILY_GATES``,
+    by run): prefill against forward, teacher-forced decode against
+    forward (MoE at ``capacity_factor`` = experts / top-k, where nothing
+    drops) with the greedy stream equal to the forward argmax at every
+    position but near ties, packed projections against their
+    ``plain=True`` version, the chunked scans against their per-step
+    oracles; each decode, packed and scan gate also against a wrong
+    run."""
+    import dataclasses
+
+    from repro_torch.kernels import reset_counts
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models import ssm
+    from repro_torch.models.lm import build_model
+
+    gates = {k: v[tag] for k, v in FAMILY_GATES.items() if tag in v}
+    tag = f"{tag} fp32"
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    model, params = _init_family(torch, tag, cfg, seed)
+    B, S = prompts.shape
+    gen = FAMILY_GEN
+    # ---- prefill vs forward at S - 1, same tokens and capacity ----
+    pl, _ = model.prefill(params, {"tokens": prompts}, max_len=S + gen)
+    h, _ = model.forward(params, {"tokens": prompts})
+    fl = model.logits(params, h[:, -1])
+    d_pre = float((pl - fl).abs().max())
+    ok = d_pre <= gates["prefill"]
+    log(f"[{tag}] prefill vs forward logits at position {S - 1}: max |diff| "
+        f"{d_pre:.4e} (tol {gates['prefill']}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] prefill disagrees with forward")
+    del pl, h, fl
+    # ---- decode vs forward, teacher-forced, nothing dropped ----
+    m_nd = model
+    if cfg.n_experts:
+        m_nd = build_model(dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.top_k))
+    stream = greedy_generate(m_nd, params, prompts, gen)
+    h, _ = m_nd.forward(params, {"tokens": torch.cat([prompts, stream], 1)})
+    full = m_nd.logits(params, h[:, S - 1:S - 1 + gen])
+    del h
+    lg, cache = m_nd.prefill(params, {"tokens": prompts}, max_len=S + gen)
+    wrong = []
+    for what, bad_cache, shift in _wrong_decodes(torch, cfg, cache):
+        bad = []
+        for j in range(WRONG_STEPS):
+            lg_bad, bad_cache = m_nd.decode_step(
+                params, stream[:, j:j + 1], bad_cache, S + j + shift)
+            bad.append(lg_bad)
+        wrong.append((what, torch.stack(bad, dim=1)))
+        del bad_cache, bad
+    dec = [lg]
+    for j in range(gen - 1):
+        lg, cache = m_nd.decode_step(params, stream[:, j:j + 1], cache, S + j)
+        dec.append(lg)
+    dec = torch.stack(dec, dim=1)
+    diff = (dec - full).abs()
+    d_max, d_mean = float(diff.max()), float(diff.mean())
+    top2 = torch.topk(full, 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    flips = stream != torch.argmax(full, -1)
+    unexplained = int((flips & (margin >= 2 * d_max)).sum())
+    tol, mtol = gates["decode"]
+    ok = d_max <= tol and d_mean <= mtol and unexplained == 0 and bool(
+        torch.isfinite(dec).all())
+    log(f"[{tag}] decode vs teacher-forced forward"
+        f"{f' at capacity_factor {m_nd.cfg.capacity_factor}' if cfg.n_experts else ''}"
+        f", {B} x {gen} positions (forward logit rms "
+        f"{float(full.pow(2).mean().sqrt()):.3f}): logit max |diff| "
+        f"{d_max:.4e} (tol {tol}), mean {d_mean:.4e} (tol {mtol}); stream "
+        f"tokens that differ from the forward argmax: {int(flips.sum())} of "
+        f"{flips.numel()} (all at a top-2 margin < 2 x max |diff|: "
+        f"{'yes' if unexplained == 0 else 'NO'}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] decode disagrees with forward")
+    for what, bad in wrong:
+        bd = (bad - full[:, :WRONG_STEPS]).abs()
+        _must_fail(tag, f"{what}, {WRONG_STEPS} steps",
+                   f"max |diff| {float(bd.max()):.4e}, mean "
+                   f"{float(bd.mean()):.4e}",
+                   float(bd.max()) <= tol and float(bd.mean()) <= mtol)
+    del full, dec, diff, cache, wrong, bd
+    # ---- packed projections: the kernel against its plain version ----
+    if cfg.weight_bits:
+        per_call = _family_projections(cfg)
+        reset_counts()
+        got = model.logits(params, model.forward(
+            params, {"tokens": prompts})[0])
+        n_fwd = _counts()["quant_matmul"]
+        want = model.logits(params, model.forward(
+            params, {"tokens": prompts}, plain=True)[0])
+        d = (got - want).abs()
+        tol, mtol = gates["packed"]
+        ok = (float(d.max()) <= tol and float(d.mean()) <= mtol
+              and (DEV != "cuda" or n_fwd == per_call))
+        log(f"[{tag}] packed projections through quant_matmul: forward "
+            f"logits vs plain=True, {B} x {S} positions: max |diff| "
+            f"{float(d.max()):.4e} (tol {tol}), mean {float(d.mean()):.4e} "
+            f"(tol {mtol}); {n_fwd} launches a forward call = {per_call} "
+            f"projections {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[{tag}] packed projections disagree")
+        del d, want
+        bad_params = _tail_dropped(params)
+        wrong = model.logits(bad_params, model.forward(
+            bad_params, {"tokens": prompts}, plain=True)[0])
+        d = (got - wrong).abs()
+        _must_fail(tag, "the last packed word of K read as codes 0",
+                   f"max |diff| {float(d.max()):.4e}, mean "
+                   f"{float(d.mean()):.4e}",
+                   float(d.max()) <= tol and float(d.mean()) <= mtol)
+        del got, wrong, d, bad_params
+    # ---- chunked scans against their per-step oracles ----
+    if cfg.family in ("rwkv", "hybrid"):
+        gx = torch.Generator(device=DEV)
+        gx.manual_seed(seed + 5)
+        x = 0.5 * torch.randn(2, SCAN_T, cfg.d_model, generator=gx,
+                              device=DEV)
+        if cfg.family == "rwkv":
+            p0 = params["layers"][0]["time_mix"]
+            _scan_gate(torch, f"{tag} rwkv6_time_mix",
+                       lambda u: ssm.rwkv6_time_mix(p0, u, cfg),
+                       lambda u: ssm.rwkv6_scan_ref(p0, u, cfg), x,
+                       gates["scan"])
+        else:
+            p0 = params["mamba_layers"][0]["mamba"]
+            _scan_gate(torch, f"{tag} mamba2_forward",
+                       lambda u: ssm.mamba2_forward(p0, u, cfg),
+                       lambda u: ssm.mamba2_scan_ref(p0, u, cfg), x,
+                       gates["scan"])
+
+
+def _family_run(torch, tag: str, cfg, *, seed: int) -> dict:
+    """One family at full width: the main path in its own dtype
+    (``_family_main``), then the equivalence gates in fp32
+    (``_family_gates``), the card freed after each.  Returns the main
+    path's launches."""
+    from repro_torch.data.synthetic import make_calibration
+
+    t_run = time.perf_counter()
+    prompts = torch.as_tensor(make_calibration(
+        cfg.vocab, n_segments=FAMILY_PROMPTS, seg_len=FAMILY_PROMPT_LEN,
+        seed=seed + 3), device=DEV).long()
+    peaks = []
+
+    def peak():  # GB allocated at most since the last call; frees the card
+        if DEV == "cuda":
+            peaks.append(f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    peak()
+    with torch.no_grad():
+        launches = _family_main(torch, tag, cfg, prompts, seed=seed)
+        peak()
+        _family_gates(torch, tag, cfg, prompts, seed=seed)
+        peak()
+    log(f"[{tag}] run passed in {time.perf_counter() - t_run:.1f}s (peak "
+        f"{' and '.join(peaks[1:]) or 'not measured'} GB allocated on the "
+        f"card, {cfg.dtype} and fp32)")
+    return launches
+
+
+def phase_families(torch, *, seed: int, cfgs=None) -> dict:
+    """Phase 13: the moe, rwkv and hybrid families at full width through
+    ``build_model`` and ``greedy_generate`` (``FAMILY_RUNS``), each with its
+    gates.  ``cfgs`` ({tag: cfg}) replaces the models (a rehearsal on the
+    CPU at the smoke configs).  Returns each run's launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    paths = {}
+    for tag, arch, layers, bits in FAMILY_RUNS:
+        if cfgs is not None:
+            cfg = cfgs[tag]
+        else:
+            cfg = dataclasses.replace(get_config(arch), weight_bits=bits)
+            if layers is not None and layers != cfg.n_layers:
+                log(f"[{tag}] DEPTH CUT: {layers} of {cfg.n_layers} layers "
+                    f"(full width kept)")
+                cfg = dataclasses.replace(cfg, n_layers=layers)
+        paths[f"families {tag}"] = _family_run(torch, tag, cfg, seed=seed)
+    log(f"[families] phase 13 passed in "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    return paths
+
+
 REPLACES = {
     "quant_matmul": "src/repro/kernels/quant_matmul/kernel.py:60",
     "paged_decode": "src/repro/kernels/paged_attention/kernel.py:164",
@@ -3851,6 +4385,19 @@ REPLACES = {
 # kernel -> its source family in kernels/_build.SOURCES
 FAMILY = {"paged_decode": "paged_attention",
           "paged_prefill": "paged_attention"}
+
+
+def _release(torch, after: str) -> None:
+    """Frees the card between phases: collects cyclic garbage (engines,
+    tracers and threads' closures form cycles) and empties the caching
+    allocator, and logs what the finished phases still hold."""
+    import gc
+
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[memory] after {after}: {held / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB after gc.collect")
 
 
 def main(argv=None) -> int:
@@ -3878,36 +4425,40 @@ def main(argv=None) -> int:
     dev = phase_device(torch)
     phase_build()
     reps = phase_kernels(torch)
+    _release(torch, "phase 3")
     served = phase_serve(torch, seed=args.seed, layers=args.layers)
-    torch.cuda.empty_cache()
+    _release(torch, "phase 4")
     quant = phase_quantize(torch, seed=args.seed, layers=args.quant_layers,
                            segments=args.calib_segments,
                            seg_len=args.calib_len, chunk=args.calib_chunk)
-    torch.cuda.empty_cache()
+    _release(torch, "phase 6")
     dense = phase_dense_family(torch, seed=args.seed)
-    torch.cuda.empty_cache()
+    _release(torch, "phase 7")
     lifecycle = phase_lifecycle(torch, seed=args.seed, layers=args.layers)
-    torch.cuda.empty_cache()
+    _release(torch, "phase 8")
     speculative = phase_speculative(torch, seed=args.seed,
                                     layers=args.layers)
-    torch.cuda.empty_cache()
+    _release(torch, "phase 9")
     observe = phase_observe(torch, seed=args.seed, layers=args.layers,
                             check_max=served["check"]["max_diff"],
                             artifact=quant["artifact"])
-    torch.cuda.empty_cache()
+    _release(torch, "phase 10")
     tp = phase_tp(torch, seed=args.seed, layers=args.layers, served=served,
                   check_max=served["check"]["max_diff"])
-    torch.cuda.empty_cache()
+    _release(torch, "phase 11")
     frontdoor = phase_frontdoor(torch, seed=args.seed, layers=args.layers,
                                 served=served,
                                 check_max=served["check"]["max_diff"])
+    _release(torch, "phase 12")
+    families = phase_families(torch, seed=args.seed)
     # launches: each kernel on the path that runs it — the synthetic serve
     # for the serving kernels, the quantize run for ldlq and kron_mul, the
     # hadamard linear for hadamard; phases 7's to 10's paths beside them
     paths = {"serve": served["launches"], "quantize": quant["launches"],
              "hadamard_linear": quant["hadamard_launches"],
              "serve_quantized": quant["serve_launches"], **dense,
-             **lifecycle, **speculative, **observe, **tp, **frontdoor}
+             **lifecycle, **speculative, **observe, **tp, **frontdoor,
+             **families}
     main_path = {"ldlq": "quantize", "kron_mul": "quantize",
                  "hadamard": "hadamard_linear"}
     kernels = []
@@ -3925,7 +4476,7 @@ def main(argv=None) -> int:
             **{k: rep[k] for k in ("codes_differ_frac", "fused_ms",
                                    "plain_fused_ms", "library_fp32_ms",
                                    "terms", "decode", "prefill",
-                                   "dense_widths", "tp_rank")
+                                   "dense_widths", "tp_rank", "families")
                if k in rep},
             "launches_by_path": {p: c[name] for p, c in paths.items()},
         })

@@ -1,22 +1,31 @@
-"""Architecture registry: ``--arch <id>`` resolution (dense family only)."""
+"""Architecture registry: ``--arch <id>`` resolution (the dense, moe,
+rwkv and hybrid families; whisper-small and llama-3.2-vision-90b come with
+the encdec and vlm families)."""
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import ArchConfig
 
-__all__ = ["ArchConfig", "ARCHS", "get_config", "get_smoke_config"]
+__all__ = ["ArchConfig", "ARCHS", "ARCH_IDS", "get_config",
+           "get_smoke_config"]
 
-# arch id -> module name (the JAX package's dense family)
+# arch id -> module name, in the JAX package's order
 _MODULES = {
-    "qwen3-14b": "qwen3_14b",
-    "llama2-70b": "llama2_70b",
     "mistral-large-123b": "mistral_large_123b",
+    "qwen3-14b": "qwen3_14b",
     "qwen2-72b": "qwen2_72b",
     "starcoder2-15b": "starcoder2_15b",
+    "rwkv6-1.6b": "rwkv6_1p6b",
+    "arctic-480b": "arctic_480b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "zamba2-7b": "zamba2_7b",
+    # paper-fidelity anchor (not one of the assigned architectures)
+    "llama2-70b": "llama2_70b",
 }
 
 ARCHS = tuple(_MODULES)
+ARCH_IDS = [k for k in _MODULES if k != "llama2-70b"]
 
 
 def _module(arch: str):

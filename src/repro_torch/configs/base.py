@@ -1,10 +1,10 @@
-"""Architecture config schema (dense decoder subset).
+"""Architecture config schema (the token-only decoder families).
 
-The port serves the dense family only, so :class:`ArchConfig` keeps the
-fields that family reads, the biases of qwen2-72b and starcoder2-15b
-included.  ``from_dict`` accepts a full config dict as the JAX package
-writes it into artifact manifests and drops the fields of the other
-families.
+One :class:`ArchConfig` covers the dense, moe, rwkv and hybrid families
+through family-specific optional fields, with the JAX package's names and
+defaults.  ``from_dict`` accepts a full config dict as the JAX package
+writes it into artifact manifests and drops the fields this schema does
+not model (the encdec and vlm fields, training knobs).
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ __all__ = ["ArchConfig"]
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str
+    family: Literal["dense", "moe", "rwkv", "hybrid", "encdec", "vlm"]
     n_layers: int
     d_model: int
     n_heads: int
@@ -36,10 +36,29 @@ class ArchConfig:
     mlp: Literal["swiglu", "gelu"] = "swiglu"
     mlp_bias: bool = False
 
+    # moe options
+    n_experts: int = 0
+    top_k: int = 0
+    dense_residual: bool = False  # arctic: dense MLP in parallel with MoE
+    capacity_factor: float = 1.25
+
+    # ssm / hybrid options
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    shared_attn_period: int = 0  # hybrid: shared attn block every k layers
+
+    # rwkv options
+    rwkv_head_size: int = 64
+    rwkv_decay_lora: int = 64
+    rwkv_mix_lora: int = 32
+
     # misc
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    weight_bits: int = 0  # 0 = dense weights; 2/3/4 = packed projections
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -53,15 +72,28 @@ class ArchConfig:
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
     @classmethod
     def from_dict(cls, d: dict) -> "ArchConfig":
         """Build from a manifest's ``arch_config``; fields this schema does
-        not model (other families, training knobs) are dropped.  A field
-        that would change what the dense path computes — bf16 attention
-        probabilities, the JAX package's in-model packed weights
-        (``weight_bits``) — raises at any value but its default."""
+        not model (the encdec and vlm fields, training knobs) are dropped.
+        A field that would change what the port computes raises at any
+        value but its default instead: bf16 attention probabilities, and
+        in-model packed weights (``weight_bits``) on the dense family,
+        whose serving path (artifacts, adapter, engine) quantizes with
+        QuIP's own linears and reads fp weights."""
         names = {f.name for f in dataclasses.fields(cls)}
-        for flag in ("attn_bf16_probs", "weight_bits"):
+        refused = ["attn_bf16_probs"]
+        if d.get("family") == "dense":
+            refused.append("weight_bits")
+        for flag in refused:
             if d.get(flag):
                 raise ValueError(f"{flag}={d[flag]!r} is not supported by "
                                  f"the port")

@@ -15,8 +15,8 @@ Quantized state (:func:`quantized_model_from_numpy`) is a tree::
 with ``LINEAR = {"packed", "s", "D" (optional), "bits", "m", "n", "maxq",
 "U": TRANSFORM, "V": TRANSFORM}`` and ``TRANSFORM = {"kind", "n", "A",
 "B", "signs", "perm"}`` (absent factors as None).  fp params
-(:func:`fp_params_from_numpy`) are the JAX package's ``model.init`` tree,
-layers stacked along axis 0.
+(:func:`fp_params_from_numpy`) are the JAX package's ``model.init`` tree
+of any ported family, layers stacked along axis 0.
 """
 from __future__ import annotations
 
@@ -101,15 +101,25 @@ def quantized_model_from_numpy(arch_config: dict, tree: dict,
                           blocks=blocks)
 
 
+# the JAX package's layer stacks (leading axis = layer), unstacked here
+_STACKED = ("layers", "mamba_layers")
+
+
 def fp_params_from_numpy(params: dict, device=DEFAULT_DEVICE) -> dict:
-    """The JAX package's stacked ``model.init`` tree -> the port's fp tree
-    (``layers`` as a list of per-layer dicts)."""
+    """The JAX package's ``model.init`` tree of any ported family -> the
+    port's tree: ``layers`` (dense, moe, rwkv) and ``mamba_layers``
+    (hybrid) become lists of per-layer dicts, everything else keeps its
+    shape.  A packed ``weight_bits`` leaf ``{"packed", "scale"}`` keeps its
+    int32 words and fp32 scale."""
     device = resolve_device(device)
-    stacked = params["layers"]
-    n = len(next(iter(_leaves(stacked))))
-    layers = [_index(stacked, i, device) for i in range(n)]
-    return {"embed": _tree(params["embed"], device), "layers": layers,
-            "final_norm": _tree(params["final_norm"], device)}
+    out = {}
+    for key, val in params.items():
+        if key in _STACKED:
+            n = len(next(iter(_leaves(val))))
+            out[key] = [_index(val, i, device) for i in range(n)]
+        else:
+            out[key] = _tree(val, device)
+    return out
 
 
 def _leaves(x):

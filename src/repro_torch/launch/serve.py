@@ -48,11 +48,18 @@ journaled mid-stream failover with ``--probe-interval-s``,
 ``--max-restarts``, ``--restart-backoff-s``, and ``--replica-fault
 IDX:SPEC`` arming a fault plan on one replica's first incarnation, e.g.
 ``'1:replica_kill@tick=40'``).  ``--check``
-verifies the engine's greedy tokens against the full-prefix recompute
-oracle (with ``--kv-int8``: a gather-dense engine over the same int8
-pages, on one device also under ``--mesh``) and exits nonzero on
-divergence; every run exits nonzero if a page
-or slot is still held after the drain.
+verifies the engine's greedy tokens against an oracle — the full-prefix
+recompute for quantized weights, ``Model.prefill``/``decode_step`` over a
+dense batch cache (``greedy_generate``) for fp weights, with
+``--kv-int8`` a gather-dense engine over the same int8 pages, on one
+device also under ``--mesh`` — and exits nonzero on divergence; every run
+exits nonzero if a page or slot is still held after the drain.
+
+The engine serves the dense family.  The moe, rwkv and hybrid archs
+(``--arch arctic-480b``, ``llama4-scout-17b-a16e``, ``rwkv6-1.6b``,
+``zamba2-7b``) serve one fixed batch through ``greedy_generate`` instead
+(the batch fallback), and refuse ``--quantize``, ``--check`` and
+``--mesh`` as the JAX package's CLI does.
 
 Runs on the GPU (``--device cuda``, the default) through the hand-written
 kernels, or on the CPU (``--device cpu``) through their plain versions.
@@ -71,8 +78,8 @@ from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.data.synthetic import make_calibration
 from repro_torch.device import resolve_device
 
-__all__ = ["resolve_device", "quantized_generate", "quantize_in_process",
-           "build_engine", "main"]
+__all__ = ["resolve_device", "greedy_generate", "quantized_generate",
+           "quantize_in_process", "build_engine", "main"]
 
 # flags of the fleet parent (router and supervisor) that must not reach a
 # replica process; --http-port/--http-host go too, since the factory
@@ -114,6 +121,22 @@ def quantize_in_process(params: dict, cfg, *, bits: int, seed: int,
     qcfg = QuipConfig(bits=bits, method="ldlq", use_kernel=False)
     return quantize_dense_model(params, cfg, qcfg, calib, seed=seed,
                                 verbose=verbose)
+
+
+@torch.no_grad()
+def greedy_generate(model, params, prompt: torch.Tensor, gen: int,
+                    kv_dtype=None) -> torch.Tensor:
+    """Reference fp path: ``Model.prefill`` + ``decode_step`` over the
+    dense batch cache (the oracle of an fp ``--check``, and how the
+    non-dense families serve)."""
+    B, S = prompt.shape
+    logits, cache = model.prefill(params, {"tokens": prompt},
+                                  kv_dtype=kv_dtype, max_len=S + gen)
+    toks = [torch.argmax(logits, -1)[:, None]]
+    for i in range(gen - 1):
+        logits, cache = model.decode_step(params, toks[-1], cache, S + i)
+        toks.append(torch.argmax(logits, -1)[:, None])
+    return torch.cat(toks, dim=1)
 
 
 @torch.no_grad()
@@ -168,6 +191,23 @@ def build_engine(adapter, *, max_seq_len: int, args, record_logits=False,
         shadow_seed=getattr(args, "seed", 0),
     )
     return Engine(adapter, ecfg, faults=faults if robust else None)
+
+
+def _serve_batch_fallback(model, params, prompts, args) -> int:
+    """Non-dense families: the engine adapter is dense-only; serve one
+    fixed batch through the family's own ``Model.prefill`` /
+    ``decode_step`` path."""
+    device = params["embed"]["tok"].device
+    t0 = time.time()
+    out = greedy_generate(model, params,
+                          torch.as_tensor(prompts, device=device),
+                          args.gen).cpu()
+    dt = time.time() - t0
+    total = out.shape[0] * out.shape[1]
+    print(f"[serve] fp {model.cfg.name} (batch fallback, family="
+          f"{model.cfg.family}): {total} tokens in {dt:.2f}s "
+          f"({total/dt:.1f} tok/s)")
+    return 0
 
 
 def _audit_quality(meta: dict, args) -> None:
@@ -466,6 +506,12 @@ def main(argv=None):
     if args.fleet is not None:
         return _serve_fleet(args, argv)
     device = resolve_device(args.device)
+    if args.mesh and not args.load_quantized and (
+            get_smoke_config(args.arch) if args.smoke
+            else get_config(args.arch)).family != "dense":
+        raise SystemExit(
+            "--mesh drives the dense-family engine adapter; other "
+            "families serve through the batch fallback (single device)")
     mesh = None
     if args.mesh:
         from repro_torch.serve.distributed import make_serving_mesh
@@ -572,7 +618,7 @@ def _serve(args, device, faults, tenants, mesh) -> int:
     from repro_torch.serve.faults import AdmissionRejected
     from repro_torch.serve.scheduler import RequestState, SamplingParams
 
-    adapter = qm = None
+    adapter = qm = fp_ref = None
     if args.load_quantized:
         try:
             if mesh is not None:
@@ -598,17 +644,30 @@ def _serve(args, device, faults, tenants, mesh) -> int:
         if args.quality_baseline:
             _audit_quality(meta, args)
     else:
-        from repro_torch.models.transformer import init_decoder
+        from repro_torch.models.lm import build_model
 
         cfg = get_smoke_config(args.arch) if args.smoke else get_config(
             args.arch)
-        if cfg.family != "dense" and mesh is not None:
-            raise SystemExit(
-                "--mesh drives the dense-family engine adapter; other "
-                "families serve through the batch fallback (single device)")
+        model = build_model(cfg)
         g = torch.Generator(device=device)
         g.manual_seed(args.seed)
-        params = init_decoder(cfg, g, device=device)
+        params = model.init(g, device=device)
+        if cfg.family != "dense":
+            if args.quantize:
+                raise SystemExit(
+                    "--quantize drives the dense family; per-layer "
+                    "quantization for other families goes through "
+                    "repro.core.quantize_layer directly")
+            if args.check:
+                raise SystemExit(
+                    "--check verifies the engine against the reference "
+                    "decode path, but non-dense families serve THROUGH "
+                    "that reference path (engine adapter is dense-only; "
+                    "ROADMAP open item) — nothing to check")
+            prompts = make_calibration(
+                cfg.vocab, n_segments=args.requests,
+                seg_len=args.prompt_len, seed=args.seed + 3)
+            return _serve_batch_fallback(model, params, prompts, args)
         if args.quantize:
             # full fp32 products: TF32 would move the codes
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -622,6 +681,7 @@ def _serve(args, device, faults, tenants, mesh) -> int:
         else:
             qm = fp_model(params, cfg)
             label = "fp"
+            fp_ref = (model, params)
             if mesh is not None:
                 adapter = DistributedCachedDecoder.from_model(cfg, params,
                                                               mesh=mesh)
@@ -767,11 +827,16 @@ def _serve(args, device, faults, tenants, mesh) -> int:
             ref = np.stack([np.asarray(r.out_tokens, np.int32)
                             for r in oref])
             ref_label = "gather-dense int8 engine"
-        else:
+        elif fp_ref is None:
             ref = quantized_generate(
                 qm, torch.as_tensor(prompts, device=device), args.gen
             ).cpu().numpy()
             ref_label = "quantized recompute"
+        else:
+            ref = greedy_generate(
+                *fp_ref, torch.as_tensor(prompts, device=device),
+                args.gen).cpu().numpy()
+            ref_label = "fp prefill/decode"
         # FINISHED rows must equal the oracle at full length; CANCELLED or
         # FAILED rows must be a prefix of it
         total_cmp = matched = 0

@@ -1,0 +1,130 @@
+"""Unified Model facade: one API over the port's model families.
+
+    model = build_model(cfg)
+    params = model.init(generator, device="cuda")   # seeded, on the card
+    aparams = model.abstract_params()               # meta tensors (shapes)
+    hidden, aux = model.forward(params, batch)
+    logits, cache = model.prefill(params, batch, max_len=S + gen)
+    logits, cache = model.decode_step(params, tokens, cache, pos)
+
+``batch`` is a dict, ``{"tokens"}`` (and optional ``"targets"`` for
+``loss``) for the token-only families: dense, moe, rwkv and hybrid.  The
+encdec and vlm families (whisper-small, llama-3.2-vision-90b) are not
+ported yet.  ``forward(plain=True)`` runs packed ``weight_bits``
+projections through quant_matmul's plain version instead of its CUDA
+kernel (the oracle's path).  Forward only: training waits for the
+training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DEFAULT_DEVICE
+from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
+from repro_torch.models import transformer as T
+
+__all__ = ["Model", "build_model"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ArchConfig
+    _init: Callable
+    _axes: Callable
+    _forward: Callable
+    _prefill: Callable
+    _decode: Callable
+    _init_cache: Callable
+    _cache_axes: Callable
+
+    # ---- params ----
+    def init(self, generator: torch.Generator, *, device=DEFAULT_DEVICE):
+        return self._init(self.cfg, generator, device=device)
+
+    def abstract_params(self, generator: Optional[torch.Generator] = None):
+        """The param tree on the ``meta`` device: shapes and dtypes, no
+        data (PyTorch's counterpart of ``jax.eval_shape``)."""
+        return self._init(self.cfg, generator or torch.Generator(),
+                          device="meta")
+
+    def param_axes(self):
+        return self._axes(self.cfg)
+
+    # ---- compute ----
+    def forward(self, params, batch: dict, *, plain: bool = False):
+        """-> (hidden (B, S, D), aux_loss)."""
+        return self._forward(params, batch["tokens"], self.cfg, plain=plain)
+
+    def logits(self, params, hidden):
+        return L.lm_logits(params["embed"], hidden)
+
+    def loss(self, params, batch: dict, aux_coef: float = 0.01):
+        """Mean next-token cross entropy (+ MoE aux), as the JAX package
+        computes it (the last position has no target)."""
+        hidden, aux = self.forward(params, batch)
+        targets = batch.get("targets")
+        if targets is None:
+            targets = torch.roll(batch["tokens"], -1, dims=-1)
+        logits = self.logits(params, hidden).to(torch.float32)
+        logp = F.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+        mask = torch.ones_like(nll)
+        mask[:, -1] = 0.0
+        ce = torch.sum(nll * mask) / torch.sum(mask)
+        return ce + aux_coef * aux, {"ce": ce, "aux": aux}
+
+    def prefill(self, params, batch: dict, kv_dtype=None, max_len=None):
+        return self._prefill(params, batch["tokens"], self.cfg, kv_dtype,
+                             max_len)
+
+    def decode_step(self, params, tokens, cache, pos: int):
+        return self._decode(params, tokens, self.cfg, cache, pos)
+
+    def init_cache(self, batch: int, max_len: int, kv_dtype=None, *,
+                   device=DEFAULT_DEVICE):
+        return self._init_cache(self.cfg, batch, max_len, kv_dtype,
+                                device=device)
+
+    def cache_axes(self, int8: bool = False):
+        return self._cache_axes(self.cfg, int8)
+
+
+_DECODER = dict(
+    init=T.init_decoder, axes=T.decoder_axes, forward=T.decoder_forward,
+    prefill=T.decoder_prefill, decode=T.decoder_decode_step,
+    init_cache=T.init_decoder_cache, cache_axes=T.decoder_cache_axes,
+)
+
+_FAMILIES: dict[str, dict[str, Any]] = {
+    "dense": _DECODER,
+    "moe": _DECODER,
+    "rwkv": dict(
+        init=R.init_rwkv_lm, axes=R.rwkv_lm_axes, forward=R.rwkv_forward,
+        prefill=R.rwkv_prefill, decode=R.rwkv_decode_step,
+        init_cache=R.init_rwkv_cache, cache_axes=R.rwkv_cache_axes,
+    ),
+    "hybrid": dict(
+        init=R.init_hybrid, axes=R.hybrid_axes, forward=R.hybrid_forward,
+        prefill=R.hybrid_prefill, decode=R.hybrid_decode_step,
+        init_cache=R.init_hybrid_cache, cache_axes=R.hybrid_cache_axes,
+    ),
+}
+
+
+def build_model(cfg: ArchConfig) -> Model:
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
+            f"encdec and vlm families (models/multimodal.py, cross "
+            f"attention) are the second half of ROADMAP item 9")
+    fam = _FAMILIES[cfg.family]
+    return Model(cfg=cfg, _init=fam["init"], _axes=fam["axes"],
+                 _forward=fam["forward"], _prefill=fam["prefill"],
+                 _decode=fam["decode"], _init_cache=fam["init_cache"],
+                 _cache_axes=fam["cache_axes"])

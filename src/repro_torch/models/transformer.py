@@ -1,89 +1,155 @@
-"""Seeded fp parameters of the dense decoder (the JAX package's layout).
+"""Decoder-only transformer stack (the dense and moe families).
 
 The tree is ``{"embed": {"tok", "head"}, "layers": [per-layer dict],
 "final_norm": {"scale"}}`` with (in, out) weights — the layout of the JAX
-package's ``init_decoder`` after ``unstack_layers``.  The scales are the
+package's ``init_decoder`` after ``unstack_layers``: the port keeps layers
+as a list and applies them in a Python loop where the JAX package stacks
+them and scans.  A moe layer holds ``"moe"`` (router, experts, arctic's
+dense residual) where a dense layer holds ``"mlp"``.  The scales are the
 JAX package's, and so are the biases (``bq bk bv`` with ``qkv_bias``,
 ``bi bo`` with ``mlp_bias``): zeros.  The values come from a
 ``torch.Generator``, so they differ from ``jax.random``'s (tests convert
 the JAX package's params instead).
+
+Serving without the engine goes through a dense batch cache, one
+``{"k", "v"}`` of (B, max_len, KV, hd) per layer (``"k_scale"`` and
+``"v_scale"`` too when int8): :func:`decoder_prefill` builds it,
+:func:`decoder_decode_step` extends it by one token.
+``decoder_forward(plain=True)`` runs packed projections through
+quant_matmul's plain version (the oracle's path).
 """
 from __future__ import annotations
-
-import math
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.models import layers as L
 
-__all__ = ["init_decoder", "decoder_axes"]
+__all__ = [
+    "init_decoder",
+    "decoder_axes",
+    "decoder_forward",
+    "decoder_prefill",
+    "decoder_decode_step",
+    "init_decoder_cache",
+    "decoder_cache_axes",
+]
 
 
 def init_decoder(cfg: ArchConfig, generator: torch.Generator, *,
                  device=DEFAULT_DEVICE) -> dict:
     device = resolve_device(device)
-    dt = getattr(torch, cfg.dtype)
-    d, f = cfg.d_model, cfg.d_ff
-    resid = 1.0 / math.sqrt(2 * max(cfg.n_layers, 1))
-
-    def w(shape, std=None):
-        std = shape[0] ** -0.5 if std is None else std
-        return (torch.randn(shape, generator=generator, device=device)
-                * std).to(dt)
-
-    def ones(n):
-        return {"scale": torch.ones(n, dtype=dt, device=device)}
-
-    def zeros(n):
-        return torch.zeros(n, dtype=dt, device=device)
-
-    embed = {"tok": w((cfg.vocab, d), 0.02)}
-    if not cfg.tie_embeddings:
-        embed["head"] = w((d, cfg.vocab), d**-0.5)
+    d = cfg.d_model
+    embed = L.init_embedding(generator, cfg, device=device)
     layers = []
     for _ in range(cfg.n_layers):
-        attn = {
-            "wq": w((d, cfg.q_dim)),
-            "wk": w((d, cfg.kv_dim)),
-            "wv": w((d, cfg.kv_dim)),
-            "wo": w((cfg.q_dim, d), cfg.q_dim**-0.5 * resid),
-        }
-        if cfg.qkv_bias:
-            attn.update(bq=zeros(cfg.q_dim), bk=zeros(cfg.kv_dim),
-                        bv=zeros(cfg.kv_dim))
-        if cfg.qk_norm:
-            attn["q_norm"] = ones(cfg.head_dim)["scale"]
-            attn["k_norm"] = ones(cfg.head_dim)["scale"]
-        mlp = {"wi": w((d, f)), "wo": w((f, d), f**-0.5 * resid)}
-        if cfg.mlp == "swiglu":
-            mlp["wg"] = w((d, f))
-        if cfg.mlp_bias:
-            mlp.update(bi=zeros(f), bo=zeros(d))
-        layers.append({"ln1": ones(d), "attn": attn, "ln2": ones(d),
-                       "mlp": mlp})
-    return {"embed": embed, "layers": layers, "final_norm": ones(d)}
+        lp = {"ln1": L.init_norm(cfg, d, device=device),
+              "attn": L.init_attention(generator, cfg, device=device),
+              "ln2": L.init_norm(cfg, d, device=device)}
+        if cfg.n_experts:
+            lp["moe"] = L.init_moe(generator, cfg, device=device)
+        else:
+            lp["mlp"] = L.init_mlp(generator, cfg, device=device)
+        layers.append(lp)
+    return {"embed": embed, "layers": layers,
+            "final_norm": L.init_norm(cfg, d, device=device)}
 
 
 def decoder_axes(cfg: ArchConfig) -> dict:
     """Logical axes of the :func:`init_decoder` tree: ``{"embed", "layers",
     "final_norm"}``, with ``"layers"`` one per-layer dict that holds for
     every layer (the port keeps layers unstacked).  Weights are (in, out)."""
-    attn = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
-            "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
-    if cfg.qkv_bias:
-        attn.update(bq=("heads",), bk=("kv_heads",), bv=("kv_heads",))
-    if cfg.qk_norm:
-        attn.update(q_norm=("norm",), k_norm=("norm",))
-    mlp = {"wi": ("embed", "ff"), "wo": ("ff", "embed")}
-    if cfg.mlp == "swiglu":
-        mlp["wg"] = ("embed", "ff")
-    if cfg.mlp_bias:
-        mlp.update(bi=("ff",), bo=("norm",))
-    embed = {"tok": ("vocab", "embed")}
-    if not cfg.tie_embeddings:
-        embed["head"] = ("embed", "vocab")
-    norm = {"scale": ("norm",)}
-    return {"embed": embed,
-            "layers": {"ln1": norm, "attn": attn, "ln2": norm, "mlp": mlp},
-            "final_norm": norm}
+    layer = {"ln1": L.norm_axes(), "attn": L.attention_axes(cfg),
+             "ln2": L.norm_axes()}
+    if cfg.n_experts:
+        layer["moe"] = L.moe_axes(cfg)
+    else:
+        layer["mlp"] = L.mlp_axes(cfg)
+    return {"embed": L.embedding_axes(cfg), "layers": layer,
+            "final_norm": L.norm_axes()}
+
+
+def _ffn(lp: dict, h: torch.Tensor, cfg: ArchConfig, plain: bool = False):
+    if cfg.n_experts:
+        return L.moe_apply(lp["moe"], h, cfg, plain=plain)
+    return L.mlp_apply(lp["mlp"], h, cfg, plain=plain), None
+
+
+def _block_apply(lp, x, cfg: ArchConfig, positions, *, plain: bool = False):
+    """-> (x, aux or None, post-RoPE (k, v))."""
+    h = L.norm_apply(lp["ln1"], x, cfg)
+    a, kv = L.attention_full(lp["attn"], h, cfg, positions=positions,
+                             return_kv=True, plain=plain)
+    x = x + a
+    f, aux = _ffn(lp, L.norm_apply(lp["ln2"], x, cfg), cfg, plain)
+    return x + f, aux, kv
+
+
+def _positions(tokens: torch.Tensor) -> torch.Tensor:
+    return torch.arange(tokens.shape[1], dtype=torch.int32,
+                        device=tokens.device)
+
+
+def decoder_forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
+                    plain: bool = False):
+    """tokens (B, S) -> (hidden (B, S, D), aux_loss / n_layers)."""
+    x = L.embed(params["embed"], tokens)
+    positions = _positions(tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in params["layers"]:
+        x, a, _ = _block_apply(lp, x, cfg, positions, plain=plain)
+        if a is not None:
+            aux = aux + a
+    x = L.norm_apply(params["final_norm"], x, cfg)
+    return x, aux / cfg.n_layers
+
+
+def init_decoder_cache(cfg: ArchConfig, batch: int, max_len: int,
+                       kv_dtype=None, *, device=DEFAULT_DEVICE) -> list:
+    """One zero :func:`~repro_torch.models.layers.init_kv_cache` per
+    layer."""
+    device = resolve_device(device)
+    return [L.init_kv_cache(cfg, batch, max_len, kv_dtype, device=device)
+            for _ in range(cfg.n_layers)]
+
+
+def decoder_cache_axes(cfg: ArchConfig, int8: bool = False) -> dict:
+    """The axes of one layer's cache (every layer has the same)."""
+    return L.kv_cache_axes(int8)
+
+
+def decoder_prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+                    kv_dtype=None, max_len=None):
+    """Forward the full prompt, building the per-layer KV caches.
+
+    ``max_len`` reserves cache room beyond the prompt (the decode budget).
+    Returns (last-token logits (B, V), caches)."""
+    B, S = tokens.shape
+    x = L.embed(params["embed"], tokens)
+    positions = _positions(tokens)
+    caches = []
+    for lp in params["layers"]:
+        x, _, (k, v) = _block_apply(lp, x, cfg, positions)
+        cache0 = L.init_kv_cache(cfg, B, max_len or S, kv_dtype,
+                                 device=x.device)
+        caches.append(L.cache_store(cache0, k, v, 0))
+    x = L.norm_apply(params["final_norm"], x, cfg)
+    return L.lm_logits(params["embed"], x[:, -1:, :])[:, 0], caches
+
+
+def decoder_decode_step(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+                        cache: list, pos: int):
+    """One decode step: tokens (B, 1) at position ``pos``.  Returns
+    (logits (B, V), new caches)."""
+    x = L.embed(params["embed"], tokens)
+    new = []
+    for lp, cache_l in zip(params["layers"], cache):
+        h = L.norm_apply(lp["ln1"], x, cfg)
+        a, c = L.attention_decode(lp["attn"], h, cfg, cache_l, pos)
+        new.append(c)
+        x = x + a
+        f, _ = _ffn(lp, L.norm_apply(lp["ln2"], x, cfg), cfg)
+        x = x + f
+    x = L.norm_apply(params["final_norm"], x, cfg)
+    return L.lm_logits(params["embed"], x)[:, 0], new

@@ -142,6 +142,7 @@ def _default_device_calls(tmp_path):
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.hessian import HessianAccumulator
     from repro_torch.core.incoherence import random_orthogonal, seeded_transform
+    from repro_torch.models.lm import build_model
     from repro_torch.models.transformer import init_decoder
     from repro_torch.serve.artifacts import load_quantized
     from repro_torch.serve.kv_cache import PagedKVPool
@@ -162,6 +163,10 @@ def _default_device_calls(tmp_path):
         "seeded_transform": lambda: seeded_transform("kronecker", 8, 0),
         "HessianAccumulator.create": lambda: HessianAccumulator.create(8),
         "random_orthogonal": lambda: random_orthogonal(8, torch.Generator()),
+        "build_model.init": lambda: build_model(
+            get_smoke_config("arctic-480b")).init(torch.Generator()),
+        "build_model.init_cache": lambda: build_model(
+            get_smoke_config("zamba2-7b")).init_cache(1, 4),
     }
 
 
@@ -169,7 +174,7 @@ def _default_device_calls(tmp_path):
     "load_quantized", "PagedKVPool", "init_decoder",
     "synthetic_quantized_model", "transform_from_numpy",
     "fp_params_from_numpy", "seeded_transform", "HessianAccumulator.create",
-    "random_orthogonal",
+    "random_orthogonal", "build_model.init", "build_model.init_cache",
 ])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """With no device given, tensors go to the card: without one, the call

@@ -26,7 +26,9 @@ assert len(names) >= 25, names
 for name in ("repro_torch.serve.frontdoor.server",
              "repro_torch.serve.frontdoor.wire",
              "repro_torch.serve.fleet.router",
-             "repro_torch.serve.fleet.supervisor"):
+             "repro_torch.serve.fleet.supervisor",
+             "repro_torch.models.lm", "repro_torch.models.ssm",
+             "repro_torch.models.recurrent"):
     assert name in names, name
 """
 

@@ -278,3 +278,34 @@ def smoke_prompts(n: int, seg_len: int, seed: int) -> np.ndarray:
 
     return np.asarray(make_calibration(256, n_segments=n, seg_len=seg_len,
                                        seed=seed).tokens)
+
+
+def family_models(arch: str, seed: int = 0, **overrides):
+    """The JAX package's smoke ``arch`` (fields replaced by ``overrides``,
+    e.g. ``weight_bits=2``) and its params from ``PRNGKey(seed)``, beside
+    the port's model of the same config and those params converted to the
+    CPU: ``(ref_model, ref_params, port_model, port_params)``."""
+    import dataclasses
+
+    import jax
+
+    from repro.configs import get_smoke_config
+    from repro.models import build_model as ref_build
+    from repro_torch.configs import ArchConfig
+    from repro_torch.models.lm import build_model
+
+    cfg = dataclasses.replace(get_smoke_config(arch), **overrides)
+    ref = ref_build(cfg)
+    params = ref.init(jax.random.PRNGKey(seed))
+    port = build_model(ArchConfig.from_dict(dataclasses.asdict(cfg)))
+    return (ref, params, port, convert.fp_params_from_numpy(
+        jax.tree.map(np.asarray, params), device="cpu"))
+
+
+def stack_port_cache(cache):
+    """A port cache (per-layer lists) as the JAX package's stacked numpy
+    tree: lists of dicts become dicts of arrays stacked on axis 0."""
+    if isinstance(cache, list):
+        return {k: np.stack([c[k].numpy() for c in cache])
+                for k in cache[0]}
+    return {k: stack_port_cache(v) for k, v in cache.items()}
