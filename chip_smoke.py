@@ -176,7 +176,16 @@ Phases, each printing its own lines:
      logits, and the chunked scans to their per-step oracles on one
      full-width layer (``FAMILY_GATES``); each decode, packed and scan
      gate must also fail a wrong run (a cache fault, a dropped K word, a
-     scan restarted every 16 tokens).
+     scan restarted every 16 tokens).  The encdec and vlm families follow:
+     whisper-small whole in bf16 and with ``weight_bits`` 2, and
+     llama-3.2-vision-90b at 2 bits over all 100 layers and in bf16 at 10
+     (two superblocks), beside seeded stub embeddings on the card (8 x
+     1,500 encoder frames, 8 x 1,024 patches) and with every vlm gate set
+     to a seeded non-zero value (a fresh init's gates of 0 leave the cross
+     path inert).  ``greedy_generate`` takes no embeddings, so their main
+     path is ``Model.prefill`` + ``decode_step`` (``_greedy_batch``); their
+     prefill gate also fails a prefill fed another row's embeddings, their
+     decode gate a decode whose cross caches are rolled along the batch.
 
 Phase 3 also runs kron_mul at every dense width's factors (16 x 32 to
 168 x 176, and 192 x 256, the largest the kernel takes), quant_matmul at
@@ -282,6 +291,9 @@ QMM_FAMILY_SHAPES = {
     "llama4-scout-17b-a16e": ((5120, 5120), (5120, 1024)),
     "arctic-480b": ((7168, 7168), (7168, 1024), (7168, 4864), (4864, 7168)),
     "zamba2-7b": ((3584, 3584), (3584, 14336), (14336, 3584)),
+    "whisper-small": ((768, 768), (768, 3072), (3072, 768)),
+    "llama-3.2-vision-90b": ((8192, 8192), (8192, 1024), (8192, 28672),
+                             (28672, 8192)),
 }
 QMM_FAMILY_CASES = {(K, M, B, 2): arch
                     for arch, shapes in QMM_FAMILY_SHAPES.items()
@@ -3911,15 +3923,24 @@ def phase_frontdoor(torch, *, seed: int, layers: int, served: dict,
 # (tag, arch, layers or None for the whole model, weight_bits): the runs of
 # phase 13 at full width, one after another; depth is cut only where the
 # model does not fit the card (llama4-scout 48 x 0.4 GB of bf16 experts,
-# arctic 35 x 26.8 GB)
+# arctic 35 x 26.8 GB, llama-3.2-vision-90b 100 x 1.71 GB in bf16: whole
+# only at 2 bits, 0.21 GB a layer)
 FAMILY_RUNS = (
     ("llama4", "llama4-scout-17b-a16e", 4, 0),
     ("llama4 packed", "llama4-scout-17b-a16e", 4, 2),
     ("arctic", "arctic-480b", 1, 0),
     ("rwkv6", "rwkv6-1.6b", None, 0),
     ("zamba2 packed", "zamba2-7b", None, 2),
+    ("whisper", "whisper-small", None, 0),
+    ("whisper packed", "whisper-small", None, 2),
+    ("vlm packed", "llama-3.2-vision-90b", None, 2),
+    ("vlm", "llama-3.2-vision-90b", 10, 0),
 )
 FAMILY_PROMPTS, FAMILY_PROMPT_LEN, FAMILY_GEN = 8, 128, 32
+# the stub frontends' embeddings beside the prompts, by family: whisper's
+# 1,500 encoder positions of a 30-s window; the vlm's n_patches
+FAMILY_EMBEDDED = {"encdec": "frames", "vlm": "patches"}
+FAMILY_FRAMES = 1500
 # the chunked scans against their per-step oracles: one full-width layer,
 # T tokens
 SCAN_T = 64
@@ -3932,26 +3953,37 @@ WRONG_STEPS = 4
 # other check passing; PERF.md §6).  In bf16 the same runs read up to
 # 250x more (zamba2's 81 layers) and MoE routing flips on near ties, so
 # bf16 runs only the timed main path, held to its own teacher-forced
-# argmax.  Each decode, packed and scan gate must also fail a wrong run
-# (``_family_gates``); the wrong runs read 6.3-7.1 max |diff| against
-# logits of rms 1.0, and 0.87-0.95 of a scan oracle's largest value
+# argmax.  Each prefill (encdec, vlm), decode, packed and scan gate must
+# also fail a wrong run (``_family_gates``); the wrong runs read 6.3-7.1
+# max |diff| against logits of rms 1.0 (the encdec and vlm runs'
+# 0.22-8.1), and 0.87-0.95 of a scan oracle's largest value
 FAMILY_GATES = {
     # prefill logits vs forward logits at S - 1, max |diff| (the same
     # tokens and capacity; the forward's lm head is a larger GEMM); read
-    # 5.2e-6, 5.5e-6, 5.8e-6, 6.0e-6 and 3.8e-6
+    # 5.2e-6, 5.5e-6, 5.8e-6, 6.0e-6 and 3.8e-6; whisper 3.1e-6 and
+    # 3.6e-6, the vlm 6.4e-6 (packed) and 8.2e-6
     "prefill": {"llama4": 1.1e-5, "llama4 packed": 1.1e-5, "arctic": 1.2e-5,
-                "rwkv6": 1.2e-5, "zamba2 packed": 8e-6},
+                "rwkv6": 1.2e-5, "zamba2 packed": 8e-6, "whisper": 6.2e-6,
+                "whisper packed": 7.2e-6, "vlm packed": 1.3e-5,
+                "vlm": 1.6e-5},
     # teacher-forced decode logits vs forward logits, max and mean |diff|;
     # read 3.1e-5 / 4.4e-6, 1.17e-3 / 9.5e-5, 2.7e-5 / 3.0e-6, 1.3e-5 /
-    # 9.7e-7 and 3.08e-3 / 2.8e-4
+    # 9.7e-7 and 3.08e-3 / 2.8e-4; whisper 8.3e-6 / 9.0e-7 and 4.5e-5 /
+    # 6.5e-6, the vlm 2.28e-2 / 2.0e-3 (100 packed layers: quant_matmul's
+    # fp32-in-bf16-terms error, as in "packed") and 4.2e-5 / 4.6e-6
     "decode": {"llama4": (6.3e-5, 8.8e-6), "llama4 packed": (2.4e-3, 1.9e-4),
                "arctic": (5.4e-5, 6e-6), "rwkv6": (2.6e-5, 2e-6),
-               "zamba2 packed": (6.2e-3, 5.6e-4)},
+               "zamba2 packed": (6.2e-3, 5.6e-4), "whisper": (1.7e-5, 1.8e-6),
+               "whisper packed": (9e-5, 1.3e-5),
+               "vlm packed": (4.6e-2, 4.1e-3), "vlm": (8.5e-5, 9.2e-6)},
     # packed projections: quant_matmul's kernel vs its plain version,
     # forward logits max and mean |diff|; read 1.35e-3 / 1.19e-4 and
-    # 1.05e-3 / 1.09e-4
+    # 1.05e-3 / 1.09e-4; whisper 9.8e-5 / 1.27e-5, the vlm over 100
+    # layers 3.68e-2 / 3.8e-3
     "packed": {"llama4 packed": (2.7e-3, 2.4e-4),
-               "zamba2 packed": (2.1e-3, 2.2e-4)},
+               "zamba2 packed": (2.1e-3, 2.2e-4),
+               "whisper packed": (2e-4, 2.5e-5),
+               "vlm packed": (7.4e-2, 7.6e-3)},
     # chunked scan vs per-step oracle, max |diff| relative to the oracle's
     # largest |value|; read 2.26e-6 and 1.38e-6
     "scan": {"rwkv6": 4.5e-6, "zamba2 packed": 2.8e-6},
@@ -3969,17 +4001,96 @@ def _tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def _family_projections(cfg) -> int:
-    """quant_matmul launches of one forward call (prefill or one decode
-    step) of a packed model: every attention and dense-MLP projection of
-    every layer (or every shared-block invocation)."""
+def _family_projections(cfg, call: str = "prefill") -> int:
+    """quant_matmul launches of one call (``"prefill"``, or ``"decode"``:
+    one step) of a packed model: every attention and dense-MLP projection
+    of every layer (or every shared-block invocation).  A cross attention
+    projects its K/V once a prefill, from the encoder states or the
+    patches, and only q and the output at decode; a forward call counts
+    as a prefill."""
     attn = 4
     mlp = 3 if cfg.mlp == "swiglu" else 2
+    cross = attn if call == "prefill" else 2
     if cfg.family == "hybrid":
         return (attn + mlp) * (cfg.n_layers // cfg.shared_attn_period)
     if cfg.family == "moe":
         return (attn + (mlp if cfg.dense_residual else 0)) * cfg.n_layers
+    if cfg.family == "encdec":
+        enc = (attn + mlp) * (cfg.n_enc_layers or cfg.n_layers)
+        dec = (attn + cross + mlp) * (cfg.n_dec_layers or cfg.n_layers)
+        return (enc if call == "prefill" else 0) + dec
+    if cfg.family == "vlm":
+        n_cross = cfg.n_layers // cfg.cross_every
+        return ((attn + mlp) * (cfg.n_layers - n_cross)
+                + (cross + mlp) * n_cross)
     return (attn + mlp) * cfg.n_layers
+
+
+def _family_batch(torch, cfg, prompts, seed: int) -> dict:
+    """The main path's batch: the prompts and, for the encdec and vlm
+    families, their stub embeddings (B, FAMILY_FRAMES or n_patches,
+    d_model) drawn from the seed on the card in fp32 and cast to the
+    model's dtype (the bf16 and fp32 runs see the same draw)."""
+    key = FAMILY_EMBEDDED.get(cfg.family)
+    if key is None:
+        return {"tokens": prompts}
+    n = FAMILY_FRAMES if cfg.family == "encdec" else cfg.n_patches
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed + 7)
+    x = torch.randn(prompts.shape[0], n, cfg.d_model, generator=g,
+                    device=DEV)
+    return {"tokens": prompts, key: x.to(getattr(torch, cfg.dtype))}
+
+
+def _greedy_batch(torch, model, params, batch: dict, gen: int):
+    """``greedy_generate``'s loop (``Model.prefill``, then ``decode_step``
+    on each argmax) over a batch dict: ``greedy_generate`` takes the
+    prompt tokens only, and the encdec and vlm families need their stub
+    embeddings beside them."""
+    S = batch["tokens"].shape[1]
+    logits, cache = model.prefill(params, batch, max_len=S + gen)
+    toks = [torch.argmax(logits, -1)[:, None]]
+    for i in range(gen - 1):
+        logits, cache = model.decode_step(params, toks[-1], cache, S + i)
+        toks.append(torch.argmax(logits, -1)[:, None])
+    return torch.cat(toks, dim=1)
+
+
+def _generate(torch, model, params, batch: dict, gen: int):
+    """The greedy main path: ``greedy_generate`` for the token-only
+    families, :func:`_greedy_batch` for encdec and vlm."""
+    from repro_torch.launch.serve import greedy_generate
+
+    if model.cfg.family in FAMILY_EMBEDDED:
+        return _greedy_batch(torch, model, params, batch, gen)
+    return greedy_generate(model, params, batch["tokens"], gen)
+
+
+def _with_tokens(batch: dict, tokens) -> dict:
+    return {**batch, "tokens": tokens}
+
+
+def _rolled(torch, batch: dict) -> dict:
+    """``batch`` with its stub embeddings rolled by one row: each prompt
+    beside another row's frames or patches."""
+    return {k: v if k == "tokens" else torch.roll(v, 1, dims=0)
+            for k, v in batch.items()}
+
+
+def _set_vlm_gates(torch, params, seed: int) -> list:
+    """Every vlm cross layer's ``xattn.gate`` and ``mlp_gate`` set to a
+    seeded value of magnitude 0.3-0.9 and random sign (a fresh init's 0
+    leaves the cross path inert).  Returns the values set."""
+    g = torch.Generator(device="cpu")
+    g.manual_seed(seed + 9)
+    vals = []
+    for lp in params["cross_layers"]:
+        for leaf, name in ((lp["xattn"], "gate"), (lp, "mlp_gate")):
+            v = (0.3 + 0.6 * torch.rand((), generator=g)) * (
+                1.0 if torch.rand((), generator=g) < 0.5 else -1.0)
+            leaf[name].fill_(float(v))
+            vals.append(round(float(v), 3))
+    return vals
 
 
 class _RouteRecorder:
@@ -4017,6 +4128,12 @@ def _must_fail(tag: str, what: str, reading: str, passes: bool) -> None:
 def _wrong_decodes(torch, cfg, cache) -> list:
     """The decode gate's wrong runs, by family: cache faults the gate must
     see, as (what, cache, position shift)."""
+    if cfg.family in FAMILY_EMBEDDED:
+        rolled = [{k: torch.roll(v, 1, dims=0) for k, v in c.items()}
+                  for c in cache["cross"]]
+        return [("cross caches rolled by one row of the batch",
+                 {"self": cache["self"], "cross": rolled}, 0),
+                ("each step stored and read one position late", cache, 1)]
     if cfg.family == "rwkv":
         return [("layer states rotated by one layer",
                  cache[1:] + cache[:1], 0)]
@@ -4109,6 +4226,9 @@ def _init_family(torch, tag: str, cfg, seed: int):
     g.manual_seed(seed)
     t0 = time.perf_counter()
     params = model.init(g, device=DEV)
+    gates = (f"; xattn.gate and mlp_gate by cross layer "
+             f"{_set_vlm_gates(torch, params, seed)}"
+             if cfg.family == "vlm" else "")
     _sync(torch)
     log(f"[{tag}] {cfg.name} ({cfg.family}): {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}"
@@ -4116,32 +4236,36 @@ def _init_family(torch, tag: str, cfg, seed: int):
         f"{', dense residual' if cfg.dense_residual else ''}"
         f"{f', weight_bits {cfg.weight_bits}' if cfg.weight_bits else ''}; "
         f"params {_tree_bytes(params) / 1e9:.2f} GB on the card, drawn from "
-        f"seed {seed} in {time.perf_counter() - t0:.1f}s")
+        f"seed {seed} in {time.perf_counter() - t0:.1f}s{gates}")
     return model, params
 
 
 def _family_main(torch, tag: str, cfg, prompts, *, seed: int) -> dict:
-    """The main path in the model's own dtype: ``greedy_generate`` (launches
-    counted from 0 around it), then the same prefill and decode steps
-    teacher-forced on its stream, timed, whose argmax must be the stream.
-    Returns the launches and, for MoE, the recorded routing."""
+    """The main path in the model's own dtype: ``greedy_generate`` (or
+    ``_greedy_batch`` beside stub embeddings; launches counted from 0
+    around it), then the same prefill and decode steps teacher-forced on
+    its stream, timed, whose argmax must be the stream.  Returns the
+    launches."""
     from repro_torch.kernels import reset_counts
-    from repro_torch.launch.serve import greedy_generate
     from repro_torch.models import layers as L
 
     model, params = _init_family(torch, tag, cfg, seed)
+    batch = _family_batch(torch, cfg, prompts, seed)
     B, S = prompts.shape
     gen = FAMILY_GEN
-    greedy_generate(model, params, prompts[:, :8], 2)  # warm-up
+    _generate(torch, model, params, _with_tokens(batch, prompts[:, :8]),
+              2)  # warm-up
     _sync(torch)
     reset_counts()
     t0 = time.perf_counter()
     with _RouteRecorder(L) as routes:
-        stream = greedy_generate(model, params, prompts, gen)
+        stream = _generate(torch, model, params, batch, gen)
         _sync(torch)
     wall = time.perf_counter() - t0
     launches = _counts()
-    log(f"[{tag}] greedy_generate: {B} x ({S} + {gen}) in {wall:.2f}s "
+    loop = ("_greedy_batch" if cfg.family in FAMILY_EMBEDDED
+            else "greedy_generate")
+    log(f"[{tag}] {loop}: {B} x ({S} + {gen}) in {wall:.2f}s "
         f"({B * gen / wall:.1f} tok/s, no claim); kernel launches "
         f"{launches}")
     if cfg.n_experts:
@@ -4151,7 +4275,7 @@ def _family_main(torch, tag: str, cfg, prompts, *, seed: int) -> dict:
             f"{cfg.capacity_factor}, C = {routes.calls[0]['C']} of "
             f"{B * S} tokens) dropped (layer, pairs, of): {drops}")
     t0 = time.perf_counter()
-    lg, cache = model.prefill(params, {"tokens": prompts}, max_len=S + gen)
+    lg, cache = model.prefill(params, batch, max_len=S + gen)
     _sync(torch)
     t_pre = time.perf_counter() - t0
     dec = [lg]
@@ -4173,12 +4297,16 @@ def _family_main(torch, tag: str, cfg, prompts, *, seed: int) -> dict:
         f"finite logits: {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"[{tag}] the stream is not its own argmax")
-    per_call = _family_projections(cfg)
-    if cfg.weight_bits and DEV == "cuda" \
-            and launches["quant_matmul"] != per_call * gen:
+    want = (_family_projections(cfg, "prefill")
+            + (gen - 1) * _family_projections(cfg, "decode"))
+    if cfg.weight_bits:
+        log(f"[{tag}] quant_matmul launches {launches['quant_matmul']} = "
+            f"{_family_projections(cfg, 'prefill')} a prefill + {gen - 1} x "
+            f"{_family_projections(cfg, 'decode')} a decode step: "
+            f"{'yes' if launches['quant_matmul'] == want else 'NO'}")
+    if cfg.weight_bits and DEV == "cuda" and launches["quant_matmul"] != want:
         raise AssertionError(f"[{tag}] {launches['quant_matmul']} "
-                             f"quant_matmul launches, not {per_call} x "
-                             f"{gen}")
+                             f"quant_matmul launches, not {want}")
     if tag == EXPERT_H_RUN:
         _expert_hessian_gate(torch, tag, routes.calls[0], cfg.n_experts)
     return launches
@@ -4196,7 +4324,6 @@ def _family_gates(torch, tag: str, cfg, prompts, *, seed: int) -> None:
     import dataclasses
 
     from repro_torch.kernels import reset_counts
-    from repro_torch.launch.serve import greedy_generate
     from repro_torch.models import ssm
     from repro_torch.models.lm import build_model
 
@@ -4204,11 +4331,12 @@ def _family_gates(torch, tag: str, cfg, prompts, *, seed: int) -> None:
     tag = f"{tag} fp32"
     cfg = dataclasses.replace(cfg, dtype="float32")
     model, params = _init_family(torch, tag, cfg, seed)
+    batch = _family_batch(torch, cfg, prompts, seed)
     B, S = prompts.shape
     gen = FAMILY_GEN
     # ---- prefill vs forward at S - 1, same tokens and capacity ----
-    pl, _ = model.prefill(params, {"tokens": prompts}, max_len=S + gen)
-    h, _ = model.forward(params, {"tokens": prompts})
+    pl, _ = model.prefill(params, batch, max_len=S + gen)
+    h, _ = model.forward(params, batch)
     fl = model.logits(params, h[:, -1])
     d_pre = float((pl - fl).abs().max())
     ok = d_pre <= gates["prefill"]
@@ -4216,17 +4344,25 @@ def _family_gates(torch, tag: str, cfg, prompts, *, seed: int) -> None:
         f"{d_pre:.4e} (tol {gates['prefill']}) {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"[{tag}] prefill disagrees with forward")
+    if cfg.family in FAMILY_EMBEDDED:
+        bad, _ = model.prefill(params, _rolled(torch, batch), max_len=S + gen)
+        d_bad = float((bad - fl).abs().max())
+        _must_fail(tag, f"a prefill fed another row's "
+                        f"{FAMILY_EMBEDDED[cfg.family]}",
+                   f"max |diff| {d_bad:.4e}", d_bad <= gates["prefill"])
+        del bad
     del pl, h, fl
     # ---- decode vs forward, teacher-forced, nothing dropped ----
     m_nd = model
     if cfg.n_experts:
         m_nd = build_model(dataclasses.replace(
             cfg, capacity_factor=cfg.n_experts / cfg.top_k))
-    stream = greedy_generate(m_nd, params, prompts, gen)
-    h, _ = m_nd.forward(params, {"tokens": torch.cat([prompts, stream], 1)})
+    stream = _generate(torch, m_nd, params, batch, gen)
+    h, _ = m_nd.forward(params, _with_tokens(
+        batch, torch.cat([prompts, stream], 1)))
     full = m_nd.logits(params, h[:, S - 1:S - 1 + gen])
     del h
-    lg, cache = m_nd.prefill(params, {"tokens": prompts}, max_len=S + gen)
+    lg, cache = m_nd.prefill(params, batch, max_len=S + gen)
     wrong = []
     for what, bad_cache, shift in _wrong_decodes(torch, cfg, cache):
         bad = []
@@ -4271,11 +4407,10 @@ def _family_gates(torch, tag: str, cfg, prompts, *, seed: int) -> None:
     if cfg.weight_bits:
         per_call = _family_projections(cfg)
         reset_counts()
-        got = model.logits(params, model.forward(
-            params, {"tokens": prompts})[0])
+        got = model.logits(params, model.forward(params, batch)[0])
         n_fwd = _counts()["quant_matmul"]
-        want = model.logits(params, model.forward(
-            params, {"tokens": prompts}, plain=True)[0])
+        want = model.logits(params, model.forward(params, batch,
+                                                  plain=True)[0])
         d = (got - want).abs()
         tol, mtol = gates["packed"]
         ok = (float(d.max()) <= tol and float(d.mean()) <= mtol
@@ -4290,7 +4425,7 @@ def _family_gates(torch, tag: str, cfg, prompts, *, seed: int) -> None:
         del d, want
         bad_params = _tail_dropped(params)
         wrong = model.logits(bad_params, model.forward(
-            bad_params, {"tokens": prompts}, plain=True)[0])
+            bad_params, batch, plain=True)[0])
         d = (got - wrong).abs()
         _must_fail(tag, "the last packed word of K read as codes 0",
                    f"max |diff| {float(d.max()):.4e}, mean "
@@ -4349,9 +4484,10 @@ def _family_run(torch, tag: str, cfg, *, seed: int) -> dict:
 
 
 def phase_families(torch, *, seed: int, cfgs=None) -> dict:
-    """Phase 13: the moe, rwkv and hybrid families at full width through
-    ``build_model`` and ``greedy_generate`` (``FAMILY_RUNS``), each with its
-    gates.  ``cfgs`` ({tag: cfg}) replaces the models (a rehearsal on the
+    """Phase 13: the moe, rwkv, hybrid, encdec and vlm families at full
+    width through ``build_model`` and ``greedy_generate`` (``_greedy_batch``
+    beside stub embeddings; ``FAMILY_RUNS``), each with its gates.
+    ``cfgs`` ({tag: cfg}) replaces the models (a rehearsal on the
     CPU at the smoke configs).  Returns each run's launches."""
     import dataclasses
 
@@ -4451,6 +4587,7 @@ def main(argv=None) -> int:
                                 check_max=served["check"]["max_diff"])
     _release(torch, "phase 12")
     families = phase_families(torch, seed=args.seed)
+    _release(torch, "phase 13")
     # launches: each kernel on the path that runs it — the synthetic serve
     # for the serving kernels, the quantize run for ldlq and kron_mul, the
     # hadamard linear for hadamard; phases 7's to 10's paths beside them

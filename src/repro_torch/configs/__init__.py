@@ -1,6 +1,5 @@
-"""Architecture registry: ``--arch <id>`` resolution (the dense, moe,
-rwkv and hybrid families; whisper-small and llama-3.2-vision-90b come with
-the encdec and vlm families)."""
+"""Architecture registry: ``--arch <id>`` resolution, with the JAX
+package's ids in its order."""
 from __future__ import annotations
 
 import importlib
@@ -16,7 +15,9 @@ _MODULES = {
     "qwen3-14b": "qwen3_14b",
     "qwen2-72b": "qwen2_72b",
     "starcoder2-15b": "starcoder2_15b",
+    "whisper-small": "whisper_small",
     "rwkv6-1.6b": "rwkv6_1p6b",
+    "llama-3.2-vision-90b": "llama32_vision_90b",
     "arctic-480b": "arctic_480b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "zamba2-7b": "zamba2_7b",

@@ -1,10 +1,10 @@
-"""Architecture config schema (the token-only decoder families).
+"""Architecture config schema.
 
-One :class:`ArchConfig` covers the dense, moe, rwkv and hybrid families
-through family-specific optional fields, with the JAX package's names and
-defaults.  ``from_dict`` accepts a full config dict as the JAX package
-writes it into artifact manifests and drops the fields this schema does
-not model (the encdec and vlm fields, training knobs).
+One :class:`ArchConfig` covers the dense, moe, rwkv, hybrid, encdec and vlm
+families through family-specific optional fields, with the JAX package's
+names and defaults.  ``from_dict`` accepts a full config dict as the JAX
+package writes it into artifact manifests and drops the fields this schema
+does not model (training knobs, the shape registry's skips).
 """
 from __future__ import annotations
 
@@ -54,10 +54,19 @@ class ArchConfig:
     rwkv_decay_lora: int = 64
     rwkv_mix_lora: int = 32
 
+    # encdec options (0 -> n_layers)
+    n_enc_layers: int = 0
+    n_dec_layers: int = 0
+
+    # vlm options
+    cross_every: int = 0  # every k-th layer is a gated cross-attn layer
+    n_patches: int = 1024  # stub image-patch count (frontend stubbed)
+
     # misc
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    attn_bf16_probs: bool = False  # bf16 exp/probs, fp32 max and sum
     weight_bits: int = 0  # 0 = dense weights; 2/3/4 = packed projections
 
     def __post_init__(self):
@@ -83,18 +92,24 @@ class ArchConfig:
     @classmethod
     def from_dict(cls, d: dict) -> "ArchConfig":
         """Build from a manifest's ``arch_config``; fields this schema does
-        not model (the encdec and vlm fields, training knobs) are dropped.
-        A field that would change what the port computes raises at any
-        value but its default instead: bf16 attention probabilities, and
-        in-model packed weights (``weight_bits``) on the dense family,
-        whose serving path (artifacts, adapter, engine) quantizes with
-        QuIP's own linears and reads fp weights."""
+        not model (training knobs) are dropped.  A field that would change
+        what the port computes raises at any value but its default
+        instead: in-model packed weights (``weight_bits``) on the dense
+        family, whose serving path (artifacts, adapter, engine) quantizes
+        with QuIP's own linears and reads fp weights, and ``qk_norm`` on
+        the encdec and vlm families, whose cached cross K/V would skip
+        ``k_norm`` where the forward applies it (so prefill then decode
+        would not equal the forward)."""
         names = {f.name for f in dataclasses.fields(cls)}
-        refused = ["attn_bf16_probs"]
+        refused = {}
         if d.get("family") == "dense":
-            refused.append("weight_bits")
-        for flag in refused:
+            refused["weight_bits"] = "is not supported by the port"
+        if d.get("family") in ("encdec", "vlm"):
+            refused["qk_norm"] = (
+                f"is not supported by the port on the {d['family']} "
+                f"family: the cross K/V cache would skip k_norm, which "
+                f"the forward applies")
+        for flag, why in refused.items():
             if d.get(flag):
-                raise ValueError(f"{flag}={d[flag]!r} is not supported by "
-                                 f"the port")
+                raise ValueError(f"{flag}={d[flag]!r} {why}")
         return cls(**{k: v for k, v in d.items() if k in names})

@@ -102,14 +102,16 @@ def quantized_model_from_numpy(arch_config: dict, tree: dict,
 
 
 # the JAX package's layer stacks (leading axis = layer), unstacked here
-_STACKED = ("layers", "mamba_layers")
+_STACKED = ("layers", "mamba_layers", "enc_layers", "dec_layers",
+            "self_layers", "cross_layers")
 
 
 def fp_params_from_numpy(params: dict, device=DEFAULT_DEVICE) -> dict:
     """The JAX package's ``model.init`` tree of any ported family -> the
-    port's tree: ``layers`` (dense, moe, rwkv) and ``mamba_layers``
-    (hybrid) become lists of per-layer dicts, everything else keeps its
-    shape.  A packed ``weight_bits`` leaf ``{"packed", "scale"}`` keeps its
+    port's tree: ``layers`` (dense, moe, rwkv), ``mamba_layers``
+    (hybrid), ``enc_layers`` and ``dec_layers`` (encdec), ``self_layers``
+    and ``cross_layers`` (vlm) become lists of per-layer dicts, everything
+    else keeps its shape.  A packed ``weight_bits`` leaf ``{"packed", "scale"}`` keeps its
     int32 words and fp32 scale."""
     device = resolve_device(device)
     out = {}

@@ -59,7 +59,10 @@ The engine serves the dense family.  The moe, rwkv and hybrid archs
 (``--arch arctic-480b``, ``llama4-scout-17b-a16e``, ``rwkv6-1.6b``,
 ``zamba2-7b``) serve one fixed batch through ``greedy_generate`` instead
 (the batch fallback), and refuse ``--quantize``, ``--check`` and
-``--mesh`` as the JAX package's CLI does.
+``--mesh`` as the JAX package's CLI does.  whisper-small and
+llama-3.2-vision-90b exit with the reason: their stub frontends need
+``frames`` / ``patches`` embeddings, which the CLI does not take (the JAX
+CLI fails at the same point with a ``KeyError``).
 
 Runs on the GPU (``--device cuda``, the default) through the hand-written
 kernels, or on the CPU (``--device cpu``) through their plain versions.
@@ -191,6 +194,10 @@ def build_engine(adapter, *, max_seq_len: int, args, record_logits=False,
         shadow_seed=getattr(args, "seed", 0),
     )
     return Engine(adapter, ecfg, faults=faults if robust else None)
+
+
+# families whose batch carries stub frontend embeddings beside the tokens
+_EMBEDDED = {"encdec": "frames", "vlm": "patches"}
 
 
 def _serve_batch_fallback(model, params, prompts, args) -> int:
@@ -648,6 +655,12 @@ def _serve(args, device, faults, tenants, mesh) -> int:
 
         cfg = get_smoke_config(args.arch) if args.smoke else get_config(
             args.arch)
+        if cfg.family in _EMBEDDED:
+            raise SystemExit(
+                f"--arch {args.arch}: the {cfg.family} family's stub "
+                f"frontend needs {_EMBEDDED[cfg.family]} embeddings beside "
+                f"the prompt tokens, which this CLI does not take; drive "
+                f"it through Model.prefill / decode_step (models/lm.py)")
         model = build_model(cfg)
         g = torch.Generator(device=device)
         g.manual_seed(args.seed)

@@ -1,12 +1,16 @@
-"""Primitive layers: norms, RoPE, attention (GQA, qk-norm, biases, the
-dense KV cache), MLP (SwiGLU / GeLU), MoE with scatter-based dispatch, and
-the projection weight leaf (dense, or packed when ``cfg.weight_bits``).
+"""Primitive layers: norms, RoPE, attention (GQA, qk-norm, biases, cross
+attention with its tanh gate, the dense KV cache), MLP (SwiGLU / GeLU), MoE
+with scatter-based dispatch, and the projection weight leaf (dense, or
+packed when ``cfg.weight_bits``).
 
 Functional, on plain tensors, with the JAX package's layouts and masking
 convention (masked scores are set to ``finfo(float32).min`` or biased by
 -1e30), so the tests compare like with like.  Attention scores and outputs
 accumulate in fp32 whatever the storage dtype; probabilities are cast down
-to V's dtype for the PV product, as the JAX package does.
+to V's dtype for the PV product, as the JAX package does; with
+``cfg.attn_bf16_probs`` the full-sequence attention keeps fp32 max and sum
+statistics around bf16 exponentials and probabilities, as the JAX
+package's branch does.
 
 ``init_*`` draw from an explicit ``torch.Generator`` on ``device`` (the
 values differ from ``jax.random``'s; tests convert the JAX package's params
@@ -246,7 +250,11 @@ def _resid(cfg: ArchConfig) -> float:
     return 1.0 / math.sqrt(2 * max(cfg.n_layers, 1))
 
 
-def init_attention(g: torch.Generator, cfg: ArchConfig, *, device) -> dict:
+def init_attention(g: torch.Generator, cfg: ArchConfig, *, device,
+                   cross: bool = False) -> dict:
+    """The attention's params; ``cross`` adds the 0-d ``gate`` (zeros) of a
+    tanh-gated cross attention (llama-3.2-vision), whose output is
+    ``tanh(gate)·out``."""
     dt = _dtype(cfg)
     d = cfg.d_model
     p = {
@@ -263,10 +271,12 @@ def init_attention(g: torch.Generator, cfg: ArchConfig, *, device) -> dict:
     if cfg.qk_norm:
         p["q_norm"] = torch.ones(cfg.head_dim, dtype=dt, device=device)
         p["k_norm"] = torch.ones(cfg.head_dim, dtype=dt, device=device)
+    if cross:
+        p["gate"] = torch.zeros((), dtype=dt, device=device)
     return p
 
 
-def attention_axes(cfg: ArchConfig) -> dict:
+def attention_axes(cfg: ArchConfig, cross: bool = False) -> dict:
     ax = {
         "wq": w_axes(cfg, ("embed", "heads")),
         "wk": w_axes(cfg, ("embed", "kv_heads")),
@@ -277,6 +287,8 @@ def attention_axes(cfg: ArchConfig) -> dict:
         ax.update(bq=("heads",), bk=("kv_heads",), bv=("kv_heads",))
     if cfg.qk_norm:
         ax.update(q_norm=("norm",), k_norm=("norm",))
+    if cross:
+        ax["gate"] = ()
     return ax
 
 
@@ -380,62 +392,94 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
     return (q.to(torch.float32) * scale[..., None]).to(dtype)
 
 
+def _bf16_softmax(s: torch.Tensor) -> torch.Tensor:
+    """Flash-style softmax: fp32 max and sum statistics, bf16 exponentials
+    and probabilities (the JAX package's ``attn_bf16_probs`` branch)."""
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m).to(torch.bfloat16)
+    denom = torch.sum(p.to(torch.float32), dim=-1, keepdim=True)
+    return p / denom.to(torch.bfloat16)
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            positions: torch.Tensor, cfg: ArchConfig, *,
-           causal: bool = True) -> torch.Tensor:
-    """Softmax attention of post-RoPE q (B, S, H, hd) over k/v (B, S, KV,
-    hd), chunked over query blocks of ``cfg.attn_q_chunk`` (rows of a
-    softmax are independent, so chunking changes no value) -> (B, S, H, hd)
-    fp32.  Causal masking is an additive -1e30 bias without the head
-    dims."""
+           causal: bool = True, bf16_probs: bool = False) -> torch.Tensor:
+    """Softmax attention of post-RoPE q (B, Sq, H, hd) over k/v (B, Skv,
+    KV, hd), chunked over query blocks of ``cfg.attn_q_chunk`` (rows of a
+    softmax are independent, so chunking changes no value) -> (B, Sq, H,
+    hd) fp32.  Causal masking (self-attention: Sq = Skv) is an additive
+    -1e30 bias without the head dims.  ``bf16_probs`` takes
+    :func:`_bf16_softmax`."""
     S = q.shape[1]
     qc = min(cfg.attn_q_chunk, S)
     while S % qc:
         qc -= 1
     outs = []
     for i0 in range(0, S, qc):
-        s = gqa_scores(q[:, i0:i0 + qc], k, cfg)  # (B, KV, G, qc, S)
+        s = gqa_scores(q[:, i0:i0 + qc], k, cfg)  # (B, KV, G, qc, Skv)
         if causal:
             pq = positions[i0:i0 + qc]
             s = s + torch.where(pq[:, None] >= positions[None, :], 0.0,
                                 -1e30).to(torch.float32)
-        outs.append(gqa_out(torch.softmax(s, dim=-1), v, cfg))
+        probs = _bf16_softmax(s) if bf16_probs else torch.softmax(s, dim=-1)
+        outs.append(gqa_out(probs, v, cfg))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 def project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig,
-                positions: torch.Tensor, *, plain: bool = False):
-    """(q, k, v) of the attention: (B, S, heads, hd) each, biased
-    (``qkv_bias``), qk-normed and RoPE'd."""
+                positions: torch.Tensor, *, x_kv: Optional[torch.Tensor] = None,
+                plain: bool = False):
+    """(q, k, v) of the attention: q (B, S, H, hd) from x, k/v (B, Skv, KV,
+    hd) from ``x_kv`` (default: x), biased (``qkv_bias``), qk-normed, and
+    RoPE'd at ``positions`` for self-attention only: a cross attention
+    (``x_kv`` given) rotates neither side."""
     B, S, _ = x.shape
-    q, k, v = (apply_w(p[w], x, cfg, plain=plain) for w in ("wq", "wk", "wv"))
+    cross = x_kv is not None
+    x_kv = x if x_kv is None else x_kv
+    q = apply_w(p["wq"], x, cfg, plain=plain)
+    k, v = (apply_w(p[w], x_kv, cfg, plain=plain) for w in ("wk", "wv"))
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    k = k.reshape(B, x_kv.shape[1], cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(B, x_kv.shape[1], cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cross:
+        return q, k, v
     return rope(q, positions, cfg.rope_theta), rope(k, positions,
                                                     cfg.rope_theta), v
 
 
+def _gated(p: dict, out: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``tanh(gate)·out`` for a gated cross attention, else ``out``."""
+    if "gate" not in p:
+        return out
+    return torch.tanh(p["gate"].to(torch.float32)).to(dtype) * out
+
+
 def attention_full(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                    positions: torch.Tensor, causal: bool = True,
+                   x_kv: Optional[torch.Tensor] = None,
                    return_kv: bool = False, plain: bool = False):
-    """Full-sequence self-attention (``wq wk wv wo`` dense (in, out) or
-    packed, ``bq bk bv`` with ``qkv_bias``, ``q_norm``/``k_norm`` with
-    qk-norm).
+    """Full-sequence attention (``wq wk wv wo`` dense (in, out) or packed,
+    ``bq bk bv`` with ``qkv_bias``, ``q_norm``/``k_norm`` with qk-norm).
+    ``x_kv`` (B, Skv, D) switches to cross attention: K/V from ``x_kv``, no
+    RoPE (so no key positions: the JAX package's ``positions_kv`` reaches
+    only RoPE and the causal mask, which a cross attention has neither
+    of); a ``gate`` in ``p`` scales the output by ``tanh(gate)``.
 
-    x: (B, S, D) -> (B, S, D), and the post-RoPE ``(k, v)`` (B, S, KV,
-    hd) with ``return_kv``.
+    x: (B, S, D) -> (B, S, D), and the (post-RoPE for self-attention)
+    ``(k, v)`` (B, Skv, KV, hd) with ``return_kv``.
     """
     B, S, _ = x.shape
-    q, k, v = project_qkv(p, x, cfg, positions, plain=plain)
-    o = attend(q, k, v, positions, cfg, causal=causal)
+    q, k, v = project_qkv(p, x, cfg, positions, x_kv=x_kv, plain=plain)
+    o = attend(q, k, v, positions, cfg, causal=causal,
+               bf16_probs=cfg.attn_bf16_probs)
     out = apply_w(p["wo"], o.to(x.dtype).reshape(B, S, cfg.q_dim), cfg,
                   plain=plain)
+    out = _gated(p, out, x.dtype)
     if return_kv:
         return out, (k, v)
     return out
@@ -500,37 +544,44 @@ def cache_read(cache: dict, dtype: torch.dtype):
 
 
 def attention_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
-                     pos: int):
-    """One-token self-attention against a dense cache.
+                     pos: int, *, cross: bool = False):
+    """One-token attention against a dense cache.
 
     x: (B, 1, D); ``pos``: the current position (the same for the batch).
-    The token's K/V are stored at ``pos`` first; keys past ``pos`` are
-    masked.  Returns (out (B, 1, D), new_cache)."""
+    Self-attention stores the token's K/V at ``pos`` first and masks keys
+    past ``pos``; ``cross`` reads the whole encoder / vision cache
+    unmasked, stores nothing and rotates nothing.  Returns (out (B, 1, D),
+    the new cache, or ``cache`` itself when ``cross``)."""
     B = x.shape[0]
     pos = int(pos)
     q = apply_w(p["wq"], x, cfg)
-    k_new = apply_w(p["wk"], x, cfg)
-    v_new = apply_w(p["wv"], x, cfg)
     if cfg.qkv_bias:
-        q, k_new, v_new = q + p["bq"], k_new + p["bk"], v_new + p["bv"]
+        q = q + p["bq"]
     q = q.reshape(B, 1, cfg.n_heads, cfg.head_dim)
-    k_new = k_new.reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
-    v_new = v_new.reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k_new = rms_norm(k_new, p["k_norm"], cfg.norm_eps)
-    at = torch.tensor([pos], dtype=torch.int32, device=x.device)
-    q = rope(q, at, cfg.rope_theta)
-    k_new = rope(k_new, at, cfg.rope_theta)
-    cache = cache_store(cache, k_new, v_new, pos)
+    if not cross:
+        k_new = apply_w(p["wk"], x, cfg)
+        v_new = apply_w(p["wv"], x, cfg)
+        if cfg.qkv_bias:
+            k_new, v_new = k_new + p["bk"], v_new + p["bv"]
+        k_new = k_new.reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
+        v_new = v_new.reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
+        if cfg.qk_norm:
+            k_new = rms_norm(k_new, p["k_norm"], cfg.norm_eps)
+        at = torch.tensor([pos], dtype=torch.int32, device=x.device)
+        q = rope(q, at, cfg.rope_theta)
+        k_new = rope(k_new, at, cfg.rope_theta)
+        cache = cache_store(cache, k_new, v_new, pos)
     k, v = cache_read(cache, x.dtype)
     S = k.shape[1]
     s = gqa_scores(q, k, cfg)  # (B, KV, G, 1, S)
-    s = s + torch.where(torch.arange(S, device=x.device) <= pos, 0.0,
-                        -1e30).to(torch.float32)
+    if not cross:
+        s = s + torch.where(torch.arange(S, device=x.device) <= pos, 0.0,
+                            -1e30).to(torch.float32)
     o = gqa_out(torch.softmax(s, dim=-1), v, cfg)
     o = o.reshape(B, 1, cfg.q_dim).to(x.dtype)
-    return apply_w(p["wo"], o, cfg), cache
+    return _gated(p, apply_w(p["wo"], o, cfg), x.dtype), cache
 
 
 # ---------------------------------------------------------------------------

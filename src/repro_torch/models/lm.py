@@ -7,10 +7,12 @@
     logits, cache = model.prefill(params, batch, max_len=S + gen)
     logits, cache = model.decode_step(params, tokens, cache, pos)
 
-``batch`` is a dict, ``{"tokens"}`` (and optional ``"targets"`` for
-``loss``) for the token-only families: dense, moe, rwkv and hybrid.  The
-encdec and vlm families (whisper-small, llama-3.2-vision-90b) are not
-ported yet.  ``forward(plain=True)`` runs packed ``weight_bits``
+``batch`` is a dict: ``{"tokens"}`` (and optional ``"targets"`` for
+``loss``), plus the stub embeddings ``"frames"`` (encdec: whisper-small)
+or ``"patches"`` (vlm: llama-3.2-vision-90b).  The token-only families
+(dense, moe, rwkv, hybrid) take ``batch["tokens"]`` through the
+``_tok_fwd`` / ``_tok_prefill`` adapters, as in the JAX package; encdec
+and vlm take the whole dict.  ``forward(plain=True)`` runs packed ``weight_bits``
 projections through quant_matmul's plain version instead of its CUDA
 kernel (the oracle's path).  Forward only: training waits for the
 training slice.
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.models import layers as L
+from repro_torch.models import multimodal as MM
 from repro_torch.models import recurrent as R
 from repro_torch.models import transformer as T
 
@@ -59,7 +62,7 @@ class Model:
     # ---- compute ----
     def forward(self, params, batch: dict, *, plain: bool = False):
         """-> (hidden (B, S, D), aux_loss)."""
-        return self._forward(params, batch["tokens"], self.cfg, plain=plain)
+        return self._forward(params, batch, self.cfg, plain=plain)
 
     def logits(self, params, hidden):
         return L.lm_logits(params["embed"], hidden)
@@ -80,8 +83,7 @@ class Model:
         return ce + aux_coef * aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params, batch: dict, kv_dtype=None, max_len=None):
-        return self._prefill(params, batch["tokens"], self.cfg, kv_dtype,
-                             max_len)
+        return self._prefill(params, batch, self.cfg, kv_dtype, max_len)
 
     def decode_step(self, params, tokens, cache, pos: int):
         return self._decode(params, tokens, self.cfg, cache, pos)
@@ -95,9 +97,27 @@ class Model:
         return self._cache_axes(self.cfg, int8)
 
 
+# --- family adapters (batch dict vs tokens-only signatures) ---------------
+
+
+def _tok_fwd(fn):
+    def wrapped(params, batch, cfg, *, plain=False):
+        return fn(params, batch["tokens"], cfg, plain=plain)
+
+    return wrapped
+
+
+def _tok_prefill(fn):
+    def wrapped(params, batch, cfg, kv_dtype=None, max_len=None):
+        return fn(params, batch["tokens"], cfg, kv_dtype, max_len)
+
+    return wrapped
+
+
 _DECODER = dict(
-    init=T.init_decoder, axes=T.decoder_axes, forward=T.decoder_forward,
-    prefill=T.decoder_prefill, decode=T.decoder_decode_step,
+    init=T.init_decoder, axes=T.decoder_axes,
+    forward=_tok_fwd(T.decoder_forward),
+    prefill=_tok_prefill(T.decoder_prefill), decode=T.decoder_decode_step,
     init_cache=T.init_decoder_cache, cache_axes=T.decoder_cache_axes,
 )
 
@@ -105,24 +125,31 @@ _FAMILIES: dict[str, dict[str, Any]] = {
     "dense": _DECODER,
     "moe": _DECODER,
     "rwkv": dict(
-        init=R.init_rwkv_lm, axes=R.rwkv_lm_axes, forward=R.rwkv_forward,
-        prefill=R.rwkv_prefill, decode=R.rwkv_decode_step,
+        init=R.init_rwkv_lm, axes=R.rwkv_lm_axes,
+        forward=_tok_fwd(R.rwkv_forward),
+        prefill=_tok_prefill(R.rwkv_prefill), decode=R.rwkv_decode_step,
         init_cache=R.init_rwkv_cache, cache_axes=R.rwkv_cache_axes,
     ),
     "hybrid": dict(
-        init=R.init_hybrid, axes=R.hybrid_axes, forward=R.hybrid_forward,
-        prefill=R.hybrid_prefill, decode=R.hybrid_decode_step,
+        init=R.init_hybrid, axes=R.hybrid_axes,
+        forward=_tok_fwd(R.hybrid_forward),
+        prefill=_tok_prefill(R.hybrid_prefill), decode=R.hybrid_decode_step,
         init_cache=R.init_hybrid_cache, cache_axes=R.hybrid_cache_axes,
+    ),
+    "encdec": dict(
+        init=MM.init_encdec, axes=MM.encdec_axes, forward=MM.encdec_forward,
+        prefill=MM.encdec_prefill, decode=MM.encdec_decode_step,
+        init_cache=MM.init_encdec_cache, cache_axes=MM.encdec_cache_axes,
+    ),
+    "vlm": dict(
+        init=MM.init_vlm, axes=MM.vlm_axes, forward=MM.vlm_forward,
+        prefill=MM.vlm_prefill, decode=MM.vlm_decode_step,
+        init_cache=MM.init_vlm_cache, cache_axes=MM.vlm_cache_axes,
     ),
 }
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            f"encdec and vlm families (models/multimodal.py, cross "
-            f"attention) are the second half of ROADMAP item 9")
     fam = _FAMILIES[cfg.family]
     return Model(cfg=cfg, _init=fam["init"], _axes=fam["axes"],
                  _forward=fam["forward"], _prefill=fam["prefill"],

@@ -79,6 +79,8 @@ from repro_torch.serve.telemetry import (
     MetricsRegistry,
     Tracer,
     emit_metrics_line,
+    weak_gauge,
+    weak_method,
 )
 
 __all__ = ["Engine", "EngineConfig", "TickResult"]
@@ -232,11 +234,17 @@ class Engine:
             self.metrics.counter(name)
         for name, fn in self.pool.metrics_gauges().items():
             self.metrics.gauge(name, fn=fn)
-        self.metrics.gauge("finished", fn=lambda: len(self.finished))
-        self.metrics.gauge("faults_injected", fn=lambda: len(self.faults.log))
+        # the callbacks hold the engine weakly: the engine holds the
+        # registry, so a closure over self would make a reference cycle
+        # that keeps the pool and the adapter alive until gc.collect()
+        self.metrics.gauge("finished",
+                           fn=weak_gauge(self, lambda e: len(e.finished)))
+        self.metrics.gauge("faults_injected",
+                           fn=weak_gauge(self, lambda e: len(e.faults.log)))
         # tick-stall watchdog: seconds since the last COMPLETED tick
         self._last_tick_t = 0.0
-        self.metrics.gauge("last_tick_age_s", fn=self.last_tick_age_s)
+        self.metrics.gauge("last_tick_age_s",
+                           fn=weak_gauge(self, Engine.last_tick_age_s))
         for name in ("ttft_s", "itl_s", "queue_s", "e2e_s"):
             self.metrics.histogram(name)
         self.shadow = (
@@ -251,6 +259,10 @@ class Engine:
                 f"canary_every must be > 0 seconds, got {ecfg.canary_every}")
         self.canary_tokens: Optional[np.ndarray] = None
         self.tracer = NULL_TRACER
+        # the adapter's dispatch spans follow this engine's tracer, as its
+        # fault hook follows this engine's plan: an adapter reused after a
+        # traced engine records into that engine's tracer no more
+        adapter.tracer = NULL_TRACER
         # engine-relative clock: arrival offsets are measured from here
         self._t0 = time.perf_counter()
         if tracer is not None:
@@ -396,9 +408,9 @@ class Engine:
         (dispatch spans) and the scheduler (lifecycle events).  The
         tracer's clock becomes the engine clock, and a ``sync=True``
         tracer without a barrier gets :meth:`_sync_barrier`."""
-        tracer.clock = self.now
+        tracer.clock = weak_method(self.now)
         if tracer.sync and tracer.sync_fn is None:
-            tracer.sync_fn = self._sync_barrier
+            tracer.sync_fn = weak_method(self._sync_barrier)
         tracer.tags.update(self.adapter.trace_tags())
         self.tracer = tracer
         self.adapter.tracer = tracer

@@ -45,6 +45,7 @@ distributed pool replays on every rank.
 from __future__ import annotations
 
 import dataclasses
+import operator
 from collections import OrderedDict
 from typing import Optional
 
@@ -55,6 +56,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.layers import quantize_kv
 from repro_torch.serve.faults import NO_FAULTS
+from repro_torch.serve.telemetry import weak_gauge
 
 __all__ = ["PagedKVPool", "pages_needed", "page_bucket"]
 
@@ -410,19 +412,22 @@ class PagedKVPool:
         """Name -> zero-arg callback for every pool gauge, as
         :class:`repro_torch.serve.telemetry.MetricsRegistry` registers
         them: read at snapshot time, so the engine's registry reports live
-        pool state without the pool knowing about telemetry."""
+        pool state without the pool knowing about telemetry.  Each holds
+        the pool weakly (:func:`~repro_torch.serve.telemetry.weak_gauge`)."""
+        def attr(name):
+            return weak_gauge(self, operator.attrgetter(name))
+
         return {
-            "pages_in_use": lambda: self.pages_in_use,
-            "peak_pages_in_use": lambda: self.peak_pages_in_use,
-            "occupancy": lambda: self.occupancy,
-            "peak_occupancy": (
-                lambda: self.peak_pages_in_use / max(1, self.n_pages - 1)
-            ),
-            "shared_pages": lambda: self.shared_pages,
-            "cached_pages": lambda: self.cached_pages,
-            "max_page_ref": lambda: self.max_page_ref,
-            "cow_copies": lambda: self.cow_copies,
-            "prefix_hit_pages": lambda: self.prefix_hit_pages,
+            "pages_in_use": attr("pages_in_use"),
+            "peak_pages_in_use": attr("peak_pages_in_use"),
+            "occupancy": attr("occupancy"),
+            "peak_occupancy": weak_gauge(
+                self, lambda p: p.peak_pages_in_use / max(1, p.n_pages - 1)),
+            "shared_pages": attr("shared_pages"),
+            "cached_pages": attr("cached_pages"),
+            "max_page_ref": attr("max_page_ref"),
+            "cow_copies": attr("cow_copies"),
+            "prefix_hit_pages": attr("prefix_hit_pages"),
         }
 
     def _storage(self) -> list:

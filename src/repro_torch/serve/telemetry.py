@@ -19,7 +19,10 @@ JAX package's names and behaviour:
     occupancy reaches the registry without the pool knowing about it);
     histograms keep raw samples and compute percentiles with
     ``numpy.percentile``, so in-engine TTFT/ITL percentiles equal any
-    recomputation from the same timestamps.
+    recomputation from the same timestamps.  A callback reaches its owner
+    through a weak reference (:func:`weak_gauge`, :func:`weak_method`), so
+    a registry or a tracer that its owner holds makes no reference cycle:
+    refcounting frees an engine, its KV pool and its adapter on ``del``.
 
   * Chrome/Perfetto export — :meth:`Tracer.chrome_events` renders the
     ring as trace-event-format complete events plus instant events for
@@ -44,9 +47,11 @@ back into per-phase totals and a coverage ratio (phase time / step time).
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import json
 import sys
 import time
+import weakref
 from typing import Callable, Optional
 
 import numpy as np
@@ -64,7 +69,38 @@ __all__ = [
     "format_metrics_line",
     "phase_breakdown",
     "validate_chrome_trace",
+    "weak_gauge",
+    "weak_method",
 ]
+
+
+def weak_gauge(owner, fn: Callable) -> Callable[[], object]:
+    """A gauge callback reading ``fn(owner)`` that holds ``owner`` weakly:
+    it reads None once the owner is gone."""
+    ref = weakref.ref(owner)
+
+    def read():
+        o = ref()
+        return None if o is None else fn(o)
+
+    return read
+
+
+def weak_method(fn: Callable) -> Callable:
+    """``fn``, holding its instance weakly when it is a bound method (any
+    other callable is returned as it is).  Calling it once the instance is
+    gone raises ``ReferenceError``."""
+    if not inspect.ismethod(fn):
+        return fn
+    ref, name = weakref.WeakMethod(fn), fn.__qualname__
+
+    def call(*args, **kwargs):
+        m = ref()
+        if m is None:
+            raise ReferenceError(f"{name}: its owner is gone")
+        return m(*args, **kwargs)
+
+    return call
 
 
 # ---------------------------------------------------------------------------
@@ -399,7 +435,8 @@ class Counter:
 
 class Gauge:
     """Point-in-time value: set explicitly or pulled from a zero-argument
-    callback at snapshot time."""
+    callback at snapshot time (None once a :func:`weak_gauge`'s owner is
+    gone)."""
 
     __slots__ = ("name", "_value", "fn")
 

@@ -292,20 +292,17 @@ def test_init_cache_matches_jax_shapes(arch):
         assert a.shape == b.shape and a.dtype == b.dtype and not a.any()
 
 
-@pytest.mark.parametrize("family", ["encdec", "vlm"])
-def test_build_model_refuses_the_families_still_to_port(family):
-    cfg = dataclasses.replace(get_smoke_config("qwen3-14b"), family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        build_model(cfg)
-
-
 def test_registry_orders_arch_ids_as_jax():
     from repro.configs import ARCH_IDS as REF_IDS
+    from repro.configs import _MODULES as REF_MODULES
+    from repro_torch.configs import ARCHS
 
-    assert ARCH_IDS == [a for a in REF_IDS
-                        if a not in ("whisper-small", "llama-3.2-vision-90b")]
+    assert ARCH_IDS == REF_IDS
+    assert list(ARCHS) == list(REF_MODULES)
+    for arch in ARCHS:
+        assert build_model(get_config(arch)).cfg.name == arch
     with pytest.raises(KeyError):
-        get_config("whisper-small")
+        get_config("whisper-medium")
 
 
 # ---------------------------------------------------------------------------

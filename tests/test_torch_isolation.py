@@ -28,7 +28,8 @@ for name in ("repro_torch.serve.frontdoor.server",
              "repro_torch.serve.fleet.router",
              "repro_torch.serve.fleet.supervisor",
              "repro_torch.models.lm", "repro_torch.models.ssm",
-             "repro_torch.models.recurrent"):
+             "repro_torch.models.recurrent",
+             "repro_torch.models.multimodal"):
     assert name in names, name
 """
 

@@ -124,8 +124,7 @@ def test_config_from_reference_manifest_dict():
     assert (cfg.q_dim, cfg.kv_dim) == (64, 32)
 
 
-@pytest.mark.parametrize("flag,value", [("attn_bf16_probs", True),
-                                        ("weight_bits", 2)])
+@pytest.mark.parametrize("flag,value", [("weight_bits", 2)])
 def test_config_from_dict_refuses_fields_it_does_not_model(flag, value):
     """A reference config field that changes what the dense path computes
     raises, naming the field, instead of being dropped."""
