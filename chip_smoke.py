@@ -133,8 +133,15 @@ Phases, each printing its own lines:
      launching phase 4's kernels (each rank's counts read through the
      mesh); (b) mp = 2, K = 4 over int8 pages on phase 9's prompts with a
      NaN in request 1's verify tick, against the same on one device
-     (``INT8_LOGIT_*``), the NaN lane alone quarantined; (c) mp = 4 at
-     ``TP4_LAYERS`` layers (2 KV heads a rank), phase 5's check;
+     (``INT8_LOGIT_*``), the NaN lane alone quarantined; (d), after (b),
+     the front door over (a)'s mesh and adapter (40 layers) with (12 a)'s
+     client traffic: streams equal phase 4's under the margin rule, phase
+     5's check, contiguous SSE indices, ``/healthz`` 200, ``tick_errors``
+     0, the four serving kernels launched alike on every rank, a clean
+     drain, client TTFT and ITL; then rank 1 killed under an idle front
+     door: ``/healthz`` non-200 within ``TP_HEALTH_S`` and the mesh
+     aborted without a hang; (c) mp = 4 at ``TP4_LAYERS`` layers (2 KV
+     heads a rank), phase 5's check;
  12. front door and fleet — (a) phase 4's model (rebuilt from its seed),
      full width and depth, phase 4's flags with ``record_logits``, behind
      ``FrontDoor.start_in_thread`` (the engine on one executor thread
@@ -156,6 +163,16 @@ Phases, each printing its own lines:
      uninterrupted sampled run on the card but within the CDF rounding of
      a bucket edge; replica 1 restarts (generation 2) and serves a later
      request; ``tick_errors`` 0 on every replica; the fleet drain clean;
+     (c) the same fleet over two ``--mesh 1,2`` replicas (four ranks
+     sharing the card on gloo) of phase 4's model at ``FLEET_TP_LAYERS``
+     layers (a cut for the time limit alone): four greedy requests and
+     one sampled, replica 1's rank 0 SIGKILLed mid-stream and its whole
+     mesh gone within ``FLEET_REAP_S`` (``/proc``, ``nvidia-smi``), the
+     splices held to uninterrupted one-device runs on the card, replica 1
+     back as generation 2 serving a later request, a worker of idle
+     replica 0 SIGKILLed and replica 0 restarted within ``fail_threshold``
+     probes, the backoff and one replica start, a clean drain, no mesh
+     process left; each mesh replica's start seconds;
  13. model families — ``build_model`` at full width, one run after another
      with the card freed between them (``FAMILY_RUNS``): llama4-scout
      (moe, top-1) at 4 of 48 layers in bf16 and with ``weight_bits`` 2,
@@ -196,7 +213,7 @@ paged decode and prefill at 4 and 2 KV heads, the verifier's C = 5 over
 int8 pages, each with its SDPA yardstick).
 
 The next-to-last line is a JSON record of the six kernels (each with its
-launches on every path, phase 11's by rank); the last line is
+launches on every path, phase 11's by rank, (d)'s too); the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Nothing of JAX or of the ``repro`` package is imported.
 """
@@ -3217,6 +3234,8 @@ def phase_observe(torch, *, seed: int, layers: int, check_max: float,
 TP_SPEC_LAYERS, TP4_LAYERS = 8, 2
 # phase 11 (b)'s NaN: request 1's logits turn NaN inside its verify tick 4
 TP_NAN_PLAN = "nan_logits@rid={1},tick=4"
+# phase 11 (d): seconds a dead worker may take to turn /healthz non-200
+TP_HEALTH_S = 1.0
 
 
 def _tp_run(torch, tag: str, mesh, dist, args, schedule, *, max_seq_len: int,
@@ -3262,6 +3281,116 @@ def _tp_run(torch, tag: str, mesh, dist, args, schedule, *, max_seq_len: int,
     return engine, run, per_rank
 
 
+def _tp_frontdoor(torch, mesh, dist, qm, prompts, base: dict, *,
+                  check_max: float, gen: int, max_seq_len: int) -> list:
+    """Phase 11 (d): ``FrontDoor`` over (a)'s mesh and adapter, phase 12
+    (a)'s client traffic (phase 4's prompts, one buffered, a burst of four
+    then one every ``FD_GAP_S``).  Streams equal phase 4's (``base``) but
+    where its top-2 margin is below 2 x ``check_max``, phase 5's check,
+    contiguous SSE indices, ``/healthz`` 200, no tick error, the serving
+    kernels launched on every rank alike, a clean drain.  Then a second
+    front door over the same adapter, idle, and rank 1 killed: ``/healthz``
+    non-200 within ``TP_HEALTH_S``, the drain and the mesh's abort without
+    a hang.  Ends the mesh.  Returns the launches by rank."""
+    import threading
+
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serve.distributed import (
+        rank_launch_counts,
+        reset_rank_counts,
+    )
+    from repro_torch.serve.frontdoor import FrontDoor, leak_gate
+
+    tag = "tp-d"
+    n_req = len(prompts)
+    engine = build_engine(dist, max_seq_len=max_seq_len, args=SERVE_ARGS,
+                          record_logits=True)
+    fd = FrontDoor(engine, port=0, drain_timeout_s=30.0, tick_stall_s=60.0)
+    _sync(torch)
+    reset_rank_counts(mesh)
+    t0 = time.perf_counter()
+    fd.start_in_thread()
+    outs = [{} for _ in range(n_req)]
+    threads = []
+    for i in range(n_req):
+        body = {"prompt": prompts[i].tolist(), "max_new": gen,
+                "stream": i != FD_BUFFERED}
+        th = threading.Thread(target=_http_stream,
+                              args=(fd.port, body, outs[i]))
+        th.start()
+        threads.append(th)
+        if i >= 3:
+            time.sleep(FD_GAP_S)
+    status, health = _get(fd.port, "/healthz")
+    for th in threads:
+        th.join(2 * CLIENT_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    streams, rids = {}, {}
+    for i, o in enumerate(outs):
+        streams[i], rids[i] = _stream_tokens(tag, o)
+    status_m, metricsz = _get(fd.port, "/metricsz")
+    report = fd.drain_and_join(timeout=120)
+    _sync(torch)
+    per_rank = rank_launch_counts(mesh)
+    s = engine.summary()
+    by_rid = {r.rid: r for r in engine.finished}
+    reqs = [by_rid[rids[i]] for i in range(n_req)]
+    log(f"[{tag}] FrontDoor over the mp=2 mesh on 127.0.0.1:{fd.port}: "
+        f"{n_req} requests ({n_req - 1} SSE, 1 buffered), a burst of 4 then "
+        f"one every {FD_GAP_S * 1e3:.0f} ms: "
+        f"{sum(map(len, streams.values()))} tokens in {wall:.2f}s over "
+        f"{s['steps']} ticks; /healthz during the run {status} "
+        f"{health['status']}; {_client_latency(outs)}; drain: "
+        + " / ".join(report.lines()) + f"; tick_errors {s['tick_errors']} "
+        f"(/metricsz {status_m} {metricsz.get('tick_errors')}); kernel "
+        f"launches by rank " + "; ".join(
+            f"rank {r}: " + ", ".join(f"{k} {c[k]}" for k in SERVE_KERNELS)
+            for r, c in enumerate(per_rank)))
+    if status != 200 or health["status"] != "ok":
+        raise AssertionError(f"[{tag}] /healthz did not answer ok")
+    if s["tick_errors"] or metricsz.get("tick_errors"):
+        raise AssertionError(f"[{tag}] {s['tick_errors']} ticks raised")
+    if not report.clean or report.exit_code != 0 \
+            or leak_gate(engine.pool) != (0, 0):
+        raise AssertionError(f"[{tag}] the drain's leak gate failed")
+    missing = [(r, k) for r, c in enumerate(per_rank) for k in SERVE_KERNELS
+               if c[k] == 0]
+    if missing or any(c != per_rank[0] for c in per_rank):
+        raise AssertionError(f"[{tag}] kernels not launched alike on every "
+                             f"rank: missing {missing}")
+    _splice_partings(torch, tag, streams, base, 2 * check_max)
+    check_logits(torch, qm, prompts, reqs, atol=LOGIT_ATOL,
+                 mean_atol=LOGIT_MEAN_ATOL, tag=f"{tag} check")
+    del engine, fd, reqs, by_rid
+
+    # a worker dies while the engine idles
+    engine = build_engine(dist, max_seq_len=max_seq_len, args=SERVE_ARGS)
+    fd = FrontDoor(engine, port=0, drain_timeout_s=30.0,
+                   tick_stall_s=60.0).start_in_thread()
+    before = _get(fd.port, "/healthz")
+    worker = mesh.procs[0]
+    t_kill = time.perf_counter()
+    worker.kill()
+    worker.wait()
+    status, health = _get(fd.port, "/healthz")
+    t_health = time.perf_counter() - t_kill
+    report = fd.drain_and_join(timeout=60)
+    mesh.close()
+    t_end = time.perf_counter() - t_kill
+    log(f"[{tag}] rank 1 (pid {worker.pid}) killed under an idle front "
+        f"door: /healthz {before[0]} {before[1]['status']} before, "
+        f"{status} {health['status']} ({health.get('mesh')!r}) "
+        f"{t_health * 1e3:.1f} ms after the kill; drain and the mesh's "
+        f"abort done {t_end:.2f}s after it ({report.lines()[0]}; mesh "
+        f"{mesh.broken_reason()!r})")
+    if before[0] != 200 or status == 200 or t_health > TP_HEALTH_S:
+        raise AssertionError(f"[{tag}] /healthz did not turn non-200 "
+                             f"within {TP_HEALTH_S}s of a dead rank")
+    if not report.clean or mesh.broken_reason() is None:
+        raise AssertionError(f"[{tag}] the idle drain or the abort failed")
+    return per_rank
+
+
 def phase_tp(torch, *, seed: int, layers: int, served: dict,
              check_max: float, cfg=None) -> dict:
     """Phase 11: tensor-parallel serving (``serve/distributed.py``) with
@@ -3274,7 +3403,9 @@ def phase_tp(torch, *, seed: int, layers: int, served: dict,
     ``TP_SPEC_LAYERS`` layers against the same on one device
     (``INT8_LOGIT_*``), with request 1's logits NaN in a verify tick: that
     lane alone quarantined.  (c) mp = 4 at ``TP4_LAYERS`` layers: 2 KV
-    heads a rank, phase 5's gate.  ``served``
+    heads a rank, phase 5's gate.  (d), after (b), on (a)'s mesh and
+    adapter: the front door over the mesh (:func:`_tp_frontdoor`), which
+    ends that mesh.  ``served``
     is phase 4's record, ``check_max`` phase 5's max |diff|; ``cfg``
     replaces the model (a rehearsal on the CPU).  Returns every run's
     launches, by rank."""
@@ -3353,9 +3484,8 @@ def phase_tp(torch, *, seed: int, layers: int, served: dict,
                                           for i in range(len(prompts))],
                      atol=LOGIT_ATOL, mean_atol=LOGIT_MEAN_ATOL,
                      tag="tp-a check")
-        del eng, run, dist, qm
-        if DEV == "cuda":
-            torch.cuda.empty_cache()
+        del eng, run
+        dist_a, qm_a = dist, qm  # (d)'s, after (b)
 
         # ---- (b) mp = 2: K = 4 over int8 pages, a NaN lane ---------------
         cfg_b = dataclasses.replace(
@@ -3407,6 +3537,14 @@ def phase_tp(torch, *, seed: int, layers: int, served: dict,
                 or unexplained):
             raise AssertionError("[tp-b] int8 K=4 at mp=2 disagrees")
         del eng, run, one, dist, qm
+
+        # ---- (d) the front door over (a)'s mesh and adapter ---------------
+        t0 = time.perf_counter()
+        by_rank("tp-d frontdoor mp=2", _tp_frontdoor(
+            torch, mesh, dist_a, qm_a, prompts, base, check_max=check_max,
+            gen=gen, max_seq_len=max_seq_len))
+        log(f"[tp-d] passed in {time.perf_counter() - t0:.1f}s")
+        del dist_a, qm_a
     finally:
         mesh.close()
     if DEV == "cuda":
@@ -3460,6 +3598,14 @@ FLEET_KILL_AFTER = 4
 FLEET_EXTRA_ARGS: list = []
 # how long a client waits on its socket, seconds
 CLIENT_TIMEOUT_S = 60
+# (c) the fleet over meshes: two `--mesh 1,2` replicas (four ranks sharing
+# the card on gloo, ~1 s a 40-layer tick) of phase 4's model at full width,
+# its depth cut to FLEET_TP_LAYERS for the script's time limit alone; the
+# first FLEET_TP_GREEDY of phase 4's prompts greedy, and the sampled one
+FLEET_TP_LAYERS = 8
+FLEET_TP_GREEDY = 4
+# seconds the killed mesh's processes may outlive its rank 0's SIGKILL
+FLEET_REAP_S = 10.0
 
 
 def _http_stream(port: int, body: dict, out: dict, *,
@@ -3631,6 +3777,311 @@ def _sampled_splice(torch, tag: str, toks, ref, *, delta: float,
                              f"rounding explains it")
 
 
+def _timed_factory(tail):
+    """A ``ProcessReplicaFactory`` of ``tail`` that notes when it spawned
+    each replica generation (``spawned``, for the start seconds) and
+    echoes each replica line with the seconds since its spawn."""
+    from repro_torch.serve.fleet import ProcessReplicaFactory, replica_command
+
+    class TimedFactory(ProcessReplicaFactory):
+        spawned: dict = {}  # (index, generation) -> perf_counter
+
+        def spawn(self, handle) -> None:
+            self.spawned[(handle.index, handle.generation + 1)] = \
+                time.perf_counter()
+            super().spawn(handle)
+
+        def _pump(self, handle, pipe) -> None:
+            t0 = self.spawned[(handle.index, handle.generation)]
+            for line in iter(pipe.readline, b""):
+                print(f"[replica {handle.index} "
+                      f"+{time.perf_counter() - t0:.1f}s] "
+                      f"{line.decode(errors='replace').rstrip()}",
+                      flush=True)
+            pipe.close()
+
+    return TimedFactory(replica_command(tail))
+
+
+def _mesh_procs(pid: int) -> list:
+    """A mesh replica's processes as (pid, start time): rank 0 and every
+    worker under it."""
+    from repro_torch.serve.fleet.supervisor import _descendants, _stat
+
+    st = _stat(pid)
+    return ([] if st is None else [(pid, st[19])]) + _descendants(pid)
+
+
+def _gpu_apps(torch) -> list:
+    """``nvidia-smi``'s compute apps on the card as (pid, used memory)
+    (none off the card).  In a container the pids may be the host's."""
+    if DEV != "cuda":
+        return []
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout
+    return [(int(ln.split(",")[0]), ln.split(",")[1].strip())
+            for ln in out.splitlines() if ln.strip()]
+
+
+def _fleet_tp(torch, *, cfg, seed: int, prompts, args, check_max: float,
+              prompt_len: int, gen: int) -> None:
+    """Phase 12 (c): two replica processes of ``launch/serve.py --mesh
+    1,2`` behind an in-process ``Supervisor`` and ``FleetRouter``, over
+    phase 4's model at ``FLEET_TP_LAYERS`` layers saved as an artifact.
+    ``FLEET_TP_GREEDY`` greedy requests and one sampled; replica 1's rank
+    0 SIGKILLed once its streams hold ``FLEET_KILL_AFTER`` tokens: its
+    mesh gone within ``FLEET_REAP_S`` (``/proc`` and ``nvidia-smi``),
+    every stream whole, the splices held to an uninterrupted one-device
+    run on the card (greedy under the margin rule, sampled as (b)),
+    replica 1 back as generation 2 serving a later request.  While replica
+    1 restarts, a worker of idle replica 0 SIGKILLed: the supervisor
+    restarts replica 0 within ``fail_threshold`` probes, the backoff and
+    one replica start.  A clean fleet drain, and no mesh process left."""
+    import dataclasses
+    import os
+    import signal
+    import threading
+
+    import numpy as np
+
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serve.adapter import CachedDecoder
+    from repro_torch.serve.artifacts import save_quantized
+    from repro_torch.serve.fleet import (
+        FleetRouter,
+        Supervisor,
+        prefix_key,
+        rendezvous_rank,
+    )
+    from repro_torch.serve.fleet.supervisor import _running
+    from repro_torch.serve.scheduler import SamplingParams
+    from repro_torch.serve.synthetic import (
+        QUIP_CONFIG,
+        synthetic_quantized_model,
+    )
+
+    tag = "fleet-tp"
+    t_c = time.perf_counter()
+    cfg = dataclasses.replace(cfg, n_layers=min(FLEET_TP_LAYERS,
+                                                cfg.n_layers))
+    log(f"[{tag}] DEPTH CUT for the time limit: {cfg.n_layers} layers "
+        f"(full width kept)")
+    max_seq_len = prompt_len + gen
+    greedy = list(range(FLEET_TP_GREEDY))
+    qm = synthetic_quantized_model(cfg, seed=seed, device=DEV)
+
+    # the uninterrupted runs on one device: the greedy requests batched
+    # and one by one (their drift between batchings), the sampled alone
+    def one_device(idx, sampling=None, serial=False):
+        eng = build_engine(CachedDecoder.from_quantized(qm),
+                           max_seq_len=max_seq_len, args=args,
+                           record_logits=True)
+        out = {}
+        for i in idx:
+            out[i] = eng.submit(prompts[i], max_new=gen, sampling=sampling)
+            if serial:
+                eng.run()
+        eng.run()
+        return out
+
+    art = WORK_DIR / "fleet_tp_artifact"
+    shutil.rmtree(art, ignore_errors=True)
+    save_quantized(art, qm, QUIP_CONFIG, extra_meta={"seed": seed})
+    affinity = [rendezvous_rank(prefix_key(prompts[i]), 2)[0] for i in greedy]
+    if affinity[FLEET_SAMPLED_PROMPT] != 1:
+        raise AssertionError(f"[{tag}] the sampled prompt's affinity is not "
+                             f"replica 1")
+
+    tail = ["--load-quantized", str(art), "--paged", "--paged-prefill",
+            "--device", DEV, "--mesh", "1,2", "--slots", str(args.slots),
+            "--page-size", str(args.page_size), "--token-budget",
+            str(args.token_budget), "--prefill-chunk",
+            str(args.prefill_chunk), "--prompt-len", str(prompt_len),
+            "--gen", str(gen), "--drain-timeout-s", "30", "--tick-stall-s",
+            "60", *FLEET_EXTRA_ARGS]
+    factory = _timed_factory(tail)
+    sup = Supervisor(factory, 2, probe_interval_s=0.5, start_timeout_s=600,
+                     max_restarts=1, backoff_base_s=0.5,
+                     replica_drain_timeout_s=90)
+    router = FleetRouter(sup, port=0, drain_timeout_s=60,
+                         stream_idle_timeout_s=120)
+    h0, h1 = sup.handles
+    starts, ready_at = {}, {}
+
+    def ready(h, generation):
+        if h.state == "healthy" and h.generation == generation:
+            key = (h.index, generation)
+            if key not in ready_at:
+                ready_at[key] = time.perf_counter()
+                starts[key] = ready_at[key] - factory.spawned[key]
+            return True
+        return False
+
+    def gone(procs, apps_before=()):
+        """``procs`` ended per /proc and per nvidia-smi: none of their pids
+        listed and, given the list before (the container shows the host's
+        pids), as many fewer apps listed."""
+        apps = _gpu_apps(torch)
+        return not any(map(_running, procs)) \
+            and not {p for p, _ in procs} & {p for p, _ in apps} \
+            and (not apps_before
+                 or len(apps) <= len(apps_before) - len(procs))
+
+    drained = False
+    meshes = []
+    start_errors = []
+
+    def start():
+        try:
+            router.start_in_thread()
+            for h in sup.handles:
+                ready(h, 1)
+        except BaseException as e:  # raised on the main thread below
+            start_errors.append(e)
+
+    try:
+        # the replicas start while the one-device references run here
+        starter = threading.Thread(target=start, name="fleet-start")
+        starter.start()
+        try:
+            batched = one_device(greedy)
+            drift = _compare_greedy(
+                torch, {"reqs": one_device(greedy, serial=True)},
+                {"reqs": batched})[0]
+            sp = SamplingParams(temperature=SAMPLE_TEMP, top_p=SAMPLE_TOP_P,
+                                seed=FLEET_SAMPLE_SEED)
+            sampled_ref = one_device([FLEET_SAMPLED_PROMPT],
+                                     sp)[FLEET_SAMPLED_PROMPT]
+            cdf_err = _cdf_rounding(torch, torch.as_tensor(
+                np.stack(sampled_ref.step_logits)).to(DEV), SAMPLE_TEMP,
+                SAMPLE_TOP_P)
+        finally:
+            starter.join()
+        del qm
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+        if start_errors:
+            raise start_errors[0]
+        bound = 2 * max(check_max, drift)
+        meshes = [_mesh_procs(h.pid) for h in sup.handles]
+        apps = _gpu_apps(torch)  # this process and the four ranks
+        log(f"[{tag}] 2 replicas of `python -m repro_torch.launch.serve "
+            f"{' '.join(tail)}` ready, started in "
+            f"{starts[(0, 1)]:.1f}s and {starts[(1, 1)]:.1f}s; processes "
+            f"(rank 0 first) {[[p for p, _ in m] for m in meshes]}; "
+            f"nvidia-smi compute apps {apps}; prompts' affinity {affinity}")
+        if any(len(m) != 2 for m in meshes):
+            raise AssertionError(f"[{tag}] a replica is not a mesh of two "
+                                 f"ranks")
+        bodies = {i: {"prompt": prompts[i].tolist(), "max_new": gen}
+                  for i in greedy}
+        bodies["sampled"] = {"prompt": prompts[FLEET_SAMPLED_PROMPT].tolist(),
+                             "max_new": gen, "temperature": SAMPLE_TEMP,
+                             "top_p": SAMPLE_TOP_P, "seed": FLEET_SAMPLE_SEED}
+        outs = {k: {} for k in bodies}
+        threads = [threading.Thread(target=_http_stream,
+                                    args=(router.port, b, outs[k]))
+                   for k, b in bodies.items()]
+        for th in threads:
+            th.start()
+        n_on1 = affinity.count(1) + 1
+
+        def midway():
+            entries = [e for e in router.journal.live() if e.replica == 1]
+            return h1.routed >= n_on1 and entries and all(
+                len(e.tokens) >= FLEET_KILL_AFTER for e in entries)
+
+        _wait_for(midway, 300, "every stream on replica 1 to be mid-way")
+        held = sorted(len(e.tokens) for e in router.journal.live()
+                      if e.replica == 1)
+        t_kill = time.perf_counter()
+        os.kill(h1.pid, signal.SIGKILL)
+        _wait_for(lambda: gone(meshes[1], apps), FLEET_REAP_S,
+                  "the killed mesh's processes to end")
+        t_gone = time.perf_counter() - t_kill
+        log(f"[{tag}] SIGKILL to replica 1's rank 0 (pid {h1.pid}) holding "
+            f"{len(held)} streams at {held} tokens: its mesh "
+            f"{[p for p, _ in meshes[1]]} gone from /proc and nvidia-smi "
+            f"{t_gone:.2f}s later (nvidia-smi now lists {_gpu_apps(torch)}"
+            f", {len(apps)} before)")
+        for th in threads:
+            th.join(2 * CLIENT_TIMEOUT_S)
+        toks = {k: _stream_tokens(tag, o)[0] for k, o in outs.items()}
+        _, fz = _get(router.port, "/fleetz")
+        log(f"[{tag}] {len(bodies)} requests ({len(greedy)} greedy, 1 "
+            f"sampled): failovers {fz['router']['failovers']}, routed per "
+            f"replica {[r['routed'] for r in fz['replicas']]}; "
+            f"{_client_latency(outs.values())}; drift between batchings on "
+            f"one device {drift:.4f}")
+        if fz["router"]["failovers"] < 1:
+            raise AssertionError(f"[{tag}] no failover")
+        _splice_partings(torch, f"{tag} greedy",
+                         {i: toks[i] for i in greedy}, batched, bound)
+        _sampled_splice(torch, f"{tag} sampled", toks["sampled"],
+                        sampled_ref, delta=2 * drift, floor=4 * cdf_err)
+
+        # replica 1 comes back while a worker of replica 0, idle now, dies:
+        # /healthz 503 mesh_broken, fail_threshold probes, a restart; the
+        # two restarts overlap
+        old0 = meshes[0]
+        t_kill0 = time.perf_counter()
+        os.kill(old0[1][0], signal.SIGKILL)
+        _wait_for(lambda: all([ready(h0, 2), ready(h1, 2)]), 600,
+                  "replicas 0 and 1 to restart")
+        t_back = ready_at[(0, 2)] - t_kill0
+        t_restart = ready_at[(1, 2)] - t_kill
+        meshes = [_mesh_procs(h.pid) for h in sup.handles]
+        limit = (sup.fail_threshold * sup.probe_interval_s
+                 + sup.backoff_base_s + 2 * sup.probe_interval_s
+                 + max(starts.values()))
+        log(f"[{tag}] replica 1 back as generation {h1.generation} "
+            f"{t_restart:.1f}s after its kill (this start "
+            f"{starts[(1, 2)]:.1f}s), processes {[p for p, _ in meshes[1]]}"
+            f"; SIGKILL to replica 0's worker (pid {old0[1][0]}) while "
+            f"idle: replica 0 back as generation {h0.generation} "
+            f"{t_back:.1f}s later (this start {starts[(0, 2)]:.1f}s; limit "
+            f"{sup.fail_threshold} probes x {sup.probe_interval_s}s + "
+            f"backoff {sup.backoff_base_s}s + 2 probe periods + the slowest "
+            f"start = {limit:.1f}s); its old mesh gone: {gone(old0)}")
+        if t_back > limit or not gone(old0) or len(meshes[0]) != 2 \
+                or len(meshes[1]) != 2:
+            raise AssertionError(f"[{tag}] a replica was not restarted as a "
+                                 f"new mesh in time")
+        # the restarted replica 1 serves a later request
+        later_i = next(i for i in greedy if affinity[i] == 1)
+        served_before = h1.served
+        later = {}
+        _http_stream(router.port, bodies[later_i], later)
+        _splice_partings(torch, f"{tag} restarted",
+                         {later_i: _stream_tokens(tag, later)[0]}, batched,
+                         bound)
+        _wait_for(lambda: h1.served == served_before + 1, 30,
+                  "the restarted replica to serve the later request")
+        errs = {h.index: _get(h.port, "/metricsz")[1]["tick_errors"]
+                for h in sup.handles}
+        if any(errs.values()):
+            raise AssertionError(f"[{tag}] a replica's ticks raised: {errs}")
+        frep = router.drain_and_join(timeout=300)
+        drained = True
+    finally:
+        if not drained:  # no more restarts; stop every replica started
+            sup._draining = True
+            for h in sup.handles:
+                factory.kill(h)
+    left = [p for m in meshes for p in m if _running(p)]
+    log(f"[{tag}] fleet drain: " + " / ".join(frep.lines())
+        + f"; mesh processes left {left}; replica starts (index, "
+        f"generation): seconds {starts}; 12 (c) took "
+        f"{time.perf_counter() - t_c:.1f}s")
+    if not frep.clean or frep.failed or left \
+            or [r["restarts"] for r in frep.replicas] != [1, 1] \
+            or any(r["exit_code"] != 0 for r in frep.replicas):
+        raise AssertionError(f"[{tag}] the fleet drain was not clean")
+    shutil.rmtree(art, ignore_errors=True)
+
+
 def phase_frontdoor(torch, *, seed: int, layers: int, served: dict,
                     check_max: float, cfg=None) -> dict:
     """Phase 12: (a) phase 4's model (rebuilt from its seed, full width,
@@ -3639,9 +4090,10 @@ def phase_frontdoor(torch, *, seed: int, layers: int, served: dict,
     (``served``) and to the recompute oracle; (b) the same model as an
     artifact served by two replica processes of ``launch/serve.py`` behind
     an in-process ``Supervisor`` and ``FleetRouter``, replica 1 killed
-    (SIGKILL) mid-stream and restarted.  ``check_max`` is phase 5's max
-    |diff|.  ``cfg`` replaces the model (a rehearsal on the CPU at a small
-    one).  Returns (a)'s kernel launches."""
+    (SIGKILL) mid-stream and restarted; (c) the same over two
+    ``--mesh 1,2`` replicas (:func:`_fleet_tp`).  ``check_max`` is phase
+    5's max |diff|.  ``cfg`` replaces the model (a rehearsal on the CPU at
+    a small one).  Returns (a)'s kernel launches."""
     import dataclasses
     import os
     import signal
@@ -3910,9 +4362,15 @@ def phase_frontdoor(torch, *, seed: int, layers: int, served: dict,
             or any(r["exit_code"] != 0 for r in frep.replicas):
         raise AssertionError("[fleet] the fleet drain was not clean")
     shutil.rmtree(art, ignore_errors=True)
+    t_b = time.perf_counter() - t_b
+
+    # ---- (c) two mesh replicas behind the router ---------------------------
+    t_c = time.perf_counter()
+    _fleet_tp(torch, cfg=cfg, seed=seed, prompts=prompts, args=args,
+              check_max=check_max, prompt_len=prompt_len, gen=gen)
     log(f"[frontdoor] phase 12 passed in "
         f"{time.perf_counter() - t_phase:.1f}s ((a) {t_a:.1f}s, (b) "
-        f"{time.perf_counter() - t_b:.1f}s)")
+        f"{t_b:.1f}s, (c) {time.perf_counter() - t_c:.1f}s)")
     return {"frontdoor": launches}
 
 

@@ -37,17 +37,22 @@ prints metric snapshots; ``--canary-every`` / ``--canary-prompts`` /
 audits a loaded artifact's quality section.  ``--mesh DP,MP`` serves
 tensor-parallel (``serve/distributed.py``): this process is rank 0 and
 starts the other ranks itself; packed codes, the KV pool and attention
-shard over the model axis.  ``--http-port PORT`` serves over HTTP/SSE
+shard over the model axis; the other ranks ignore SIGINT and SIGTERM
+and die with this one.  ``--http-port PORT`` serves over HTTP/SSE
 instead of the fixed workload (``serve/frontdoor/``: ``POST
 /v1/generate``, ``/healthz``, ``/readyz``, ``/metricsz``; SIGTERM/SIGINT
 drain through the leak gate, ``--drain-timeout-s``, ``--tick-stall-s``,
-``--no-ladder``); ``--fleet N`` serves N such replica processes of this
-CLI behind one supervised router on ``--router-port``
+``--no-ladder``), with ``--mesh`` too: the engine thread sends the
+mesh's commands, ``/healthz`` answers 503 once a rank is gone, and the
+mesh closes after the drain; ``--fleet N`` serves N such replica
+processes of this CLI behind one supervised router on ``--router-port``
 (``serve/fleet/``: prefix affinity, typed rejections passed through,
 journaled mid-stream failover with ``--probe-interval-s``,
 ``--max-restarts``, ``--restart-backoff-s``, and ``--replica-fault
 IDX:SPEC`` arming a fault plan on one replica's first incarnation, e.g.
-``'1:replica_kill@tick=40'``).  ``--check``
+``'1:replica_kill@tick=40'``); with ``--mesh DP,MP`` every replica is a
+mesh of its own (the fleet parent builds none), and a replica killed or
+restarted takes its ranks with it.  ``--check``
 verifies the engine's greedy tokens against an oracle — the full-prefix
 recompute for quantized weights, ``Model.prefill``/``decode_step`` over a
 dense batch cache (``greedy_generate``) for fp weights, with
@@ -498,11 +503,6 @@ def main(argv=None):
                 "--fleet assigns each replica its own ephemeral "
                 "--http-port; use --router-port for the client-facing "
                 "port")
-    if args.mesh and (args.http_port is not None or args.fleet is not None):
-        raise SystemExit(
-            "--mesh serves from one controller process over its ranks; "
-            "the front door and the fleet do not drive a mesh yet — drop "
-            "--mesh, or --http-port / --fleet")
     if args.check and args.kv_int8 and not (args.paged or args.paged_prefill):
         raise SystemExit(
             "--kv-int8 --check needs --paged (and/or --paged-prefill): "

@@ -50,6 +50,18 @@ directory.  A worker that fails prints its traceback and exits nonzero;
 rank 0 then fails in the next collective or command (its peer is gone)
 and kills the rest.
 
+**Lifetime.**  Rank 0 alone decides when the workers stop: by
+:meth:`ServingMesh.close` or :meth:`ServingMesh.abort`.  Workers ignore
+SIGINT and SIGTERM (a Ctrl-C reaches the whole foreground group; rank 0's
+drain then stops them), and on Linux they die with rank 0: each asks the
+kernel for SIGKILL when its parent goes (``PR_SET_PDEATHSIG``), so a
+SIGKILLed controller leaves no worker on a card, whatever the worker was
+waiting on.  Commands come from one thread: the first to call
+:meth:`ServingMesh.call`, or one that takes the mesh over with
+:meth:`ServingMesh.adopt` (a front door's engine thread);
+:meth:`ServingMesh.broken_reason` polls the workers from any thread
+without sending a command.
+
     mesh = make_serving_mesh(1, 2, device="cpu")
     dec = DistributedCachedDecoder.from_quantized(qm, mesh=mesh)
     engine = Engine(dec, EngineConfig(...))   # on rank 0, as ever
@@ -65,11 +77,14 @@ import json
 import os
 import pickle
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import traceback
 import weakref
+from collections import deque
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -86,6 +101,7 @@ from repro_torch.serve.kv_cache import PagedKVPool
 
 __all__ = [
     "DistributedCachedDecoder",
+    "MeshThreadError",
     "ServingMesh",
     "make_serving_mesh",
     "shard_quantized_linear",
@@ -246,6 +262,11 @@ def _close_open_meshes() -> None:
         mesh.close()
 
 
+class MeshThreadError(RuntimeError):
+    """A mesh command from a thread other than the one that sends them:
+    two threads' broadcasts would interleave on the command channel."""
+
+
 @dataclasses.dataclass(eq=False)
 class ServingMesh(MeshContext):
     """A live ``(data, model)`` mesh, as one of its ranks sees it.
@@ -264,9 +285,10 @@ class ServingMesh(MeshContext):
     procs: list = dataclasses.field(default_factory=list)
     workdir: Optional[str] = None
     _next_id: int = 0
-    _drops: list = dataclasses.field(default_factory=list)
+    _drops: deque = dataclasses.field(default_factory=deque)
     _broken: Optional[str] = None
     _closed: bool = False
+    _owner: Optional[int] = None  # ident of the thread that sends commands
 
     __hash__ = object.__hash__  # one mesh is one live set of processes
 
@@ -284,29 +306,71 @@ class ServingMesh(MeshContext):
 
     def drop_later(self, oid: int) -> None:
         """Forget object ``oid`` on every rank with the next command (safe
-        from a finalizer: sends nothing itself)."""
+        from a finalizer on any thread: sends nothing itself)."""
         self._drops.append(oid)
+
+    def adopt(self) -> None:
+        """Make the calling thread the one that sends this mesh's commands
+        (a front door's engine thread takes over from the thread that
+        built the engine).  No command may be in flight."""
+        self._owner = threading.get_ident()
+
+    def release(self) -> None:
+        """Let the next thread to :meth:`call` take the mesh over (the
+        engine thread that adopted it has ended)."""
+        self._owner = None
+
+    def _dead_rank(self) -> Optional[str]:
+        for r, p in enumerate(self.procs, start=1):
+            rc = p.poll()
+            if rc is not None:
+                return f"rank {r} exited with code {rc}"
+        return None
+
+    def broken_reason(self) -> Optional[str]:
+        """Why this mesh can serve no more, or None: broken, closed, or a
+        worker gone.  Host only — it polls the worker processes and sends
+        nothing — so any thread may ask (a front door's ``/healthz``)."""
+        if self._broken:
+            return self._broken
+        if self._closed:
+            return "closed"
+        return self._dead_rank()
 
     def _check(self) -> None:
         if self._broken:
             raise RuntimeError(f"serving mesh is broken: {self._broken}")
         if self._closed:
             raise RuntimeError("serving mesh is closed")
-        for r, p in enumerate(self.procs, start=1):
-            rc = p.poll()
-            if rc is not None:
-                self.abort(f"rank {r} exited with code {rc}")
-                raise RuntimeError(f"serving mesh is broken: {self._broken}")
+        dead = self._dead_rank()
+        if dead:
+            self.abort(dead)
+            raise RuntimeError(f"serving mesh is broken: {self._broken}")
+
+    def _claim(self) -> None:
+        me = threading.get_ident()
+        if self._owner is None:
+            self._owner = me
+        elif self._owner != me:
+            raise MeshThreadError(
+                f"serving mesh commands come from one thread (id "
+                f"{self._owner}); thread {threading.current_thread().name!r}"
+                f" may not send one")
 
     def call(self, fn: Callable, *args):
         """Run ``fn(mesh, *args)`` on every rank (``fn`` a module-level
         function, ``args`` picklable host values); returns rank 0's
-        result.  A failure after the command went out breaks the mesh: the
-        workers are stopped and every later call raises."""
+        result.  Only the mesh's command thread may call (else
+        :class:`MeshThreadError`).  A failure after the command went out
+        breaks the mesh: the workers are stopped and every later call
+        raises."""
         if self.rank != 0:
             raise RuntimeError("only rank 0 sends commands")
+        self._claim()
         self._check()
-        drops, self._drops = self._drops, []
+        drops = []
+        while self._drops:  # popleft is atomic against drop_later
+            drops.append(self._drops.popleft())
         try:
             self.channel.send((drops, fn, args))
         except BaseException as e:
@@ -334,6 +398,9 @@ class ServingMesh(MeshContext):
         """Stop the workers and wait for them (rank 0).  Idempotent."""
         if self.rank != 0 or self._closed:
             return
+        dead = None if self._broken else self._dead_rank()
+        if dead:  # a stop command would go to a rank that is gone
+            self.abort(dead)
         if self._broken is None:
             try:
                 self.channel.send(([], _cmd_stop, ()))
@@ -434,14 +501,37 @@ def _connect(spec: dict, rank: int) -> ServingMesh:
     return mesh
 
 
-_WORKER = ("import sys; from repro_torch.serve.distributed import "
-           "worker_main; worker_main(sys.argv[1], int(sys.argv[2]))")
+# a worker ignores SIGINT and SIGTERM from its first line on (before the
+# slow imports): rank 0 alone stops it
+_WORKER = ("import signal, sys; signal.signal(signal.SIGINT, signal.SIG_IGN);"
+           " signal.signal(signal.SIGTERM, signal.SIG_IGN); "
+           "from repro_torch.serve.distributed import worker_main; "
+           "worker_main(sys.argv[1], int(sys.argv[2]))")
+
+_PR_SET_PDEATHSIG = 1
+
+
+def _die_with_parent(parent: int) -> None:
+    """On Linux, SIGKILL this process when the thread that started it
+    ends (``PR_SET_PDEATHSIG``); exit now if rank 0 ``parent`` is already
+    gone (it died before the request took effect)."""
+    if sys.platform.startswith("linux"):
+        import ctypes
+
+        libc = ctypes.CDLL(None, use_errno=True)
+        if libc.prctl(_PR_SET_PDEATHSIG, signal.SIGKILL, 0, 0, 0) != 0:
+            raise OSError(ctypes.get_errno(), "prctl(PR_SET_PDEATHSIG)")
+    if os.getppid() != parent:
+        os._exit(1)
 
 
 def worker_main(spec_json: str, rank: int) -> None:
-    """Entry point of a worker rank (started by :func:`make_serving_mesh`)."""
+    """Entry point of a worker rank (started by :func:`make_serving_mesh`
+    as ``_WORKER``, which has SIGINT and SIGTERM ignored already)."""
     try:
-        mesh = _connect(json.loads(spec_json), rank)
+        spec = json.loads(spec_json)
+        _die_with_parent(spec["parent"])
+        mesh = _connect(spec, rank)
         mesh.serve()
     except BaseException:
         print(f"[mesh] rank {rank} failed:", file=sys.stderr, flush=True)
@@ -459,14 +549,20 @@ def make_serving_mesh(dp: int, mp: int, *,
     interpreter, this package on their path).  Ranks go one per card with
     NCCL when there are enough cards, else share cards (at most
     ``MAX_RANKS_PER_CARD`` each) with gloo; on the CPU, gloo.  Raises
-    ``ValueError`` for a mesh the devices cannot hold."""
+    ``ValueError`` for a mesh the devices cannot hold.
+
+    Call it from a thread that lives as long as the mesh (the main
+    thread of a CLI, a test's own): on Linux the workers are SIGKILLed
+    when the thread that started them ends, so that they die with rank 0
+    however it dies."""
     if dp < 1 or mp < 1:
         raise ValueError(f"mesh {dp}x{mp} needs at least one rank on each "
                          f"axis")
     devices, backend, staged = _layout(dp, mp, device)
     workdir = tempfile.mkdtemp(prefix="repro_torch_mesh_")
     spec = {"dp": dp, "mp": mp, "devices": devices, "backend": backend,
-            "staged": staged, "store": os.path.join(workdir, "store")}
+            "staged": staged, "store": os.path.join(workdir, "store"),
+            "parent": os.getpid()}
     pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     env = dict(os.environ)

@@ -5,7 +5,11 @@ Detection is two-channel, because replicas fail two ways:
 
 - **crash** — the process dies (``kill -9``, OOM, a bug).  The factory's
   liveness poll catches it immediately; in-flight streams surface as
-  connection resets the router fails over.
+  connection resets the router fails over.  A tensor-parallel replica
+  (``--mesh``) whose worker rank dies answers ``/healthz`` 503
+  ``mesh_broken`` and is restarted after ``fail_threshold`` probes, as a
+  whole new mesh; its worker ranks die with its rank 0 (the factory's
+  ``kill`` and ``drain`` also reap them).
 - **wedge** — the process lives and its sockets answer, but the engine
   executor is stuck inside a dispatch.  ``/healthz`` still responds
   (the event loop is fine) and reports ``last_tick_age_s``; past the
@@ -35,6 +39,7 @@ import socket
 import subprocess
 import sys
 import threading
+import time
 from typing import Optional
 
 from repro_torch.serve.frontdoor.wire import get_json
@@ -69,6 +74,58 @@ def replica_env() -> dict:
     env["PYTHONPATH"] = os.pathsep.join(
         [_PKG_ROOT] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
     return env
+
+
+def _stat(pid: int) -> Optional[list]:
+    """The fields of ``/proc/<pid>/stat`` after the command name, or None
+    where there is no such process."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()
+    except (FileNotFoundError, ProcessLookupError):
+        return None
+
+
+def _running(proc: tuple) -> bool:
+    """Whether ``(pid, start time)`` still runs: the same process (not a
+    later one given its pid), and not a zombie."""
+    st = _stat(proc[0])
+    return st is not None and st[19] == proc[1] and st[0] != "Z"
+
+
+def _descendants(pid: int) -> list:
+    """Every live process below ``pid`` (a mesh replica's worker ranks)
+    as ``(pid, start time)``, read from ``/proc``; empty where there is
+    none."""
+    try:
+        entries = [int(d) for d in os.listdir("/proc") if d.isdigit()]
+    except FileNotFoundError:
+        return []
+    children: dict = {}
+    for d in entries:
+        st = _stat(d)
+        if st is not None:
+            children.setdefault(int(st[1]), []).append((d, st[19]))
+    out, todo = [], [pid]
+    while todo:
+        for child in children.get(todo.pop(), ()):
+            out.append(child)
+            todo.append(child[0])
+    return out
+
+
+def _kill_and_reap(procs: list, timeout_s: float = 10.0) -> None:
+    """SIGKILL each ``(pid, start time)`` of ``procs`` that still runs and
+    wait until none does (orphans by now: their parent reaps none)."""
+    for proc in procs:
+        if _running(proc):
+            try:
+                os.kill(proc[0], signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+    deadline = time.monotonic() + timeout_s
+    while any(map(_running, procs)) and time.monotonic() < deadline:
+        time.sleep(0.01)
 
 
 def free_port(host: str = "127.0.0.1") -> int:
@@ -180,10 +237,13 @@ class ProcessReplicaFactory:
 
     def kill(self, handle: ReplicaHandle) -> None:
         """Hard stop (SIGKILL) — the wedged-replica path, where SIGTERM
-        would wait on an executor that never comes back."""
+        would wait on an executor that never comes back.  A mesh
+        replica's worker ranks go with it."""
         if handle.proc is not None and handle.proc.poll() is None:
+            workers = _descendants(handle.proc.pid)
             handle.proc.kill()
             handle.proc.wait()
+            _kill_and_reap(workers)
 
     def drain(self, handle: ReplicaHandle,
               timeout_s: float) -> Optional[int]:
@@ -196,12 +256,16 @@ class ProcessReplicaFactory:
             # there is no leak gate to read — the crash exit code (e.g.
             # -9) is the FAILURE's code, not a gate verdict
             return None
+        workers = _descendants(proc.pid)
         proc.send_signal(signal.SIGTERM)
         try:
             proc.wait(timeout=timeout_s)
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait()
+        # a drained mesh replica has stopped its ranks; a killed one's die
+        # with it — either way none may outlive the call
+        _kill_and_reap(workers)
         return proc.returncode
 
 

@@ -9,8 +9,12 @@ Threading model — one engine thread, one event loop:
   card that thread is the only one that touches a tensor: CUDA's current
   device is per thread, so the executor's initializer sets the engine's
   device before its first call, and the kernels launch on that thread's
-  current stream (the default one).  The loop thread reads host counters
-  only (``healthz_payload``).
+  current stream (the default one).  Over a tensor-parallel mesh
+  (``serve/distributed.py``) that thread also adopts the mesh: every
+  command to the other ranks goes from it, and the mesh is released when
+  the server stops.  The loop thread reads host counters only
+  (``healthz_payload``), and asks the mesh whether a rank is gone without
+  sending it anything.
 - The tick task drives :meth:`Engine.tick` on that executor and fans
   each :class:`TickResult` out to registered
   :class:`~repro_torch.serve.frontdoor.streaming.TokenStream` objects on the
@@ -65,15 +69,29 @@ __all__ = ["FrontDoor", "run_server"]
 _HANG_S = 86_400.0
 
 
-def _engine_thread_init(device: torch.device):
+def _mesh(engine: Engine):
+    """The serving mesh behind ``engine``'s adapter, or None (one device)."""
+    return getattr(engine.adapter, "mesh", None)
+
+
+def _engine_thread_init(engine: Engine):
     """The executor's initializer: make the engine's card current on the
     engine thread (a new thread starts on card 0, whatever the engine's
-    index).  Nothing to do on the CPU."""
-    if device.type != "cuda":
-        return lambda: None
-    index = (device.index if device.index is not None
-             else torch.cuda.current_device())
-    return lambda: torch.cuda.set_device(index)
+    index; nothing to do on the CPU), and hand it the engine's mesh, if
+    any."""
+    device, mesh = engine.pool.device, _mesh(engine)
+    index = None
+    if device.type == "cuda":
+        index = (device.index if device.index is not None
+                 else torch.cuda.current_device())
+
+    def init():
+        if index is not None:
+            torch.cuda.set_device(index)
+        if mesh is not None:
+            mesh.adopt()
+
+    return init
 
 
 class FrontDoor:
@@ -82,7 +100,7 @@ class FrontDoor:
     Endpoints::
 
         POST /v1/generate   admit + stream (SSE) or buffer a request
-        GET  /healthz       liveness (200 while the process runs)
+        GET  /healthz       liveness (503 once wedged or a mesh rank is gone)
         GET  /readyz        admission readiness (503 while draining)
         GET  /metricsz      engine summary + server/ladder state (JSON)
     """
@@ -120,7 +138,7 @@ class FrontDoor:
         # engine's card
         self._exec = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="engine",
-            initializer=_engine_thread_init(engine.pool.device),
+            initializer=_engine_thread_init(engine),
         )
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._draining = False
@@ -260,6 +278,9 @@ class FrontDoor:
             server.close()
             await server.wait_closed()
             self._exec.shutdown(wait=True)
+            mesh = _mesh(self.engine)
+            if mesh is not None:  # the engine thread that adopted it ended
+                mesh.release()
         self.report = drain_mod.capture(
             self.engine, reason=self._drain_reason, t0=self._drain_t0,
             completed=self._drain_completed,
@@ -348,12 +369,18 @@ class FrontDoor:
         and what distinguishes a frozen server from a merely busy one.
         Also carries the load fields the router's balancer reads:
         ``inflight`` (live engine requests) and ``pressure`` (the
-        ladder's max of queue fill and pool occupancy)."""
+        ladder's max of queue fill and pool occupancy).  Over a mesh, a
+        rank that is gone answers 503 ``mesh_broken`` with the mesh's
+        reason at once, idle or busy: an idle tick sends the mesh
+        nothing, so the watchdog would never see it."""
         eng = self.engine
         age = eng.last_tick_age_s()
         wedged = age > self.tick_stall_s
+        mesh = _mesh(eng)
+        broken = None if mesh is None else mesh.broken_reason()
+        status = "mesh_broken" if broken else "wedged" if wedged else "ok"
         payload = {
-            "status": "wedged" if wedged else "ok",
+            "status": status,
             "ticks": self.metrics.counter("steps").value,
             "last_tick_age_s": round(age, 4),
             "inflight": eng.scheduler.pending + len(eng.running),
@@ -361,7 +388,9 @@ class FrontDoor:
                          if self.ladder is not None else 0.0),
             "draining": self._draining,
         }
-        return (503 if wedged else 200), payload
+        if broken:
+            payload["mesh"] = broken
+        return (200 if status == "ok" else 503), payload
 
     async def _route(self, writer, method, path, headers, body) -> None:
         path = path.split("?", 1)[0]

@@ -14,7 +14,8 @@ for byte, greedy and sampled failover splices, 503 with no replica, the
 supervisor's restarts and circuit breaker, the healthz watchdog.  One
 test runs the CLI's fleet parent with real replica processes and a
 ``replica_kill`` drill; the CLI refuses what the JAX CLI refuses, with
-its texts.
+its texts.  The fleet over ``--mesh`` replicas is in
+``test_torch_frontdoor_mesh.py``.
 """
 from __future__ import annotations
 
@@ -654,20 +655,13 @@ def test_cli_fleet_and_http_refusals_equal_jax(argv):
     assert texts[0] == texts[1]
 
 
-@pytest.mark.parametrize("extra", [["--http-port", "0"], ["--fleet", "2"]])
-def test_cli_refuses_mesh_behind_front_door(extra):
-    with pytest.raises(SystemExit) as ei:
-        port_serve.main(["--smoke", "--device", "cpu", "--mesh", "1,2",
-                         *extra])
-    assert "the front door and the fleet do not drive a mesh" in str(
-        ei.value.code)
-
-
 @pytest.mark.parametrize("argv", [
     ["--smoke", "--fleet", "2", "--router-port", "8000", "--paged"],
     ["--fleet=3", "--http-host=0.0.0.0", "--replica-fault", "1:x",
      "--gen", "4", "--max-restarts", "1", "--restart-backoff-s", "2",
      "--probe-interval-s", "0.1", "--tick-stall-s", "3"],
+    ["--smoke", "--fleet", "2", "--mesh", "1,2", "--router-port", "8000",
+     "--paged", "--paged-prefill"],
 ])
 def test_replica_argv_equals_jax(argv):
     assert port_serve._replica_argv(argv) == ref_serve._replica_argv(argv)
