@@ -203,6 +203,26 @@ Phases, each printing its own lines:
      path is ``Model.prefill`` + ``decode_step`` (``_greedy_batch``); their
      prefill gate also fails a prefill fed another row's embeddings, their
      decode gate a decode whose cross caches are rolled along the batch.
+ 14. training — ``launch/steps.py`` and ``launch/train.py`` (no kernel:
+     the path runs fp weights, and every kernel's launches read 0 around
+     it).  ``qwen3-14b`` at full width, depth cut to ``TRAIN_LAYERS`` = 2
+     of 40 for memory (the adamw state of 40 layers is ~300 GB): (a) one
+     fp32 sgd(1.0) step on a 32 x 64 ``token_batches`` batch with remat
+     "full" over 2 microbatches against remat "none" over 1: loss,
+     grad_norm and every leaf's update within ``TRAIN_ACCUM_RTOL``, which
+     the step with the microbatch sum left undivided must fail; (b) the
+     CLI's adamw over its cosine schedule in bf16 with remat "full",
+     ``TRAIN_STEPS`` steps of 32 x 64 in 2 microbatches: finite losses and
+     grad norms, the last loss below the first, the step and optimizer
+     time (CUDA events) and the peak memory; (c) the train CLI's
+     fault-and-resume drill at the smoke config in one fresh process
+     (deterministic algorithms from its first CUDA call; started beside
+     phase 2's build, as its ~20 s are mostly the process's start, and
+     checked here): an
+     uninterrupted run, the same run with ``--fail-at 5`` (one failure
+     trapped, step 3 restored, the final checkpoint equal to the
+     uninterrupted run's bit for bit), then that run extended to 10 steps
+     (resumed from step 8).
 
 Phase 3 also runs kron_mul at every dense width's factors (16 x 32 to
 168 x 176, and 192 x 256, the largest the kernel takes), quant_matmul at
@@ -213,14 +233,17 @@ paged decode and prefill at 4 and 2 KV heads, the verifier's C = 5 over
 int8 pages, each with its SDPA yardstick).
 
 The next-to-last line is a JSON record of the six kernels (each with its
-launches on every path, phase 11's by rank, (d)'s too); the last line is
+launches on every path, phase 11's by rank, (d)'s too, and phase 14's
+``train`` path with 0 of each); the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Nothing of JAX or of the ``repro`` package is imported.
 """
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
+import math
 import pathlib
 import shutil
 import subprocess
@@ -4968,6 +4991,331 @@ def phase_families(torch, *, seed: int, cfgs=None) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training
+# ---------------------------------------------------------------------------
+
+# qwen3-14b at full width, depth cut to 2 of 40 layers for memory: 2.22 B
+# parameters, 1.56 B of them in the embedding and the head (adamw's state
+# of the whole model is about 300 GB)
+TRAIN_ARCH, TRAIN_LAYERS = "qwen3-14b", 2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 32, 64, 6
+# (a): the step with remat "full" over two microbatches against remat
+# "none" over one, fp32 (sgd at lr 1, so each leaf's update is its
+# gradient): loss and grad_norm relative, and every leaf's update max
+# |diff| beyond one ulp of its largest |param| (the rounding of storing
+# p - g), relative to its largest |update|: about twice the worst reading
+# on the H100 (7.8e-6, layers/attn/wo; grad_norm 9.1e-8, loss 0); the
+# undivided wrong run reads 1.0
+TRAIN_ACCUM_RTOL = 2e-5
+# (c): the CLI's fault drill at the smoke config, in one fresh process
+TRAIN_DRILL = ["--arch", "qwen3-14b", "--smoke", "--steps", "8",
+               "--global-batch", "4", "--seq-len", "16", "--save-every", "3",
+               "--log-every", "1"]
+TRAIN_DRILL_CHILD = r"""
+import contextlib, io, json, sys
+from repro_torch.launch import train
+runs = []
+for argv in json.loads(sys.argv[1]):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = train.main(argv)
+    runs.append({"rc": rc, "out": out.getvalue()})
+print(json.dumps(runs))
+"""
+
+
+def _train_cfg(cfg=None):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    if cfg is not None:
+        return cfg
+    cfg = get_config(TRAIN_ARCH)
+    log(f"[train] DEPTH CUT: {TRAIN_LAYERS} of {cfg.n_layers} layers (full "
+        f"width kept; memory)")
+    return dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+
+
+def _train_init(torch, cfg, seed: int):
+    from repro_torch.convert import stack_layers
+    from repro_torch.models.lm import build_model
+
+    model = build_model(cfg)
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    return model, stack_layers(model.init(g, device=DEV))
+
+
+def _rel(torch, a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _train_accum(torch, cfg, seed: int) -> None:
+    """(a): one fp32 sgd(1.0) step of remat "full" over two microbatches
+    against remat "none" over one on the same batch, and the same step
+    with the microbatch sum left undivided, which must fail the gate."""
+    import dataclasses
+
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim import Optimizer, sgd
+    from repro_torch.tree import flatten_with_paths, tree_map
+
+    tag = "train (a)"
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    model0, p0 = _train_init(torch, dataclasses.replace(cfg, remat="none"),
+                             seed)
+    n_micro = max(1, TRAIN_BATCH // cfg.microbatch)
+    batch = next(token_batches(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=seed,
+                               device=DEV))
+    opt = sgd(1.0)
+
+    def run(remat: str, nm: int, optimizer=opt):
+        """-> (each leaf's update, metrics); p0 is kept."""
+        model = build_model(dataclasses.replace(cfg, remat=remat))
+        p = tree_map(lambda t: t.clone(), p0)
+        t0 = time.perf_counter()
+        p, _, m = make_train_step(model, optimizer, n_micro=nm)(p, {}, batch,
+                                                                0)
+        _sync(torch)
+        wall = time.perf_counter() - t0
+        tree_map(lambda a, b: a.sub_(b), p, p0)
+        return p, {k: float(v) for k, v in m.items()}, wall
+
+    ref, m_ref, w_ref = run("none", 1)
+    ref_leaves = dict(flatten_with_paths(ref))
+    # storing p - g rounds to the param's ulp: the two runs' updates may
+    # differ by one ulp of the largest |param| whatever their gradients
+    floor = {k: 2.0**-23 * float(p.abs().max())
+             for k, p in flatten_with_paths(p0)}
+
+    def gate(upd, m):
+        errs = {}
+        for k, u in flatten_with_paths(upd):
+            r = ref_leaves[k]
+            err = float((u - r).abs().max())
+            errs[k] = max(0.0, err - floor[k]) / float(r.abs().max())
+        worst = max(errs, key=errs.get)
+        d = {k: abs(m[k] - m_ref[k]) / abs(m_ref[k])
+             for k in ("loss", "grad_norm")}
+        ok = max(errs[worst], *d.values()) <= TRAIN_ACCUM_RTOL
+        return ok, (f"loss {m['loss']:.6f} vs {m_ref['loss']:.6f} (rel "
+                    f"{d['loss']:.2e}), grad_norm {m['grad_norm']:.6f} vs "
+                    f"{m_ref['grad_norm']:.6f} (rel {d['grad_norm']:.2e}), "
+                    f"leaf updates' max |diff| beyond one param ulp, "
+                    f"relative to the largest |update|: worst {worst} "
+                    f"{errs[worst]:.2e} (all: " + ", ".join(
+                        f"{k} {v:.1e}" for k, v in errs.items()) + ")")
+
+    upd, m, wall = run("full", n_micro)
+    ok, reading = gate(upd, m)
+    del upd
+    log(f"[{tag}] remat full x {n_micro} microbatches against remat none x "
+        f"1, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, fp32 sgd(1.0): {reading}; "
+        f"gate rel <= {TRAIN_ACCUM_RTOL:g}: {'OK' if ok else 'FAIL'} (steps "
+        f"{wall:.2f} s and {w_ref:.2f} s, host clock)")
+    if not ok:
+        raise AssertionError(f"[{tag}] accumulation and remat disagree")
+
+    def undivided(grads, state, params, step):
+        tree_map(lambda g: g.mul_(n_micro), grads)
+        return opt.update(grads, state, params, step)
+
+    upd, m, _ = run("full", n_micro, Optimizer(init=opt.init,
+                                               update=undivided))
+    ok, reading = gate(upd, m)
+    _must_fail(tag, "the microbatch sum left undivided", reading, ok)
+    del upd, ref, ref_leaves, p0
+
+
+def _train_loop(torch, cfg, seed: int) -> dict:
+    """(b): the CLI's optimizer and step in the model's dtype with remat
+    "full", TRAIN_STEPS steps on the stream; launches counted from 0
+    around the loop.  Returns the launches."""
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import reset_counts
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import Optimizer, adamw, cosine_schedule
+
+    tag = "train (b)"
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model, params = _train_init(torch, cfg, seed)
+    opt = adamw(cosine_schedule(3e-4, TRAIN_STEPS,
+                                max(TRAIN_STEPS // 20, 1)))
+    state = opt.init(params)
+    n_micro = max(1, TRAIN_BATCH // cfg.microbatch)
+    opt_ms = []
+
+    def timed(grads, st, p, step):
+        ev = _events(torch)
+        out = opt.update(grads, st, p, step)
+        opt_ms.append(ev())
+        return out
+
+    step_fn = make_train_step(model, Optimizer(init=opt.init, update=timed),
+                              n_micro=n_micro)
+    stream = token_batches(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=seed,
+                           device=DEV)
+    losses, gnorms, step_ms = [], [], []
+    _sync(torch)
+    reset_counts()
+    for step in range(TRAIN_STEPS):
+        batch = next(stream)
+        ev = _events(torch)
+        params, state, m = step_fn(params, state, batch, step)
+        step_ms.append(ev())
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    launches = _counts()
+    peak = (torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda"
+            else float("nan"))
+    for s in range(TRAIN_STEPS):
+        log(f"[{tag}] step {s} loss={losses[s]:.4f} gnorm={gnorms[s]:.4f} "
+            f"step {step_ms[s]:.1f} ms, optimizer {opt_ms[s]:.1f} ms")
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    steady_opt = sorted(opt_ms[1:])[len(opt_ms[1:]) // 2]
+    log(f"[{tag}] {cfg.name} {cfg.n_layers} layers {cfg.dtype}, remat "
+        f"{cfg.remat}, adamw, {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+        f"{n_micro} microbatches: median step (1..{TRAIN_STEPS - 1}) "
+        f"{steady:.1f} ms, optimizer {steady_opt:.1f} ms "
+        f"({100 * steady_opt / steady:.1f} %), peak {peak:.2f} GB allocated; "
+        f"kernel launches {launches}")
+    finite = all(math.isfinite(x) for x in losses + gnorms)
+    ok = finite and losses[-1] < losses[0]
+    log(f"[{tag}] losses and grad norms finite: {finite}; step "
+        f"{TRAIN_STEPS - 1}'s loss {losses[-1]:.4f} below step 0's "
+        f"{losses[0]:.4f}: {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] the loop did not train")
+    return launches
+
+
+def _events(torch):
+    """Starts a timer; the returned callable gives the ms since (CUDA
+    events on the card, the host clock elsewhere)."""
+    if DEV != "cuda":
+        t0 = time.perf_counter()
+        return lambda: 1e3 * (time.perf_counter() - t0)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+
+    def stop():
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+
+    return stop
+
+
+def start_train_drill() -> dict:
+    """(c), started: the train CLI's fault-and-resume drill in one fresh
+    process, which runs on while the script goes on (it needs a few
+    seconds of the card, the rest is the process's start): an
+    uninterrupted run, the same with ``--fail-at 5`` in a fresh
+    directory, then that run extended to 10 steps.  ``main`` starts it
+    beside the kernels' build; :func:`phase_train` checks it."""
+    import os
+
+    dirs = (WORK_DIR / "train_a", WORK_DIR / "train_b")
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+    a, b = (str(d) for d in dirs)
+    base = TRAIN_DRILL + ["--device", DEV]
+    extended = base + ["--ckpt-dir", b, "--fail-at", "5"]
+    extended[extended.index("--steps") + 1] = "10"
+    argvs = [base + ["--ckpt-dir", a],
+             base + ["--ckpt-dir", b, "--fail-at", "5"], extended]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")])}
+    # its output goes to files: a full pipe would stall it until the check
+    logs = (WORK_DIR / "train_drill.out", WORK_DIR / "train_drill.err")
+    with open(logs[0], "w") as out, open(logs[1], "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", TRAIN_DRILL_CHILD,
+                                 json.dumps(argvs)], env=env, cwd=ROOT,
+                                stdout=out, stderr=err)
+    return {"proc": proc, "dirs": dirs, "logs": logs,
+            "t0": time.perf_counter()}
+
+
+def stop_train_drill(drill) -> None:
+    """Ends the drill's process if it still runs (a phase before 14
+    failed)."""
+    if drill and drill["proc"].poll() is None:
+        drill["proc"].kill()
+        drill["proc"].wait()
+
+
+def _train_drill(torch, drill: dict) -> None:
+    """(c), checked: waits for the drill's process and holds its runs to
+    the gates."""
+    from repro_torch.checkpoint.store import latest_step, load_arrays
+
+    tag = "train (c)"
+    a, b = drill["dirs"]
+    try:
+        drill["proc"].wait(timeout=600)
+    finally:
+        stop_train_drill(drill)
+    wall = time.perf_counter() - drill["t0"]
+    stdout, stderr = (p.read_text() for p in drill["logs"])
+    if drill["proc"].returncode != 0:
+        log(stdout[-4000:] + stderr[-4000:])
+        raise AssertionError(f"[{tag}] the drill's process exited "
+                             f"{drill['proc'].returncode}")
+    runs = json.loads(stdout.strip().splitlines()[-1])
+    for i, r in enumerate(runs):
+        for line in r["out"].splitlines():
+            log(f"[{tag}] run {i + 1}: {line}")
+    out2 = runs[1]["out"]
+    steps = (latest_step(a), latest_step(b))
+    la, _, _, _ = load_arrays(a, step=8)
+    lb, _, _, _ = load_arrays(b, step=8)
+    same = list(la) == list(lb) and all(
+        la[k].dtype == lb[k].dtype and la[k].tobytes() == lb[k].tobytes()
+        for k in la)
+    checks = {
+        "every exit code 0": all(r["rc"] == 0 for r in runs),
+        "run 2 trapped one failure": out2.count("FAILED (") == 1,
+        "run 2 restored step 3": "restored to step 3, continuing" in out2,
+        "runs 1 and 2 ended at step 8": steps[0] == 8 and "done at step 8"
+        in out2,
+        f"run 2's final checkpoint equals run 1's bit for bit ({len(la)} "
+        f"leaves)": same,
+        "run 3 resumed from step 8": "resumed from step 8" in runs[2]["out"],
+        "latest step 10 after run 3": steps[1] == 10,
+    }
+    for what, ok in checks.items():
+        log(f"[{tag}] {what}: {'OK' if ok else 'FAIL'}")
+    log(f"[{tag}] three CLI runs in one process, {wall:.1f}s from its "
+        f"start to its check")
+    if not all(checks.values()):
+        raise AssertionError(f"[{tag}] the fault drill failed")
+
+
+def phase_train(torch, *, seed: int, cfg=None, drill=None) -> dict:
+    """Phase 14: training (``launch/steps.py``, ``launch/train.py``) at
+    full width: (a) accumulation and remat in fp32, (b) the train loop in
+    bf16, (c) the CLI's fault-and-resume drill at the smoke config
+    (``drill``, from :func:`start_train_drill`; started here if None).
+    ``cfg`` replaces the model (a rehearsal on the CPU at a smoke
+    config).  Returns the loop's launches."""
+    t_phase = time.perf_counter()
+    drill = drill or start_train_drill()
+    cfg = _train_cfg(cfg)
+    _train_accum(torch, cfg, seed)
+    _release(torch, "train (a)")
+    launches = _train_loop(torch, cfg, seed)
+    _release(torch, "train (b)")
+    _train_drill(torch, drill)
+    log(f"[train] phase 14 passed in {time.perf_counter() - t_phase:.1f}s")
+    return {"train": launches}
+
+
 REPLACES = {
     "quant_matmul": "src/repro/kernels/quant_matmul/kernel.py:60",
     "paged_decode": "src/repro/kernels/paged_attention/kernel.py:164",
@@ -5017,6 +5365,10 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     dev = phase_device(torch)
+    # phase 14 (c)'s process runs beside the build: it holds the card for
+    # a few seconds, the rest of its ~20 s is its start
+    drill = start_train_drill()
+    atexit.register(stop_train_drill, drill)
     phase_build()
     reps = phase_kernels(torch)
     _release(torch, "phase 3")
@@ -5046,6 +5398,8 @@ def main(argv=None) -> int:
     _release(torch, "phase 12")
     families = phase_families(torch, seed=args.seed)
     _release(torch, "phase 13")
+    train = phase_train(torch, seed=args.seed, drill=drill)
+    _release(torch, "phase 14")
     # launches: each kernel on the path that runs it — the synthetic serve
     # for the serving kernels, the quantize run for ldlq and kron_mul, the
     # hadamard linear for hadamard; phases 7's to 10's paths beside them
@@ -5053,7 +5407,7 @@ def main(argv=None) -> int:
              "hadamard_linear": quant["hadamard_launches"],
              "serve_quantized": quant["serve_launches"], **dense,
              **lifecycle, **speculative, **observe, **tp, **frontdoor,
-             **families}
+             **families, **train}
     main_path = {"ldlq": "quantize", "kron_mul": "quantize",
                  "hadamard": "hadamard_linear"}
     kernels = []

@@ -7,13 +7,31 @@ Layout per step (the JAX package's format)::
         manifest.json                (leaf->shard map, digests, meta)
     <dir>/step_000123/               (atomic rename when complete)
 
-numpy I/O only.  numpy has no bfloat16: a bf16 leaf is stored as its raw
-16-bit pattern (int16) and its key is listed in the manifest under
-``bf16_keys``, so :func:`load_arrays` hands back int16 for it and the
-caller reinterprets (``torch.from_numpy(a).view(torch.bfloat16)``).
+numpy I/O only, and numpy has no bfloat16.  Two encodings of a bf16 leaf
+exist, both its raw 16 bits:
+
+* :func:`save_arrays` (the port's artifacts) stores int16 and lists the
+  key in the manifest under ``bf16_keys``; :func:`load_arrays` hands back
+  int16 for it and the caller reinterprets
+  (``torch.from_numpy(a).view(torch.bfloat16)``);
+* :func:`save_checkpoint` (train state) stores a ``|V2`` array, the bytes
+  that the JAX package's ``np.savez`` of an ``ml_dtypes`` bf16 leaf
+  writes, so a bf16 leaf reads the same from either package's files.
+
+:func:`load_checkpoint` reads both.  fp32 checkpoints move both ways
+between the packages; bf16 ones only from the JAX package to the port,
+because the JAX ``load_checkpoint`` cannot cast a ``|V2`` leaf (it raises
+``No cast function available``, on its own bf16 checkpoints too).
+
+The tree API (:func:`save_checkpoint`, :func:`load_checkpoint`,
+:class:`CheckpointManager`) keys every leaf as the JAX package does
+(``repro_torch.tree.flatten_with_paths``: ``/``-joined sorted dict keys
+and sequence indices, ``None`` skipped), so a train state in the JAX
+package's stacked layout round-trips between the packages leaf for leaf.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -21,11 +39,17 @@ import pathlib
 import shutil
 import time
 import warnings
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
+import torch
 
-__all__ = ["ArtifactCorruption", "save_arrays", "load_arrays", "latest_step"]
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.tree import flatten_with_paths, unflatten
+
+__all__ = ["ArtifactCorruption", "CheckpointManager", "save_arrays",
+           "load_arrays", "save_checkpoint", "load_checkpoint",
+           "latest_step"]
 
 _MANIFEST = "manifest.json"
 
@@ -166,3 +190,83 @@ def load_arrays(
                 arrays[k.replace("::", "/")] = z[k]
     return (arrays, step, manifest.get("meta", {}),
             set(manifest.get("bf16_keys", ())))
+
+
+def _to_numpy(leaf: torch.Tensor) -> np.ndarray:
+    leaf = leaf.detach().cpu()
+    if leaf.dtype == torch.bfloat16:
+        return leaf.view(torch.int16).numpy().view("V2")
+    return leaf.numpy()
+
+
+def _from_numpy(key: str, a: np.ndarray, raw_bf16: bool) -> torch.Tensor:
+    if raw_bf16 or a.dtype.kind == "V":
+        if a.dtype.itemsize != 2:
+            raise ValueError(f"leaf {key!r}: raw {a.dtype} is not a bf16 "
+                             f"leaf")
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def save_checkpoint(directory, step: int, tree: Any, *, shard_mb: int = 512,
+                    extra_meta: Optional[dict] = None) -> pathlib.Path:
+    """Write one train-state checkpoint atomically (leaves keyed as the JAX
+    package keys them, bf16 as ``|V2``); returns the final path."""
+    arrays = {k: _to_numpy(v) for k, v in flatten_with_paths(tree)}
+    return save_arrays(directory, step, arrays, shard_mb=shard_mb,
+                       extra_meta=extra_meta)
+
+
+def load_checkpoint(directory, like: Any, *, step: Optional[int] = None,
+                    device=DEFAULT_DEVICE) -> tuple[Any, int, dict]:
+    """Restore a tree of ``like``'s structure (tensors, or ``meta``
+    tensors: only their dtypes are read), each leaf cast to its ``like``
+    leaf's dtype on ``device``; a bf16 leaf stored as raw 16 bits comes
+    back bit for bit.  ``step`` None takes the newest complete step.
+    Returns (tree, step, meta)."""
+    device = resolve_device(device)
+    arrays, step, meta, bf16_keys = load_arrays(directory, step=step)
+    leaves = {}
+    for key, leaf in flatten_with_paths(like):
+        if key not in arrays:
+            raise KeyError(f"checkpoint missing leaf {key!r}")
+        t = _from_numpy(key, arrays[key], key in bf16_keys)
+        leaves[key] = t.to(device=device, dtype=leaf.dtype)
+    return unflatten(like, leaves), step, meta
+
+
+@dataclasses.dataclass
+class CheckpointManager:
+    """keep-k policy + convenience wrapper used by the train driver."""
+
+    directory: str
+    keep: int = 3
+    save_every: int = 50
+
+    def maybe_save(self, step: int, tree: Any,
+                   **meta) -> Optional[pathlib.Path]:
+        if step % self.save_every:
+            return None
+        p = save_checkpoint(self.directory, step, tree, extra_meta=meta)
+        self.gc()
+        return p
+
+    def gc(self):
+        d = pathlib.Path(self.directory)
+        if not d.exists():
+            return
+        steps = sorted(
+            int(p.name.split("_")[1])
+            for p in d.iterdir()
+            if p.is_dir() and p.name.startswith("step_") and ".tmp" not in p.name
+            and (p / _MANIFEST).exists()
+        )
+        for s in steps[: -self.keep] if self.keep else []:
+            shutil.rmtree(d / f"step_{s:08d}", ignore_errors=True)
+        # clean stale tmp dirs from crashed writers
+        for p in d.iterdir():
+            if ".tmp-" in p.name:
+                shutil.rmtree(p, ignore_errors=True)
+
+    def restore_latest(self, like: Any, device=DEFAULT_DEVICE):
+        return load_checkpoint(self.directory, like, device=device)

@@ -35,4 +35,6 @@ def smoke() -> ArchConfig:
         capacity_factor=4.0,  # no-drop headroom for smoke equivalence tests
         mlp="swiglu",
         dtype="float32",
+        microbatch=2,
+        remat="none",
     )

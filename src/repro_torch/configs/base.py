@@ -2,9 +2,10 @@
 
 One :class:`ArchConfig` covers the dense, moe, rwkv, hybrid, encdec and vlm
 families through family-specific optional fields, with the JAX package's
-names and defaults.  ``from_dict`` accepts a full config dict as the JAX
-package writes it into artifact manifests and drops the fields this schema
-does not model (training knobs, the shape registry's skips).
+names and defaults, the training knobs ``microbatch`` and ``remat``
+among them.  ``from_dict`` accepts a full config dict as the JAX package
+writes it into artifact manifests and drops the fields this schema does
+not model (``causal``, the shape registry's skips).
 """
 from __future__ import annotations
 
@@ -69,6 +70,12 @@ class ArchConfig:
     attn_bf16_probs: bool = False  # bf16 exp/probs, fp32 max and sum
     weight_bits: int = 0  # 0 = dense weights; 2/3/4 = packed projections
 
+    # training knobs
+    microbatch: int = 16  # global microbatch per grad-accum step
+    # activation checkpointing of each block while grad is enabled:
+    # "full" recomputes the block, "dots" keeps its matmul outputs
+    remat: Literal["none", "full", "dots"] = "full"
+
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
@@ -92,7 +99,7 @@ class ArchConfig:
     @classmethod
     def from_dict(cls, d: dict) -> "ArchConfig":
         """Build from a manifest's ``arch_config``; fields this schema does
-        not model (training knobs) are dropped.  A field that would change
+        not model are dropped.  A field that would change
         what the port computes raises at any value but its default
         instead: in-model packed weights (``weight_bits``) on the dense
         family, whose serving path (artifacts, adapter, engine) quantizes

@@ -28,4 +28,6 @@ def smoke() -> ArchConfig:
         vocab=256,
         mlp="swiglu",
         dtype="float32",
+        microbatch=2,
+        remat="none",
     )

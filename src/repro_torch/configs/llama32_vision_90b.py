@@ -34,4 +34,6 @@ def smoke() -> ArchConfig:
         n_patches=16,
         mlp="swiglu",
         dtype="float32",
+        microbatch=2,
+        remat="none",
     )

@@ -36,4 +36,6 @@ def smoke() -> ArchConfig:
         capacity_factor=4.0,
         mlp="swiglu",
         dtype="float32",
+        microbatch=2,
+        remat="none",
     )

@@ -27,4 +27,6 @@ def smoke() -> ArchConfig:
         vocab=256,
         mlp="swiglu",
         dtype="float32",
+        microbatch=2,
+        remat="none",
     )

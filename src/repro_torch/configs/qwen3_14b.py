@@ -29,4 +29,6 @@ def smoke() -> ArchConfig:
         qk_norm=True,
         mlp="swiglu",
         dtype="float32",
+        microbatch=2,
+        remat="none",
     )

@@ -13,6 +13,7 @@ CONFIG = ArchConfig(
     rwkv_head_size=64,
     rwkv_decay_lora=64,
     rwkv_mix_lora=32,
+    microbatch=32,
 )
 
 
@@ -30,4 +31,6 @@ def smoke() -> ArchConfig:
         rwkv_decay_lora=8,
         rwkv_mix_lora=4,
         dtype="float32",
+        microbatch=2,
+        remat="none",
     )

@@ -31,4 +31,6 @@ def smoke() -> ArchConfig:
         mlp_bias=True,
         qkv_bias=True,
         dtype="float32",
+        microbatch=2,
+        remat="none",
     )

@@ -20,6 +20,7 @@ CONFIG = ArchConfig(
     mlp="gelu",
     mlp_bias=True,
     rope_theta=1e4,
+    microbatch=32,
 )
 
 
@@ -38,4 +39,6 @@ def smoke() -> ArchConfig:
         mlp="gelu",
         mlp_bias=True,
         dtype="float32",
+        microbatch=2,
+        remat="none",
     )

@@ -24,6 +24,7 @@ CONFIG = ArchConfig(
     shared_attn_period=6,
     mlp="swiglu",
     rope_theta=1e4,
+    microbatch=32,
 )
 
 
@@ -45,4 +46,6 @@ def smoke() -> ArchConfig:
         shared_attn_period=3,
         mlp="swiglu",
         dtype="float32",
+        microbatch=2,
+        remat="none",
     )

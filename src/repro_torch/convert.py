@@ -17,6 +17,12 @@ with ``LINEAR = {"packed", "s", "D" (optional), "bits", "m", "n", "maxq",
 "B", "signs", "perm"}`` (absent factors as None).  fp params
 (:func:`fp_params_from_numpy`) are the JAX package's ``model.init`` tree
 of any ported family, layers stacked along axis 0.
+
+Training keeps that stacked layout: :func:`stack_layers` turns the port's
+per-layer lists into one tensor per leaf with a leading layer axis (the
+JAX package's ``model.init`` tree, so optimizer state and checkpoints
+have its leaves, keys and shapes), and :func:`layer_views` hands the
+forward per-layer views of it without copying.
 """
 from __future__ import annotations
 
@@ -35,6 +41,8 @@ __all__ = [
     "linear_from_numpy",
     "quantized_model_from_numpy",
     "fp_params_from_numpy",
+    "stack_layers",
+    "layer_views",
     "write_port_artifact",
 ]
 
@@ -122,6 +130,34 @@ def fp_params_from_numpy(params: dict, device=DEFAULT_DEVICE) -> dict:
         else:
             out[key] = _tree(val, device)
     return out
+
+
+def stack_layers(params: dict) -> dict:
+    """The port's param tree -> the JAX package's layout: each key of
+    ``_STACKED`` (a list of per-layer dicts) becomes one dict whose every
+    leaf is the layers' leaves stacked along a new axis 0 (one copy);
+    everything else is kept as it is."""
+    def stack(layers):
+        if isinstance(layers[0], dict):
+            return {k: stack([lp[k] for lp in layers]) for k in layers[0]}
+        return torch.stack(layers)
+
+    return {k: stack(v) if k in _STACKED else v for k, v in params.items()}
+
+
+def layer_views(params: dict) -> dict:
+    """The stacked layout -> the port's: each key of ``_STACKED`` becomes
+    a list of per-layer dicts of views ``t[i]`` (``torch.unbind``: no copy,
+    and autograd stacks the layers' gradients into the stacked leaf in
+    one step)."""
+    def unstack(x):
+        if isinstance(x, dict):
+            cols = {k: unstack(v) for k, v in x.items()}
+            n = len(next(iter(cols.values())))
+            return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+        return torch.unbind(x)
+
+    return {k: unstack(v) if k in _STACKED else v for k, v in params.items()}
 
 
 def _leaves(x):

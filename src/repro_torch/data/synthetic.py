@@ -1,16 +1,21 @@
-"""Deterministic synthetic token streams (numpy only).
+"""Deterministic synthetic token streams.
 
 The same order-1 Markov source with motif insertions as the JAX package's
 ``repro/data/synthetic.py``, drawn with the same numpy generators, so a
-given ``(vocab, seed)`` yields the same prompts in both packages.
+given ``(vocab, seed)`` yields the same prompts in both packages, and
+:func:`token_batches` the same training batches for every step.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import numpy as np
+import torch
 
-__all__ = ["SyntheticLM", "make_calibration"]
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+
+__all__ = ["SyntheticLM", "token_batches", "make_calibration"]
 
 
 @dataclasses.dataclass
@@ -50,6 +55,25 @@ class SyntheticLM:
                 p = rng.integers(0, max(1, seq - self.motif_len))
                 out[b, p : p + self.motif_len] = self.motifs[m]
         return out
+
+
+def token_batches(vocab: int, global_batch: int, seq_len: int, *,
+                  seed: int = 0, start_step: int = 0,
+                  device=DEFAULT_DEVICE) -> Iterator[dict]:
+    """Deterministic ``(seed, step) -> batch`` stream: ``{"tokens",
+    "targets"}``, (global_batch, seq_len) int32 tensors on ``device``, the
+    targets the tokens shifted by one.  A batch depends only on ``(seed,
+    step)`` (its generator is seeded ``(seed << 20) ^ step``), so a run
+    resumed at ``start_step`` replays the stream exactly."""
+    device = resolve_device(device)
+    src = SyntheticLM(vocab, seed)
+    step = start_step
+    while True:
+        rng = np.random.default_rng((seed << 20) ^ step)
+        toks = torch.from_numpy(src.sample(rng, global_batch, seq_len + 1))
+        toks = toks.to(device)
+        yield {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        step += 1
 
 
 def make_calibration(vocab: int, *, n_segments: int = 128,

@@ -1,1 +1,2 @@
-"""Entry points: the serving CLI and the recompute oracle."""
+"""Entry points: the serving, quantize and train CLIs, the step
+functions and the recompute oracle."""

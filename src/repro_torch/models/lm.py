@@ -14,8 +14,9 @@ or ``"patches"`` (vlm: llama-3.2-vision-90b).  The token-only families
 ``_tok_fwd`` / ``_tok_prefill`` adapters, as in the JAX package; encdec
 and vlm take the whole dict.  ``forward(plain=True)`` runs packed ``weight_bits``
 projections through quant_matmul's plain version instead of its CUDA
-kernel (the oracle's path).  Forward only: training waits for the
-training slice.
+kernel (the oracle's path).  Training (``launch/steps.py``) calls
+``loss`` under autograd on per-layer views of a layer-stacked train state
+(``convert.layer_views``), with each block under ``cfg.remat``.
 """
 from __future__ import annotations
 

@@ -26,7 +26,9 @@ Caches are ``{"self": [one dense KV cache per self-attention layer],
 "cross": [one per cross layer]}``; a prefill computes each cross layer's
 K/V once, uses them for its attention and stores them, and decode reads
 them without storing.  ``*_forward(plain=True)`` runs packed projections
-through quant_matmul's plain version (the oracle's path).
+through quant_matmul's plain version (the oracle's path).  While grad is
+enabled, each encoder, decoder, self and cross layer of a forward runs
+under ``cfg.remat`` (``transformer.remat_wrap``).
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.recurrent import _last_logits, _zero
+from repro_torch.models.transformer import remat_wrap
 
 __all__ = [
     "init_encdec", "encdec_axes", "encdec_forward", "encdec_prefill",
@@ -122,13 +125,18 @@ def _encode(params: dict, frames: torch.Tensor, cfg: ArchConfig, *,
     ``enc_norm``."""
     positions = _arange(frames.shape[1], frames.device)
     x = frames
+    block = remat_wrap(_enc_block, cfg)
     for lp in params["enc_layers"]:
-        h = L.norm_apply(lp["ln1"], x, cfg)
-        x = x + L.attention_full(lp["attn"], h, cfg, positions=positions,
-                                 causal=False, plain=plain)
-        h = L.norm_apply(lp["ln2"], x, cfg)
-        x = x + L.mlp_apply(lp["mlp"], h, cfg, plain=plain)
+        x = block(lp, x, cfg, positions, plain)
     return L.norm_apply(params["enc_norm"], x, cfg)
+
+
+def _enc_block(lp: dict, x, cfg, positions, plain: bool):
+    h = L.norm_apply(lp["ln1"], x, cfg)
+    x = x + L.attention_full(lp["attn"], h, cfg, positions=positions,
+                             causal=False, plain=plain)
+    h = L.norm_apply(lp["ln2"], x, cfg)
+    return x + L.mlp_apply(lp["mlp"], h, cfg, plain=plain)
 
 
 def _dec_block(lp: dict, x, enc, cfg, positions, *, plain: bool = False):
@@ -154,8 +162,9 @@ def _encdec_run(params, batch, cfg, *, plain=False, prefill=None):
     caches = None
     if prefill is not None:
         caches, self_c, cross_c = _caches(cfg, x, *prefill, enc.shape[1])
+    block = remat_wrap(_dec_block, cfg)
     for lp in params["dec_layers"]:
-        x, kv, ckv = _dec_block(lp, x, enc, cfg, positions, plain=plain)
+        x, kv, ckv = block(lp, x, enc, cfg, positions, plain=plain)
         if caches is not None:
             caches["self"].append(self_c(*kv))
             caches["cross"].append(cross_c(*ckv))
@@ -302,22 +311,26 @@ def _vlm_run(params, batch, cfg, *, plain=False, prefill=None):
     caches = None
     if prefill is not None:
         caches, self_c, cross_c = _caches(cfg, x, *prefill, cfg.n_patches)
+    layer = remat_wrap(_vlm_layer, cfg)
     for kind, i in _order(cfg):
-        if kind == "self":
-            lp = params["self_layers"][i]
-            x, kv = _self_attn(lp, x, cfg, positions, plain)
-        else:
-            lp = params["cross_layers"][i]
-            h = L.norm_apply(lp["ln1"], x, cfg)
-            a, kv = L.attention_full(lp["xattn"], h, cfg,
-                                     positions=positions, causal=False,
-                                     x_kv=patches, return_kv=True,
-                                     plain=plain)
-            x = x + a
+        x, kv = layer(kind, params[f"{kind}_layers"][i], x, patches, cfg,
+                      positions, plain)
         if caches is not None:
             caches[kind].append((self_c if kind == "self" else cross_c)(*kv))
-        x = _mlp_gated(lp, x, cfg, plain)
     return x, caches
+
+
+def _vlm_layer(kind: str, lp: dict, x, patches, cfg, positions, plain: bool):
+    """One self or gated cross layer -> (x, its (k, v))."""
+    if kind == "self":
+        x, kv = _self_attn(lp, x, cfg, positions, plain)
+    else:
+        h = L.norm_apply(lp["ln1"], x, cfg)
+        a, kv = L.attention_full(lp["xattn"], h, cfg, positions=positions,
+                                 causal=False, x_kv=patches, return_kv=True,
+                                 plain=plain)
+        x = x + a
+    return _mlp_gated(lp, x, cfg, plain), kv
 
 
 def vlm_forward(params: dict, batch: dict, cfg: ArchConfig, *,

@@ -14,7 +14,9 @@ caches are ``[{"tm_shift", "wkv", "cm_shift"}]`` per RWKV layer, and
 ``{"mamba": [{"ssm", "conv"}] per Mamba2 layer, "kv": [{"k", "v"}] per
 shared-block invocation}``.  ``hybrid_forward(plain=True)`` runs the
 shared block's packed projections through quant_matmul's plain version;
-RWKV has no packed weights.
+RWKV has no packed weights.  While grad is enabled, each layer of a
+forward (each Mamba2 layer and shared-block invocation of the hybrid)
+runs under ``cfg.remat`` (``transformer.remat_wrap``).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
+from repro_torch.models.transformer import remat_wrap
 
 __all__ = [
     "init_rwkv_lm", "rwkv_lm_axes", "rwkv_forward", "rwkv_prefill",
@@ -70,12 +73,24 @@ def rwkv_lm_axes(cfg: ArchConfig) -> dict:
             "final_norm": L.norm_axes("ln")}
 
 
+def _rwkv_block(lp: dict, x, cfg: ArchConfig):
+    x = x + ssm.rwkv6_time_mix(lp["time_mix"],
+                               L.norm_apply(lp["ln1"], x, cfg), cfg)
+    return x + ssm.channel_mix(lp["channel_mix"],
+                               L.norm_apply(lp["ln2"], x, cfg))
+
+
 def _rwkv_layers(params, tokens, cfg, mode: str, cache=None):
     """Run every RWKV layer over tokens.  ``mode``: "forward", "prefill"
     (also collect each layer's decode state) or "decode" (one token
     against ``cache``, returning the new states)."""
     x = L.embed(params["embed"], tokens)
     x = L.norm_apply(params["ln0"], x, cfg)
+    if mode == "forward":
+        block = remat_wrap(_rwkv_block, cfg)
+        for lp in params["layers"]:
+            x = block(lp, x, cfg)
+        return x, []
     states = []
     for i, lp in enumerate(params["layers"]):
         h = L.norm_apply(lp["ln1"], x, cfg)
@@ -87,18 +102,13 @@ def _rwkv_layers(params, tokens, cfg, mode: str, cache=None):
             h = L.norm_apply(lp["ln2"], x, cfg)
             cm, cm_shift = ssm.channel_mix_step(lp["channel_mix"], h,
                                                 st["cm_shift"])
-        elif mode == "prefill":
+        else:
             tm, tm_shift, wkv = ssm.rwkv6_time_mix(lp["time_mix"], h, cfg,
                                                    return_state=True)
             x = x + tm
             h = L.norm_apply(lp["ln2"], x, cfg)
             cm, cm_shift = ssm.channel_mix(lp["channel_mix"], h,
                                            return_state=True)
-        else:
-            x = x + ssm.rwkv6_time_mix(lp["time_mix"], h, cfg)
-            h = L.norm_apply(lp["ln2"], x, cfg)
-            x = x + ssm.channel_mix(lp["channel_mix"], h)
-            continue
         x = x + cm
         states.append({"tm_shift": tm_shift, "wkv": wkv,
                        "cm_shift": cm_shift})
@@ -208,6 +218,11 @@ def _shared_block(sp: dict, x, cfg: ArchConfig, positions, *,
     return x + L.mlp_apply(sp["mlp"], h, cfg, plain=plain), kv
 
 
+def _mamba_block(lp: dict, x, cfg: ArchConfig):
+    return x + ssm.mamba2_forward(lp["mamba"], L.norm_apply(lp["norm"], x,
+                                                            cfg), cfg)
+
+
 def _hybrid_full(params, tokens, cfg, *, plain: bool = False, kv_dtype=None,
                  max_len=None, states: bool = False):
     B, S = tokens.shape
@@ -215,19 +230,21 @@ def _hybrid_full(params, tokens, cfg, *, plain: bool = False, kv_dtype=None,
     x = L.embed(params["embed"], tokens)
     mamba_st = [None] * len(params["mamba_layers"])
     kv = []
+    mamba_block = remat_wrap(_mamba_block, cfg)
+    shared_block = remat_wrap(_shared_block, cfg)
     for kind, i in _order(cfg):
         if kind == "mamba":
             lp = params["mamba_layers"][i]
-            h = L.norm_apply(lp["norm"], x, cfg)
             if states:
+                h = L.norm_apply(lp["norm"], x, cfg)
                 y, mamba_st[i] = ssm.mamba2_forward(lp["mamba"], h, cfg,
                                                     return_state=True)
+                x = x + y
             else:
-                y = ssm.mamba2_forward(lp["mamba"], h, cfg)
-            x = x + y
+                x = mamba_block(lp, x, cfg)
         else:
-            x, (k, v) = _shared_block(params["shared"], x, cfg, positions,
-                                      plain=plain)
+            x, (k, v) = shared_block(params["shared"], x, cfg, positions,
+                                     plain=plain)
             if states:
                 kv0 = L.init_kv_cache(cfg, B, max_len or S, kv_dtype,
                                       device=x.device)

@@ -17,16 +17,23 @@ Serving without the engine goes through a dense batch cache, one
 :func:`decoder_decode_step` extends it by one token.
 ``decoder_forward(plain=True)`` runs packed projections through
 quant_matmul's plain version (the oracle's path).
+
+While grad is enabled, each block of a forward runs under the config's
+activation checkpointing (:func:`remat_wrap`, ``cfg.remat``); serving runs
+under ``no_grad`` and never checkpoints.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import layers as L
 
 __all__ = [
+    "remat_wrap",
     "init_decoder",
     "decoder_axes",
     "decoder_forward",
@@ -35,6 +42,38 @@ __all__ = [
     "init_decoder_cache",
     "decoder_cache_axes",
 ]
+
+
+def _dots_saveable():
+    save = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in save
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+def remat_wrap(fn, cfg: ArchConfig):
+    """``fn`` under ``cfg.remat`` while grad is enabled: ``"full"`` keeps
+    only the block's inputs and recomputes it in the backward, ``"dots"``
+    also keeps the outputs of its matmuls without batch dims (``mm``,
+    ``addmm``: the projections), the counterpart of
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``.  With
+    ``"none"``, or under ``no_grad``, ``fn`` runs as it is."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat must be 'none', 'full' or 'dots', got "
+                         f"{cfg.remat!r}")
+    extra = {"context_fn": _dots_saveable} if cfg.remat == "dots" else {}
+
+    def wrapped(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        return checkpoint(fn, *args, use_reentrant=False, **extra, **kwargs)
+
+    return wrapped
 
 
 def init_decoder(cfg: ArchConfig, generator: torch.Generator, *,
@@ -97,8 +136,9 @@ def decoder_forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
     x = L.embed(params["embed"], tokens)
     positions = _positions(tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = remat_wrap(_block_apply, cfg)
     for lp in params["layers"]:
-        x, a, _ = _block_apply(lp, x, cfg, positions, plain=plain)
+        x, a, _ = block(lp, x, cfg, positions, plain=plain)
         if a is not None:
             aux = aux + a
     x = L.norm_apply(params["final_norm"], x, cfg)

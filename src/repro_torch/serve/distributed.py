@@ -373,14 +373,16 @@ class ServingMesh(MeshContext):
             drops.append(self._drops.popleft())
         try:
             self.channel.send((drops, fn, args))
-        except BaseException as e:
-            self.abort(f"sending a command failed: {e!r}")
+        except BaseException as e:  # a rank that died is the cause
+            self.abort(self._dead_rank()
+                       or f"sending a command failed: {e!r}")
             raise
         try:
             _drop(self, drops)
             return fn(self, *args)
         except BaseException as e:
-            self.abort(f"rank 0 failed in {fn.__name__}: {e!r}")
+            self.abort(self._dead_rank()
+                       or f"rank 0 failed in {fn.__name__}: {e!r}")
             raise
 
     def abort(self, reason: str) -> None:

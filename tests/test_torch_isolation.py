@@ -29,7 +29,11 @@ for name in ("repro_torch.serve.frontdoor.server",
              "repro_torch.serve.fleet.supervisor",
              "repro_torch.models.lm", "repro_torch.models.ssm",
              "repro_torch.models.recurrent",
-             "repro_torch.models.multimodal"):
+             "repro_torch.models.multimodal",
+             "repro_torch.optim", "repro_torch.optim.optimizers",
+             "repro_torch.optim.schedule", "repro_torch.optim.compression",
+             "repro_torch.launch.steps", "repro_torch.launch.train",
+             "repro_torch.tree"):
     assert name in names, name
 """
 
