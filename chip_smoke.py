@@ -302,6 +302,14 @@ SERVE_ARGS = argparse.Namespace(slots=8, page_size=16, pages=None,
                                 paged=True, paged_prefill=True)
 SERVE_KERNELS = ("quant_matmul", "paged_decode", "paged_prefill", "kron_mul")
 QUANT_KERNELS = ("ldlq", "kron_mul")
+# depth cuts for the time limit: the serving paths after phase 7 run the
+# synthetic qwen3-14b at full width and this depth (phases 3-6 keep all
+# 40 layers); every gate there compares against a run at the same depth
+LIFECYCLE_LAYERS = 4  # phase 8
+SPEC_LAYERS = 4  # phase 9
+OBSERVE_LAYERS = 4  # phase 10
+TP_LAYERS = 4  # phase 11 (a) and (d)
+FRONTDOOR_LAYERS = 8  # phase 12 (a) and (b)
 
 # quant_matmul (K, M) of one rank at tensor parallelism 2 (phase 11):
 # column-parallel mlp.wi/wg (M = 17408 / 2), row-parallel mlp.wo and
@@ -377,6 +385,16 @@ KRON_CASES = ([(n, N) for n in (1024, 5120, 17408) for N in (8, 512, n)]
 # one warp's registers); 4096 and 16384 (the shared-memory kernel)
 HADAMARD_CASES = [(1024, 8 * 17), (1024, 17408 * 17), (128, 4096),
                   (8, 1001), (2048, 300), (4096, 32), (16384, 64)]
+
+def _depth_cut(tag: str, cfg, layers: int, why: str = "time limit"):
+    """``cfg`` at ``layers`` layers (full width), logged as a depth cut."""
+    import dataclasses
+
+    if layers == cfg.n_layers:
+        return cfg
+    log(f"[{tag}] DEPTH CUT: {layers} of {cfg.n_layers} layers ({why})")
+    return dataclasses.replace(cfg, n_layers=layers)
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1552,7 +1570,7 @@ def phase_serve(torch, *, seed: int, layers: int) -> dict:
     # ---- phase 5: teacher-forced recompute oracle on the plain paths ----
     rec["check"] = check_logits(torch, qm, prompts, reqs, atol=LOGIT_ATOL,
                                 mean_atol=LOGIT_MEAN_ATOL)
-    profile_ticks(torch, adapter, SERVE_ARGS, prompts)
+    profile_ticks(torch, adapter, SERVE_ARGS, prompts, dryrun_tick=True)
     shutil.rmtree(art, ignore_errors=True)
     rec["reqs"] = dict(enumerate(reqs))  # phase 11's baseline streams
     return rec
@@ -1934,12 +1952,15 @@ def _report_tick(tag, prof, n_ticks, names) -> None:
             f"{sum(e.count for e in mine) / n_ticks:.0f} launches")
 
 
-def profile_ticks(torch, adapter, args, prompts, ticks: int = 3) -> None:
+def profile_ticks(torch, adapter, args, prompts, ticks: int = 3,
+                  dryrun_tick: bool = False) -> None:
     """Where a tick's time goes, from ``torch.profiler``: one prefill tick
     of a fresh engine (8 admissions x 64-token chunks, the token budget),
     then a few decode-only ticks of a second short workload (8 lanes, all
     prefilled first).  Reports device-busy time against wall time, the
-    kernels launched per tick and the attention kernels' share."""
+    kernels launched per tick and the attention kernels' share; with
+    ``dryrun_tick``, one more decode tick under the op analysis
+    (:func:`_dryrun_tick`)."""
     from repro_torch.launch.serve import build_engine
 
     attn = ("paged_prefill_kernel", "paged_decode_kernel",
@@ -1954,9 +1975,9 @@ def profile_ticks(torch, adapter, args, prompts, ticks: int = 3) -> None:
                  attn[:1] + ("kron_mul_kernel", QMM_PREFIX, INDEX_SELECT))
     engine.run()
 
-    engine = build_engine(adapter, max_seq_len=prompts.shape[1] + ticks + 2,
+    engine = build_engine(adapter, max_seq_len=prompts.shape[1] + ticks + 3,
                           args=args)
-    reqs = [engine.submit(p, max_new=ticks + 2) for p in prompts]
+    reqs = [engine.submit(p, max_new=ticks + 3) for p in prompts]
     while any(not r.out_tokens for r in reqs):
         engine.tick()
 
@@ -1964,11 +1985,49 @@ def profile_ticks(torch, adapter, args, prompts, ticks: int = 3) -> None:
         for _ in range(ticks):
             engine.tick()
 
+    prof = _profile(torch, decode, ticks)
     _report_tick(f"decode tick ({len(prompts)} lanes, ctx "
-                 f"~{prompts.shape[1]})", _profile(torch, decode, ticks),
+                 f"~{prompts.shape[1]})", prof,
                  ticks, attn[1:] + ("kron_mul_kernel", QMM_PREFIX,
                                     INDEX_SELECT))
+    if dryrun_tick:  # phase 15 (c), on phase 4's engine
+        _dryrun_tick(torch, engine, None if prof is None else prof[1])
     engine.run()
+
+
+def _dryrun_tick(torch, engine, busy_s) -> None:
+    """Phase 15 (c), on phase 4's engine: one more decode tick under the
+    op analysis on the card.  Its counted quant_matmul, paged-decode and
+    kron_mul calls must equal the ``COUNTS`` deltas of that tick; its
+    FLOPs and bytes, and the bytes' time at the card's memory rate, are
+    printed against the decode ticks' device busy time (no speed gate)."""
+    from repro_torch.kernels import reset_counts
+    from repro_torch.runtime.op_analysis import analyze_step
+    from repro_torch.runtime.roofline import HW
+
+    tag = "dryrun-c"
+    _sync(torch)
+    reset_counts()
+    stats, _ = analyze_step(engine.tick, device=DEV)
+    _sync(torch)
+    counts = _counts()
+    traced = {k: stats.kernel_launches.get(k, 0) for k in SERVE_KERNELS}
+    want = {k: counts[k] for k in SERVE_KERNELS}
+    hw = HW()
+    busy = ("not measured" if busy_s is None
+            else f"{busy_s * 1e3:.2f} ms")
+    log(f"[{tag}] a phase-4 decode tick under the op analysis: "
+        f"{stats.flops / 1e9:.2f} GFLOP, {stats.bytes_accessed / 1e9:.3f} GB "
+        f"over {sum(v['count'] for v in stats.ops.values())} ops; compute "
+        f"term {stats.flops / hw.peak_flops * 1e3:.4f} ms, memory term "
+        f"{stats.bytes_accessed / hw.hbm_bw * 1e3:.3f} ms against the "
+        f"decode ticks' device busy {busy} a tick; kernel calls counted "
+        f"{traced}, COUNTS deltas {want}")
+    wrong = [k for k in SERVE_KERNELS if traced[k] != want[k]]
+    if wrong or not (traced["quant_matmul"] and traced["paged_decode"]
+                     and traced["kron_mul"]):
+        raise AssertionError(f"[{tag}] the op analysis counted other kernel "
+                             f"calls than COUNTS: {wrong}")
 
 
 # ---------------------------------------------------------------------------
@@ -2247,11 +2306,7 @@ def phase_lifecycle(torch, *, seed: int, layers: int, cfg=None,
 
     t_phase = time.perf_counter()
     if cfg is None:
-        cfg = get_config("qwen3-14b")
-        if layers != cfg.n_layers:
-            log(f"[lifecycle] DEPTH CUT: {layers} of {cfg.n_layers} layers "
-                f"(full width kept)")
-            cfg = dataclasses.replace(cfg, n_layers=layers)
+        cfg = _depth_cut("lifecycle", get_config("qwen3-14b"), layers)
     qm = synthetic_quantized_model(cfg, seed=seed, device=DEV)
     adapter = CachedDecoder.from_quantized(qm)
     prompt_len, gen = 128, 32
@@ -2668,11 +2723,7 @@ def phase_speculative(torch, *, seed: int, layers: int, cfg=None,
 
     t_phase = time.perf_counter()
     if cfg is None:
-        cfg = get_config("qwen3-14b")
-        if layers != cfg.n_layers:
-            log(f"[speculative] DEPTH CUT: {layers} of {cfg.n_layers} "
-                f"layers (full width kept)")
-            cfg = dataclasses.replace(cfg, n_layers=layers)
+        cfg = _depth_cut("speculative", get_config("qwen3-14b"), layers)
     qm = synthetic_quantized_model(cfg, seed=seed, device=DEV)
     adapter = CachedDecoder.from_quantized(qm)
     prompt_len, gen = 128, 32
@@ -2998,11 +3049,7 @@ def phase_observe(torch, *, seed: int, layers: int, check_max: float,
 
     t_phase = time.perf_counter()
     if cfg is None:
-        cfg = get_config("qwen3-14b")
-        if layers != cfg.n_layers:
-            log(f"[observe] DEPTH CUT: {layers} of {cfg.n_layers} layers "
-                f"(full width kept)")
-            cfg = dataclasses.replace(cfg, n_layers=layers)
+        cfg = _depth_cut("observe", get_config("qwen3-14b"), layers)
     L = cfg.n_layers
     qm = synthetic_quantized_model(cfg, seed=seed, device=DEV)
     adapter = CachedDecoder.from_quantized(qm)
@@ -3308,8 +3355,9 @@ def _tp_frontdoor(torch, mesh, dist, qm, prompts, base: dict, *,
                   check_max: float, gen: int, max_seq_len: int) -> list:
     """Phase 11 (d): ``FrontDoor`` over (a)'s mesh and adapter, phase 12
     (a)'s client traffic (phase 4's prompts, one buffered, a burst of four
-    then one every ``FD_GAP_S``).  Streams equal phase 4's (``base``) but
-    where its top-2 margin is below 2 x ``check_max``, phase 5's check,
+    then one every ``FD_GAP_S``).  Streams equal (a)'s one-device run
+    (``base``) but where its top-2 margin is below 2 x ``check_max``, that
+    run's max |diff| against the oracle, phase 5's check,
     contiguous SSE indices, ``/healthz`` 200, no tick error, the serving
     kernels launched on every rank alike, a clean drain.  Then a second
     front door over the same adapter, idle, and rank 1 killed: ``/healthz``
@@ -3348,6 +3396,9 @@ def _tp_frontdoor(torch, mesh, dist, qm, prompts, base: dict, *,
     for th in threads:
         th.join(2 * CLIENT_TIMEOUT_S)
     wall = time.perf_counter() - t0
+    failed = [(i, o["error"]) for i, o in enumerate(outs) if "error" in o]
+    if failed:  # where every rank waits (a stalled client's timeout)
+        log(f"[{tag}] clients failed: {failed}\n" + mesh.command_log())
     streams, rids = {}, {}
     for i, o in enumerate(outs):
         streams[i], rids[i] = _stream_tokens(tag, o)
@@ -3414,24 +3465,23 @@ def _tp_frontdoor(torch, mesh, dist, qm, prompts, base: dict, *,
     return per_rank
 
 
-def phase_tp(torch, *, seed: int, layers: int, served: dict,
-             check_max: float, cfg=None) -> dict:
+def phase_tp(torch, *, seed: int, layers: int, cfg=None) -> dict:
     """Phase 11: tensor-parallel serving (``serve/distributed.py``) with
     ranks sharing the card on gloo.  (a) mp = 2: phase 4's synthetic 2-bit
-    model (built by every rank from its seed), flags and schedule; streams
-    equal phase 4's but where its top-2 margin is below 2 x phase 5's max
-    |diff|, logits within phase 5's gate of the recompute oracle, each
-    rank holding half the pool and half the packed codes.  (b) mp = 2, K =
+    model at ``layers`` layers (built by every rank from its seed), flags
+    and schedule; streams equal a one-device run of the same model and
+    schedule but where its top-2 margin is below 2 x that run's max |diff|
+    against the recompute oracle, logits within phase 5's gate of the
+    oracle, each rank holding half the pool and half the packed codes.  (b) mp = 2, K =
     4 speculative decode over int8 pages on phase 9's prompts at
     ``TP_SPEC_LAYERS`` layers against the same on one device
     (``INT8_LOGIT_*``), with request 1's logits NaN in a verify tick: that
     lane alone quarantined.  (c) mp = 4 at ``TP4_LAYERS`` layers: 2 KV
     heads a rank, phase 5's gate.  (d), after (b), on (a)'s mesh and
-    adapter: the front door over the mesh (:func:`_tp_frontdoor`), which
-    ends that mesh.  ``served``
-    is phase 4's record, ``check_max`` phase 5's max |diff|; ``cfg``
-    replaces the model (a rehearsal on the CPU).  Returns every run's
-    launches, by rank."""
+    adapter: the front door over the mesh (:func:`_tp_frontdoor`), held to
+    (a)'s one-device run, which ends that mesh.  ``cfg`` replaces the
+    model (a rehearsal on the CPU).  Returns every run's launches, by
+    rank."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3447,11 +3497,7 @@ def phase_tp(torch, *, seed: int, layers: int, served: dict,
 
     t_phase = time.perf_counter()
     if cfg is None:
-        cfg = get_config("qwen3-14b")
-        if layers != cfg.n_layers:
-            log(f"[tp] DEPTH CUT: {layers} of {cfg.n_layers} layers "
-                f"(full width kept)")
-            cfg = dataclasses.replace(cfg, n_layers=layers)
+        cfg = _depth_cut("tp", get_config("qwen3-14b"), layers)
     prompt_len, gen = 128, 32
     max_seq_len = prompt_len + gen
     arrive = (0, 0, 0, 0, 3, 5, 7, 9)
@@ -3483,6 +3529,17 @@ def phase_tp(torch, *, seed: int, layers: int, served: dict,
             f"packed codes {full} B whole, by rank {per_rank}")
         if any(b * 2 != full for b in per_rank):
             raise AssertionError("[tp-a] a rank does not hold half the codes")
+        # the reference at the same depth: one device, the same schedule
+        _, one, paths["tp-a one device"] = _serve_schedule(
+            torch, f"tp-a one device {cfg.n_layers} layers",
+            CachedDecoder.from_quantized(qm), SERVE_ARGS, schedule,
+            max_seq_len=max_seq_len, replay=False, required=SERVE_KERNELS)
+        base = one["reqs"]
+        check_max = check_logits(
+            torch, qm, prompts, [base[i] for i in range(len(prompts))],
+            atol=LOGIT_ATOL, mean_atol=LOGIT_MEAN_ATOL,
+            tag="tp-a one device check")["max_diff"]
+        del one
         eng, run, launches = _tp_run(torch, "tp-a mp=2", mesh, dist,
                                      SERVE_ARGS, schedule,
                                      max_seq_len=max_seq_len)
@@ -3491,18 +3548,17 @@ def phase_tp(torch, *, seed: int, layers: int, served: dict,
         if not dist._pool_sharded or pool.device_bytes() * 2 != \
                 pool.total_bytes():
             raise AssertionError("[tp-a] the KV pool did not split in two")
-        base = served["reqs"]
         max_d, mean_d, n_pos, firsts, _ = _compare_greedy(torch, run, {
             "reqs": {i: base[i] for i in run["reqs"]}})
         bound = 2 * check_max
         unexplained = [f for f in firsts if f[2] >= bound]
-        log(f"[tp-a] against phase 4's run: {n_pos} positions, logit max "
-            f"|diff| {max_d:.4f}, mean {mean_d:.5f}; streams that part: "
+        log(f"[tp-a] against the one-device run: {n_pos} positions, logit "
+            f"max |diff| {max_d:.4f}, mean {mean_d:.5f}; streams that part: "
             f"{len(firsts)} (request, position, margin: {firsts}; all "
-            f"below 2 x phase 5's max |diff| = {bound:.4f}: "
+            f"below 2 x its max |diff| = {bound:.4f}: "
             f"{'yes' if not unexplained else 'NO'})")
         if unexplained:
-            raise AssertionError("[tp-a] streams part from phase 4's")
+            raise AssertionError("[tp-a] streams part from one device's")
         check_logits(torch, qm, prompts, [run["reqs"][i]
                                           for i in range(len(prompts))],
                      atol=LOGIT_ATOL, mean_atol=LOGIT_MEAN_ATOL,
@@ -3887,10 +3943,7 @@ def _fleet_tp(torch, *, cfg, seed: int, prompts, args, check_max: float,
 
     tag = "fleet-tp"
     t_c = time.perf_counter()
-    cfg = dataclasses.replace(cfg, n_layers=min(FLEET_TP_LAYERS,
-                                                cfg.n_layers))
-    log(f"[{tag}] DEPTH CUT for the time limit: {cfg.n_layers} layers "
-        f"(full width kept)")
+    cfg = _depth_cut(tag, cfg, min(FLEET_TP_LAYERS, cfg.n_layers))
     max_seq_len = prompt_len + gen
     greedy = list(range(FLEET_TP_GREEDY))
     qm = synthetic_quantized_model(cfg, seed=seed, device=DEV)
@@ -4105,18 +4158,19 @@ def _fleet_tp(torch, *, cfg, seed: int, prompts, args, check_max: float,
     shutil.rmtree(art, ignore_errors=True)
 
 
-def phase_frontdoor(torch, *, seed: int, layers: int, served: dict,
-                    check_max: float, cfg=None) -> dict:
+def phase_frontdoor(torch, *, seed: int, layers: int, cfg=None) -> dict:
     """Phase 12: (a) phase 4's model (rebuilt from its seed, full width,
     ``layers`` deep) behind ``FrontDoor`` in this process, phase 4's
-    prompts sent by HTTP clients, the streams held to phase 4's
-    (``served``) and to the recompute oracle; (b) the same model as an
+    prompts sent by HTTP clients, the streams held to phase 4's schedule
+    run on the same model in this process (``serve_requests``) and to the
+    recompute oracle; (b) the same model as an
     artifact served by two replica processes of ``launch/serve.py`` behind
     an in-process ``Supervisor`` and ``FleetRouter``, replica 1 killed
     (SIGKILL) mid-stream and restarted; (c) the same over two
-    ``--mesh 1,2`` replicas (:func:`_fleet_tp`).  ``check_max`` is phase
-    5's max |diff|.  ``cfg`` replaces the model (a rehearsal on the CPU at
-    a small one).  Returns (a)'s kernel launches."""
+    ``--mesh 1,2`` replicas (:func:`_fleet_tp`).  ``check_max`` is the
+    reference run's max |diff| against the oracle.  ``cfg`` replaces the
+    model (a rehearsal on the CPU at a small one).  Returns (a)'s kernel
+    launches."""
     import dataclasses
     import os
     import signal
@@ -4147,20 +4201,23 @@ def phase_frontdoor(torch, *, seed: int, layers: int, served: dict,
 
     t_phase = time.perf_counter()
     if cfg is None:
-        cfg = get_config("qwen3-14b")
-        if layers != cfg.n_layers:
-            log(f"[frontdoor] DEPTH CUT: {layers} of {cfg.n_layers} layers "
-                f"(full width kept)")
-            cfg = dataclasses.replace(cfg, n_layers=layers)
+        cfg = _depth_cut("frontdoor", get_config("qwen3-14b"), layers)
     args = _args()
     prompt_len, gen = 128, 32
     max_seq_len = prompt_len + gen
     n_req = 8
     prompts = make_calibration(cfg.vocab, n_segments=n_req,
                                seg_len=prompt_len, seed=seed + 3)
-    base = served["reqs"]
-    bound = 2 * check_max
     qm = synthetic_quantized_model(cfg, seed=seed, device=DEV)
+    # the reference at the same depth: phase 4's schedule on one device
+    _, ref_reqs, served = serve_requests(
+        torch, qm, prompts, gen=gen, arrive=(0, 0, 0, 0, 3, 5, 7, 9),
+        args=SERVE_ARGS)
+    check_max = check_logits(torch, qm, prompts, ref_reqs, atol=LOGIT_ATOL,
+                             mean_atol=LOGIT_MEAN_ATOL,
+                             tag="frontdoor reference check")["max_diff"]
+    base = dict(enumerate(ref_reqs))
+    bound = 2 * check_max
 
     # ---- (a) the front door in this process -----------------------------
     engine = build_engine(CachedDecoder.from_quantized(qm),
@@ -4240,9 +4297,26 @@ def phase_frontdoor(torch, *, seed: int, layers: int, served: dict,
                              f"the front door: {missing}")
     fd_reqs = dict(enumerate(reqs))
     # the logits' drift between two batchings of the same requests (phase
-    # 4's tick schedule, this wall-clock one): (b)'s sampled gate
+    # 4's tick schedule, this wall-clock one), and between that schedule
+    # and each request alone, the pair (b)'s sampled gate compares (a
+    # replica's batch against the request run alone; as (c) measures it):
+    # the larger bounds (b)'s sampled gate
     drift = _survivor_partings(torch, "frontdoor", {"reqs": fd_reqs},
                                {"reqs": base}, range(n_req), check_max)
+    serial = build_engine(CachedDecoder.from_quantized(qm),
+                          max_seq_len=max_seq_len, args=args,
+                          record_logits=True)
+    alone = {}
+    for i in range(n_req):
+        alone[i] = serial.submit(prompts[i], max_new=gen)
+        serial.run()
+    drift_alone = _compare_greedy(torch, {"reqs": alone},
+                                  {"reqs": base})[0]
+    log(f"[frontdoor] logit drift between batchings: the front door's "
+        f"against the schedule's {drift:.4f}, each request alone against "
+        f"the schedule's {drift_alone:.4f}")
+    drift = max(drift, drift_alone)
+    del serial, alone
     check_logits(torch, qm, prompts, reqs, atol=LOGIT_ATOL,
                  mean_atol=LOGIT_MEAN_ATOL, tag="frontdoor check")
 
@@ -4265,8 +4339,8 @@ def phase_frontdoor(torch, *, seed: int, layers: int, served: dict,
         torch.cuda.empty_cache()
         peak = served["peak_bytes"]
         free, total = torch.cuda.mem_get_info()
-        log(f"[fleet] two replicas of phase 4's engine need about 2 x "
-            f"{peak / 2**30:.2f} GiB (phase 4's peak "
+        log(f"[fleet] two replicas of the engine need about 2 x "
+            f"{peak / 2**30:.2f} GiB (the reference run's peak "
             f"torch.cuda.max_memory_allocated) beside their CUDA contexts; "
             f"the card has {free / 2**30:.2f} of {total / 2**30:.2f} GiB "
             f"free")
@@ -5243,8 +5317,8 @@ def start_train_drill() -> dict:
 
 
 def stop_train_drill(drill) -> None:
-    """Ends the drill's process if it still runs (a phase before 14
-    failed)."""
+    """Ends a process started beside the build (phase 14's drill, phase
+    15's dry run) if it still runs (an earlier phase failed)."""
     if drill and drill["proc"].poll() is None:
         drill["proc"].kill()
         drill["proc"].wait()
@@ -5316,6 +5390,294 @@ def phase_train(torch, *, seed: int, cfg=None, drill=None) -> dict:
     return {"train": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the dry run against the card
+# ---------------------------------------------------------------------------
+
+# (d): the full dry run of these cells (arch, shape, mesh shape or None for
+# the default production mesh), in a process started beside the build
+DRYRUN_CELLS = (("qwen3-14b", "train_4k", None),
+                ("qwen3-14b", "train_4k", (1, 4)),
+                ("qwen3-14b", "decode_32k", None),
+                ("qwen3-14b", "decode_32k", (1, 4)))
+DRYRUN_CHILD = r"""
+import json, sys
+from repro_torch.launch import dryrun
+for arch, shape, mesh in json.loads(sys.argv[2]):
+    argv = ["--arch", arch, "--shape", shape, "--out", sys.argv[1]]
+    if mesh:
+        argv += ["--mesh-shape", ",".join(map(str, mesh)),
+                 "--tag", "x".join(map(str, mesh))]
+    if dryrun.main(argv):
+        sys.exit(1)
+"""
+# (b): a batch cache of this many lanes and positions, the model's dtype
+DRYRUN_DECODE_B, DRYRUN_DECODE_LEN = 8, 2048
+# argument bytes: the caching allocator rounds each block to 512 B, and a
+# tensor over 1 MiB may hold the unsplit tail of its segment (< 1 MiB)
+ALLOC_SLACK_SMALL, ALLOC_SLACK_LARGE = 511, 2**20 + 511
+# the trace's peak live bytes against max_memory_allocated over one step,
+# less what the first step left allocated for good (cuBLAS's workspaces):
+# the allocator's rounding and kernels' own temporaries are not in the
+# trace
+DRYRUN_PEAK_RTOL, DRYRUN_PEAK_ATOL = 0.01, 16 * 2**20
+
+
+def start_dryrun() -> dict:
+    """(d), started: the dry run of ``DRYRUN_CELLS`` in one fresh process
+    (CPU only: ``meta`` tensors, nothing on the card), beside the
+    kernels' build; :func:`phase_dryrun` reads its records."""
+    import os
+
+    out = WORK_DIR / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")])}
+    logs = (WORK_DIR / "dryrun.out", WORK_DIR / "dryrun.err")
+    with open(logs[0], "w") as o, open(logs[1], "w") as e:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_CHILD, str(out),
+             json.dumps(DRYRUN_CELLS)], env=env, cwd=ROOT, stdout=o,
+            stderr=e)
+    return {"proc": proc, "out": out, "logs": logs,
+            "t0": time.perf_counter()}
+
+
+def _alloc_slack(tree) -> int:
+    from repro_torch.runtime.op_analysis import _tensors
+
+    return sum(ALLOC_SLACK_SMALL if t.numel() * t.element_size() <= 2**20
+               else ALLOC_SLACK_LARGE for t in _tensors(tree))
+
+
+def _tree_nbytes(tree) -> int:
+    from repro_torch.runtime.op_analysis import _tensors
+
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+
+def _dryrun_cell(torch, tag: str, rec: dict, args, step, wrong: int,
+                 base: int) -> dict:
+    """One cell of (a) / (b) on the card: ``args`` placed (their
+    allocation from ``base`` against the dry run's argument bytes), one
+    step traced under the op analysis (FLOPs and bytes against the
+    ``meta`` trace's, exactly), then one step timed with its peak against
+    the trace's; ``wrong`` bytes left out of the dry run (the optimizer
+    state, the cache) must fail both gates."""
+    from repro_torch.runtime.op_analysis import _tensors, analyze_step
+
+    _sync(torch)
+    alloc = torch.cuda.memory_allocated() - base
+    want, slack = rec["arg_bytes"], _alloc_slack(args)
+    gap = alloc - want
+    ok = 0 <= gap <= slack
+    log(f"[{tag}] arguments: the dry run's {want} B (exact per-device "
+        f"{rec['per_device_bytes']['total']} B), allocated on the card "
+        f"{alloc} B: +{gap} B over {len(_tensors(args))} tensors, "
+        f"bound [0, {slack}] (512-B rounding, and the unsplit tail of a "
+        f"segment under 1 MiB for a tensor over 1 MiB): "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] argument bytes disagree")
+    gap_w = alloc - (want - wrong)
+    _must_fail(tag, f"argument bytes without {wrong} B", f"+{gap_w} B",
+               0 <= gap_w <= slack)
+
+    card = analyze_step(step, *args)[0]  # drops the step's result
+    _sync(torch)
+    persistent = torch.cuda.memory_allocated() - base - alloc
+    meta = rec["op_analysis"]
+    same = card.flops == meta["flops"] and \
+        card.bytes_accessed == meta["bytes"]
+    log(f"[{tag}] op analysis on meta: {meta['flops']:.6e} FLOP, "
+        f"{meta['bytes']:.6e} B over {meta['ops_traced']} ops; the same "
+        f"step traced on the card: {card.flops:.6e} FLOP, "
+        f"{card.bytes_accessed:.6e} B over "
+        f"{sum(v['count'] for v in card.ops.values())} ops: "
+        f"{'equal' if same else 'DIFFERENT'}")
+    if not same:
+        diff = {k: (rec["op_table"].get(k), card.ops.get(k))
+                for k in set(rec["op_table"]) | set(card.ops)
+                if rec["op_table"].get(k) != card.ops.get(k)}
+        raise AssertionError(f"[{tag}] the meta and card traces differ: "
+                             f"{diff}")
+    torch.cuda.reset_peak_memory_stats()
+    ev = _events(torch)
+    step(*args)
+    ms = ev()
+    peak = torch.cuda.max_memory_allocated() - base - persistent
+    want_peak = rec["peak_live_bytes"]
+    tol = DRYRUN_PEAK_RTOL * peak + DRYRUN_PEAK_ATOL
+    ok = abs(want_peak - peak) <= tol
+    r = rec["roofline"]
+    log(f"[{tag}] peak: the trace's {want_peak / 1e9:.4f} GB, "
+        f"max_memory_allocated over one step {peak / 1e9:.4f} GB less "
+        f"{persistent} B the first step left allocated "
+        f"({(want_peak - peak) / peak:+.3%}, tol {DRYRUN_PEAK_RTOL:.0%} + "
+        f"{DRYRUN_PEAK_ATOL >> 20} MiB): "
+        f"{'OK' if ok else 'FAIL'}; step {ms:.1f} ms against the "
+        f"roofline's compute term {r['compute_s'] * 1e3:.2f} ms and memory "
+        f"term {r['memory_s'] * 1e3:.2f} ms (H100 datasheet; "
+        f"{r['dominant']}-bound, mfu bound {r['mfu_bound']:.3f}, measured "
+        f"{r['model_flops'] / (ms / 1e3) / r['hw']['peak_flops']:.3f})")
+    if not ok:
+        raise AssertionError(f"[{tag}] peak live bytes disagree")
+    _must_fail(tag, f"peak without {wrong} B",
+               f"{(want_peak - wrong - peak) / peak:+.2%}",
+               abs(want_peak - wrong - peak) <= tol)
+    return {"ms": ms, "peak": peak}
+
+
+def phase_dryrun(torch, *, seed: int, dryrun: dict, cfg=None) -> dict:
+    """Phase 15: the dry run (``launch/dryrun.py``) against the card.  (a)
+    phase 14 (b)'s train cell (qwen3-14b at 2 layers, full width, 32 x 64
+    tokens, bf16 adamw, remat full, mesh (1, 1)) and (b) a decode cell of
+    the same model with a batch cache (``DRYRUN_DECODE_B`` x
+    ``DRYRUN_DECODE_LEN``, bf16), each through :func:`_dryrun_cell`; (c)
+    ran on phase 4's engine (:func:`_dryrun_tick`); (d) the records of
+    ``DRYRUN_CELLS`` from the process :func:`start_dryrun` started, one
+    line a cell, and the card's memory against the figure they were held
+    to; (e) the op analysis's collectives under ``torch.distributed``'s
+    ``fake`` backend on this torch.  Returns the kernel launches (none)."""
+    import os
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import reset_counts
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_decode_step, make_train_step
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.runtime.sharding import default_rules
+
+    t_phase = time.perf_counter()
+    cfg = _train_cfg(cfg)
+    host = make_host_mesh()
+    _sync(torch)
+    reset_counts()
+
+    # ---- (a) the train cell -------------------------------------------
+    tag = "dryrun-a"
+    shape = ShapeSpec("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    rec = dr.analyze_cell(cfg, shape, host, default_rules())
+    base = torch.cuda.memory_allocated()
+    model, params = _train_init(torch, cfg, seed)
+    opt = adamw(cosine_schedule(3e-4, 10_000, 500))
+    state = opt.init(params)
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                         generator=g, device=DEV, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "targets": toks[:, 1:].contiguous()}
+    del toks
+    log(f"[{tag}] {cfg.name} {cfg.n_layers} layers {cfg.dtype}, remat "
+        f"{cfg.remat}, adamw, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, mesh "
+        f"(1, 1); the dry run traced it on meta in {rec['trace_s']} s")
+    _dryrun_cell(torch, tag, rec, (params, state, batch, 0),
+                 make_train_step(model, opt), _tree_nbytes(state), base)
+    del params, state, batch, model, opt
+    _release(torch, "phase 15 (a)")
+
+    # ---- (b) a decode cell with a batch cache ------------------------
+    tag = "dryrun-b"
+    B, S = DRYRUN_DECODE_B, DRYRUN_DECODE_LEN
+    rec = dr.analyze_cell(cfg, ShapeSpec("chip_decode", S, B, "decode"),
+                          host, default_rules())
+    base = torch.cuda.memory_allocated()
+    model, params = _train_init(torch, cfg, seed)
+    cache = model.init_cache(B, S, device=DEV)
+    tokens = torch.zeros((B, 1), dtype=torch.int32, device=DEV)
+    log(f"[{tag}] {cfg.name} {cfg.n_layers} layers {cfg.dtype}, a batch "
+        f"cache of {B} x {S} positions, one token at position {S - 1}")
+    _dryrun_cell(torch, tag, rec, (params, tokens, cache, S - 1),
+                 make_decode_step(model), _tree_nbytes(cache), base)
+    del params, cache, tokens, model
+    _release(torch, "phase 15 (b)")
+
+    # ---- (d) the full dry run ----------------------------------------
+    tag = "dryrun-d"
+    proc = dryrun["proc"]
+    early = proc.poll() is not None
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err = dryrun["logs"][1].read_text()
+    if rc != 0:
+        raise AssertionError(f"[{tag}] the dry run exited {rc}: {err[-2000:]}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    for arch, shape_name, mesh in DRYRUN_CELLS:
+        suffix = "." + "x".join(map(str, mesh)) if mesh else ""
+        rec = json.loads((dryrun["out"] / f"{arch}__{shape_name}__pod1"
+                          f"{suffix}.json").read_text())
+        d, r = rec["per_device_bytes"], rec["roofline"]
+        coll = ("null (" + rec["collectives_note"].split(":")[0] + ")"
+                if rec["collectives"] is None
+                else f"{rec['collectives']['total_bytes']:.0f} B")
+        log(f"[{tag}] {arch} x {shape_name} mesh {rec['mesh']} "
+            f"({rec['chips']} chips): per device "
+            + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in d.items())
+            + f"; peak {rec['per_device_peak_bytes'] / 1e9:.2f} GB, fits "
+            f"{rec['fits']}; {rec['op_analysis']['flops_per_device']:.4e} "
+            f"FLOP and {rec['op_analysis']['bytes_per_device']:.4e} B a "
+            f"device; compute {r['compute_s']:.4f} s, memory "
+            f"{r['memory_s']:.4f} s, collective {r['collective_s']}, "
+            f"{r['dominant']}-bound, useful {r['useful_ratio']:.3f}, mfu "
+            f"bound {r['mfu_bound']:.3f}; collectives {coll}; traced in "
+            f"{rec['trace_s']} s")
+        if rec["status"] != "ok" or (rec["chips"] > 1) != (
+                rec["collectives"] is None) or r["collective_s"] is None \
+                and rec["chips"] == 1:
+            raise AssertionError(f"[{tag}] {arch} x {shape_name}: a bad "
+                                 f"record")
+    log(f"[{tag}] the dry run's {len(DRYRUN_CELLS)} cells ran beside "
+        f"phases 1-14 (done before phase 15: {early}); the card's memory "
+        f"(get_device_properties(0).total_memory) {total} B, the figure "
+        f"the records' fits used {dr.DEVICE_MEMORY_BYTES} B")
+    if total != dr.DEVICE_MEMORY_BYTES:
+        raise AssertionError(f"[{tag}] the card's memory {total} B is not "
+                             f"the dry run's {dr.DEVICE_MEMORY_BYTES} B")
+
+    # ---- (e) collectives under the fake backend -----------------------
+    _fake_collectives(torch)
+    log(f"[dryrun] phase 15 passed in {time.perf_counter() - t_phase:.1f}s")
+    return {"dryrun": _counts()}
+
+
+def _fake_collectives(torch) -> None:
+    """(e): an all-reduce, an all-gather and a reduce-scatter of one rank
+    of four under ``torch.distributed``'s ``fake`` backend, counted by the
+    op analysis with the per-device link-byte conventions."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.runtime.op_analysis import analyze_step
+
+    tag = "dryrun-e"
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        x = torch.ones(1024, device=DEV)
+
+        def f(x):
+            dist.all_reduce(x)
+            dist.all_gather_into_tensor(torch.empty(4096, device=DEV), x)
+            dist.reduce_scatter_tensor(torch.empty(256, device=DEV), x)
+
+        stats, _ = analyze_step(f, x, device=DEV)
+    finally:
+        dist.destroy_process_group()
+    got = stats.collectives.bytes_by_kind
+    want = {"all-reduce": 2 * 4096 * 0.75, "all-gather": 16384 * 0.75,
+            "reduce-scatter": 4096 * 0.75}
+    log(f"[{tag}] torch {torch.__version__}, backend 'fake', 1 rank of 4: "
+        f"collective bytes {got} (want {want})")
+    if got != want:
+        raise AssertionError(f"[{tag}] collective bytes off the conventions")
+
+
 REPLACES = {
     "quant_matmul": "src/repro/kernels/quant_matmul/kernel.py:60",
     "paged_decode": "src/repro/kernels/paged_attention/kernel.py:164",
@@ -5369,6 +5731,9 @@ def main(argv=None) -> int:
     # a few seconds, the rest of its ~20 s is its start
     drill = start_train_drill()
     atexit.register(stop_train_drill, drill)
+    # phase 15 (d)'s dry run: CPU only, beside the build and the phases
+    dry = start_dryrun()
+    atexit.register(stop_train_drill, dry)
     phase_build()
     reps = phase_kernels(torch)
     _release(torch, "phase 3")
@@ -5380,26 +5745,28 @@ def main(argv=None) -> int:
     _release(torch, "phase 6")
     dense = phase_dense_family(torch, seed=args.seed)
     _release(torch, "phase 7")
-    lifecycle = phase_lifecycle(torch, seed=args.seed, layers=args.layers)
+    lifecycle = phase_lifecycle(torch, seed=args.seed,
+                                layers=min(args.layers, LIFECYCLE_LAYERS))
     _release(torch, "phase 8")
     speculative = phase_speculative(torch, seed=args.seed,
-                                    layers=args.layers)
+                                    layers=min(args.layers, SPEC_LAYERS))
     _release(torch, "phase 9")
-    observe = phase_observe(torch, seed=args.seed, layers=args.layers,
+    observe = phase_observe(torch, seed=args.seed,
+                            layers=min(args.layers, OBSERVE_LAYERS),
                             check_max=served["check"]["max_diff"],
                             artifact=quant["artifact"])
     _release(torch, "phase 10")
-    tp = phase_tp(torch, seed=args.seed, layers=args.layers, served=served,
-                  check_max=served["check"]["max_diff"])
+    tp = phase_tp(torch, seed=args.seed, layers=min(args.layers, TP_LAYERS))
     _release(torch, "phase 11")
-    frontdoor = phase_frontdoor(torch, seed=args.seed, layers=args.layers,
-                                served=served,
-                                check_max=served["check"]["max_diff"])
+    frontdoor = phase_frontdoor(torch, seed=args.seed,
+                                layers=min(args.layers, FRONTDOOR_LAYERS))
     _release(torch, "phase 12")
     families = phase_families(torch, seed=args.seed)
     _release(torch, "phase 13")
     train = phase_train(torch, seed=args.seed, drill=drill)
     _release(torch, "phase 14")
+    dryrun = phase_dryrun(torch, seed=args.seed, dryrun=dry)
+    _release(torch, "phase 15")
     # launches: each kernel on the path that runs it — the synthetic serve
     # for the serving kernels, the quantize run for ldlq and kron_mul, the
     # hadamard linear for hadamard; phases 7's to 10's paths beside them
@@ -5407,7 +5774,7 @@ def main(argv=None) -> int:
              "hadamard_linear": quant["hadamard_launches"],
              "serve_quantized": quant["serve_launches"], **dense,
              **lifecycle, **speculative, **observe, **tp, **frontdoor,
-             **families, **train}
+             **families, **train, **dryrun}
     main_path = {"ldlq": "quantize", "kron_mul": "quantize",
                  "hadamard": "hadamard_linear"}
     kernels = []

@@ -4,10 +4,10 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import SHAPES, ArchConfig, ShapeSpec, shapes_for
 
-__all__ = ["ArchConfig", "ARCHS", "ARCH_IDS", "get_config",
-           "get_smoke_config"]
+__all__ = ["ArchConfig", "ShapeSpec", "SHAPES", "shapes_for", "ARCHS",
+           "ARCH_IDS", "get_config", "get_smoke_config"]
 
 # arch id -> module name, in the JAX package's order
 _MODULES = {

@@ -1,18 +1,39 @@
-"""Architecture config schema.
+"""Architecture config schema and the input-shape registry.
 
 One :class:`ArchConfig` covers the dense, moe, rwkv, hybrid, encdec and vlm
 families through family-specific optional fields, with the JAX package's
 names and defaults, the training knobs ``microbatch`` and ``remat``
 among them.  ``from_dict`` accepts a full config dict as the JAX package
 writes it into artifact manifests and drops the fields this schema does
-not model (``causal``, the shape registry's skips).
+not model (``causal``).
+
+Shapes: every LM cell is seq_len × global_batch; ``decode_*`` and
+``long_*`` run one token against a seq_len-deep cache or state, not a
+train step.  ``long_500k`` runs only for the sub-quadratic families (rwkv,
+hybrid).  The registry and :func:`shapes_for` are the JAX package's.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Literal
 
-__all__ = ["ArchConfig"]
+__all__ = ["ArchConfig", "ShapeSpec", "SHAPES", "shapes_for"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +97,9 @@ class ArchConfig:
     # "full" recomputes the block, "dots" keeps its matmul outputs
     remat: Literal["none", "full", "dots"] = "full"
 
+    # which assigned shapes this arch skips (beyond the family default)
+    shape_skips: tuple[str, ...] = ()
+
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
@@ -95,6 +119,41 @@ class ArchConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks), the JAX
+        package's formula."""
+        d, f, v = self.d_model, self.d_ff, self.vocab
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.family == "rwkv":
+            return emb + self.n_layers * (4 * d * d + d * d // 2 + 2 * d * f)
+        if self.family == "hybrid":
+            di, s = self.d_inner, self.ssm_state
+            mamba = d * (2 * di + 2 * s + self.ssm_heads) + di * d
+            n_shared = max(1, self.n_layers // max(self.shared_attn_period, 1))
+            return (emb + (self.n_layers - n_shared) * mamba
+                    + attn + 3 * d * f)
+        if self.family == "moe":
+            ffn = self.n_experts * 3 * d * f + d * self.n_experts
+            if self.dense_residual:
+                ffn += 3 * d * f
+            return emb + self.n_layers * (attn + ffn)
+        blk = attn + (3 if self.mlp == "swiglu" else 2) * d * f
+        n_blocks = self.n_layers
+        if self.family == "encdec":
+            n_blocks = self.n_enc_layers + self.n_dec_layers
+            blk += attn  # decoder cross-attn, counted once per layer pair
+        return emb + n_blocks * blk
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k of n_experts)."""
+        if self.family != "moe" or not self.n_experts:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        ffn_total = self.n_layers * self.n_experts * 3 * d * f
+        ffn_active = self.n_layers * self.top_k * 3 * d * f
+        return self.param_count() - ffn_total + ffn_active
 
     @classmethod
     def from_dict(cls, d: dict) -> "ArchConfig":
@@ -119,4 +178,19 @@ class ArchConfig:
         for flag, why in refused.items():
             if d.get(flag):
                 raise ValueError(f"{flag}={d[flag]!r} {why}")
-        return cls(**{k: v for k, v in d.items() if k in names})
+        kw = {k: v for k, v in d.items() if k in names}
+        if "shape_skips" in kw:  # a json list in a manifest
+            kw["shape_skips"] = tuple(kw["shape_skips"])
+        return cls(**kw)
+
+
+def shapes_for(cfg: ArchConfig) -> list[ShapeSpec]:
+    """The assigned shapes this arch runs (sub-quadratic gating applied)."""
+    out = []
+    for s in SHAPES.values():
+        if s.name in cfg.shape_skips:
+            continue
+        if s.name == "long_500k" and cfg.family not in ("rwkv", "hybrid"):
+            continue  # needs sub-quadratic attention
+        out.append(s)
+    return out

@@ -22,7 +22,10 @@ Training keeps that stacked layout: :func:`stack_layers` turns the port's
 per-layer lists into one tensor per leaf with a leading layer axis (the
 JAX package's ``model.init`` tree, so optimizer state and checkpoints
 have its leaves, keys and shapes), and :func:`layer_views` hands the
-forward per-layer views of it without copying.
+forward per-layer views of it without copying.  :func:`stack_axes`,
+:func:`stack_cache` and :func:`stack_cache_axes` do the same for a
+param-axes tree, a cache and a cache-axes tree (the dry run's byte
+accounting, and the comparison with the JAX package's ``eval_shape``s).
 """
 from __future__ import annotations
 
@@ -43,6 +46,9 @@ __all__ = [
     "fp_params_from_numpy",
     "stack_layers",
     "layer_views",
+    "stack_axes",
+    "stack_cache",
+    "stack_cache_axes",
     "write_port_artifact",
 ]
 
@@ -158,6 +164,36 @@ def layer_views(params: dict) -> dict:
         return torch.unbind(x)
 
     return {k: unstack(v) if k in _STACKED else v for k, v in params.items()}
+
+
+def _prefix_layers(axes):
+    if isinstance(axes, dict):
+        return {k: _prefix_layers(v) for k, v in axes.items()}
+    return ("layers", *axes)
+
+
+def stack_axes(axes: dict) -> dict:
+    """The port's param axes (one per-layer dict for each key of
+    ``_STACKED``) -> the JAX package's: a leading ``"layers"`` axis on
+    every leaf of those keys."""
+    return {k: _prefix_layers(v) if k in _STACKED else v
+            for k, v in axes.items()}
+
+
+def stack_cache(cache):
+    """The port's cache (per-layer lists of dicts, or a dict of such
+    lists) -> the JAX package's stacked layout: each list becomes one
+    dict whose leaves are the layers' stacked along a new axis 0 (one
+    copy; meant for ``meta`` caches and small ones)."""
+    if isinstance(cache, list):
+        return {k: torch.stack([c[k] for c in cache]) for k in cache[0]}
+    return {k: stack_cache(v) for k, v in cache.items()}
+
+
+def stack_cache_axes(axes: dict) -> dict:
+    """The port's cache axes (one layer's) -> the JAX package's: every
+    cache leaf is stacked, so every leaf gains a leading ``"layers"``."""
+    return _prefix_layers(axes)
 
 
 def _leaves(x):

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels.kron_mul.kernel import kron_mul_kernel
 from repro_torch.kernels.kron_mul.ref import kron_mul_ref
+from repro_torch.runtime.op_analysis import register_kernel
 
 __all__ = ["kron_mul"]
 
@@ -31,3 +32,11 @@ def kron_mul(x: torch.Tensor, A: Optional[torch.Tensor], B: torch.Tensor,
     n = x.shape[-1]
     lead = x.shape[:-1]
     return kron_mul_kernel(x.reshape(-1, n), A, B, **kw).reshape(*lead, n)
+
+
+# the op analysis's FLOP formula (``runtime/op_analysis.py``): A·X·Bᵀ per
+# row, 2·N·(p+q)·p·q
+@register_kernel("kron_mul", "kron_mul", launched=lambda x, *a: x.shape[0] > 0)
+def _kron_mul_flops(x, A, B, perm, inv_perm, scale, transpose) -> float:
+    p, q = (1 if A is None else A.shape[0]), B.shape[0]
+    return 2.0 * x.shape[0] * (p + q) * p * q

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core.ldlq import blocked_schedule, ldlq_blocked
 from repro_torch.kernels.ldlq.kernel import ldlq_block_kernel
+from repro_torch.runtime.op_analysis import register_kernel
 
 __all__ = ["ldlq"]
 
@@ -36,3 +37,12 @@ def ldlq(
                             noise=noise)
     return blocked_schedule(W, Udot, maxq, block=block,
                             step=ldlq_block_kernel, noise=noise)
+
+
+# the op analysis's FLOP formula (``runtime/op_analysis.py``): each of a
+# row's nb columns feeds its error forward to the columns after it, one
+# FMA each: M·nb·(nb−1)
+@register_kernel("ldlq_block", "ldlq", launched=lambda W, *a: W.shape[0] > 0)
+def _ldlq_flops(W, base, U, noise, maxq) -> float:
+    M, nb = W.shape
+    return float(M * nb * (nb - 1))

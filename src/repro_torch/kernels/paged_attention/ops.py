@@ -28,6 +28,7 @@ from repro_torch.kernels.paged_attention.ref import (
     paged_gqa_decode_ref,
     paged_gqa_prefill_ref,
 )
+from repro_torch.runtime.op_analysis import register_kernel
 
 
 def paged_gqa_decode(
@@ -112,3 +113,58 @@ def paged_gqa_verify(q, k_chunk, v_chunk, k_pages, v_pages, block_tables,
         layer=layer, k_scale=k_scale, v_scale=v_scale, k_self=k_self,
         v_self=v_self,
     )
+
+
+# the op analysis's FLOP formulas (``runtime/op_analysis.py``): q·kᵀ and
+# p·v over every key a query attends, 4·hd a (query head, key) pair.  The
+# keys are each lane's context (read on the card: the work this run's data
+# needs; a ``meta`` trace counts the tables' capacity) plus, for decode,
+# the token itself and, for prefill, the causal chunk.
+
+
+def _ctx_keys(ctx_len, block_tables, k_pages) -> float:
+    if ctx_len.device.type == "meta":
+        return float(block_tables.shape[0] * block_tables.shape[1]
+                     * k_pages.shape[2])
+    return float(ctx_len.sum())
+
+
+@register_kernel("paged_decode", "paged_decode",
+                 launched=lambda q, *a: q.shape[0] > 0)
+def _paged_decode_flops(q, k_pages, v_pages, k_scale, v_scale, block_tables,
+                        ctx_len, layer) -> float:
+    B, KV, G, hd = q.shape
+    return 4.0 * KV * G * hd * _ctx_keys(ctx_len, block_tables, k_pages)
+
+
+@register_kernel("paged_decode_self", "paged_decode",
+                 launched=lambda q, *a: q.shape[0] > 0)
+def _paged_decode_self_flops(q, k_new, v_new, k_pages, v_pages, k_scale,
+                             v_scale, block_tables, ctx_len, layer) -> float:
+    B, H, hd = q.shape
+    keys = _ctx_keys(ctx_len, block_tables, k_pages) + B
+    return 4.0 * H * hd * keys
+
+
+def _prefill_keys(B, C, ctx_len, block_tables, k_pages) -> float:
+    return (C * _ctx_keys(ctx_len, block_tables, k_pages)
+            + B * C * (C + 1) / 2)
+
+
+@register_kernel("paged_prefill", "paged_prefill",
+                 launched=lambda q, *a: q.shape[0] > 0 and q.shape[3] > 0)
+def _paged_prefill_flops(q, k_chunk, v_chunk, k_pages, v_pages, k_scale,
+                         v_scale, k_self, v_self, block_tables, ctx_len,
+                         layer) -> float:
+    B, KV, G, C, hd = q.shape
+    return 4.0 * KV * G * hd * _prefill_keys(B, C, ctx_len, block_tables,
+                                             k_pages)
+
+
+@register_kernel("paged_prefill_bchd", "paged_prefill",
+                 launched=lambda q, *a: q.shape[0] > 0 and q.shape[1] > 0)
+def _paged_prefill_bchd_flops(q, k_chunk, v_chunk, k_pages, v_pages,
+                              k_scale, v_scale, k_self, v_self, block_tables,
+                              ctx_len, layer) -> float:
+    B, C, H, hd = q.shape
+    return 4.0 * H * hd * _prefill_keys(B, C, ctx_len, block_tables, k_pages)

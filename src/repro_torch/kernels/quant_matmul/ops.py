@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels.quant_matmul.kernel import quant_matmul_fused
 from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+from repro_torch.runtime.op_analysis import register_kernel
 
 
 def quant_matmul(
@@ -28,3 +29,13 @@ def quant_matmul(
     lead = x.shape[:-1]
     z = quant_matmul_fused(x.reshape(-1, n), packed, bits, s, maxq)
     return z.reshape(*lead, packed.shape[1])
+
+
+# the op analysis's FLOP formula (``runtime/op_analysis.py``): the grid
+# matmul 2·B·K·M, and with ``s`` the affine epilogue's row sums (B·K) and
+# its scale and subtract per output (2·B·M)
+@register_kernel("quant_matmul", "quant_matmul", launched=lambda *a: True)
+def _quant_matmul_flops(x, packed, bits, s, maxq, counters) -> float:
+    B, K = x.shape
+    M = packed.shape[1]
+    return 2.0 * B * K * M + (B * K + 2.0 * B * M if s is not None else 0.0)

@@ -3,6 +3,7 @@
     model = build_model(cfg)
     params = model.init(generator, device="cuda")   # seeded, on the card
     aparams = model.abstract_params()               # meta tensors (shapes)
+    acache = model.abstract_cache(B, S)              # meta tensors (shapes)
     hidden, aux = model.forward(params, batch)
     logits, cache = model.prefill(params, batch, max_len=S + gen)
     logits, cache = model.decode_step(params, tokens, cache, pos)
@@ -78,8 +79,13 @@ class Model:
         logits = self.logits(params, hidden).to(torch.float32)
         logp = F.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
-        mask = torch.ones_like(nll)
-        mask[:, -1] = 0.0
+        # the last position has no target; the mask comes from an arange,
+        # not an indexed store of a Python scalar, which dispatches other
+        # ops on the CPU than on the card or ``meta`` (the op analysis
+        # counts the same ops on each)
+        S = nll.shape[-1]
+        mask = (torch.arange(S, device=nll.device) < S - 1).to(
+            nll.dtype).expand_as(nll)
         ce = torch.sum(nll * mask) / torch.sum(mask)
         return ce + aux_coef * aux, {"ce": ce, "aux": aux}
 
@@ -96,6 +102,13 @@ class Model:
 
     def cache_axes(self, int8: bool = False):
         return self._cache_axes(self.cfg, int8)
+
+    def abstract_cache(self, batch: int, max_len: int, kv_dtype=None):
+        """The cache on the ``meta`` device: shapes and dtypes, no data
+        (the counterpart of ``jax.eval_shape(init_cache)``), in the port's
+        per-layer layout; ``convert.stack_cache`` gives the JAX one."""
+        return self._init_cache(self.cfg, batch, max_len, kv_dtype,
+                                device="meta")
 
 
 # --- family adapters (batch dict vs tokens-only signatures) ---------------

@@ -1,32 +1,119 @@
 """Logical-axis sharding rules with the divisibility fallback.
 
-The port's copy of what serving needs from the JAX package's
-``runtime/sharding.py``: arrays are annotated with *logical* axis names
-("heads", "ff", "pages", ...), and a rule table maps each name to a mesh
-axis or to nothing.  :func:`logical_to_pspec` resolves one array's names
-to a spec (a tuple with one mesh axis or ``None`` per dim) under two
-rules: a mesh axis that does not divide the dim is dropped (the array
-stays replicated on that dim), and one mesh axis shards at most one dim.
+The port's copy of the JAX package's ``runtime/sharding.py``: arrays are
+annotated with *logical* axis names ("batch", "embed", "heads", ...), and
+a rule table maps each name to a mesh axis, a tuple of mesh axes, or
+nothing.  :func:`logical_to_pspec` resolves one array's names to a spec —
+a tuple with, per dim, a mesh axis name, a tuple of them, or ``None`` —
+under two rules: of a rule's axes only the greedy prefix whose product
+divides the dim is kept (the array replicates where none does), and one
+mesh axis shards at most one dim.
 
-Plain functions on shapes: nothing here touches ``torch.distributed``.
-A :class:`MeshContext` adds what one process of a serving mesh knows —
-the mesh shape ``(dp, mp)``, its rank, its place on the model axis, its
-device and its model-axis communicator.
+The training tables (:func:`default_rules`, :func:`serving_rules`,
+:func:`context_rules`, :func:`fsdp2d_rules`, :data:`RULE_SETS`) equal the
+JAX package's key for key; the dry run (``launch/dryrun.py``) resolves
+them on an :class:`AbstractMesh` through a :class:`ShardingContext`.  The
+tensor-parallel serving mesh (``serve/distributed.py``) keeps its own
+table, :func:`tp_serving_rules`.
+
+Plain functions on shapes: nothing here touches ``torch.distributed`` or
+a device.  A :class:`MeshContext` adds what one process of a serving mesh
+knows — the mesh shape ``(dp, mp)``, its rank, its place on the model
+axis, its device and its model-axis communicator.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Optional, Sequence
+import math
+from typing import Any, Mapping, Optional, Sequence, Union
 
-__all__ = ["serving_rules", "logical_to_pspec", "MeshContext"]
+__all__ = ["default_rules", "serving_rules", "context_rules", "fsdp2d_rules",
+           "RULE_SETS", "tp_serving_rules", "logical_to_pspec", "local_shape",
+           "param_shardings", "AbstractMesh", "ShardingContext",
+           "MeshContext"]
+
+MeshAxes = Union[str, tuple, None]
+LogicalAxes = Sequence[Optional[str]]
 
 
-def serving_rules() -> dict:
-    """Serving layout: weight-stationary tensor parallelism over 'model',
-    replication over 'data'.  Heads, KV heads and the MLP hidden dim shard;
-    the model dim of weights ('embed'), the layer axis and the page axis of
-    the KV pool never do (block tables must resolve locally on every
-    rank).  'vocab' has no rule: the embedding and the LM head replicate."""
+def default_rules(multi_pod: bool = False) -> dict:
+    """Baseline rule table for the (pod?, data, model) production mesh:
+    FSDP over 'data' (weights sharded on their non-TP dim), Megatron TP
+    over 'model', the 'pod' axis extending data parallelism."""
+    batch = ("pod", "data") if multi_pod else ("data",)
+    return {
+        # --- activations ---
+        "batch": batch,
+        "seq": None,               # context parallelism: opt-in per shape
+        "seq_kv": "model",         # decode KV-cache seq
+        "act_embed": None,
+        "act_heads": "model",
+        "act_ff": "model",
+        "act_experts": "model",
+        # --- weights (FSDP dim first, TP dim second by convention) ---
+        "embed": "data",           # d_model dim of weight matrices
+        "heads": "model",          # fused q/k/v head*head_dim output dims
+        "kv_heads": "model",
+        "ff": "model",             # MLP hidden
+        "vocab": "model",          # embedding / lm-head vocab dim
+        "experts": "model",        # expert parallelism
+        "expert_embed": "data",    # expert matrices: EP x FSDP
+        "expert_ff": None,
+        "layers": None,            # stacked layer axis: never sharded
+        "pages": None,             # page pool: shards on KV heads only
+        "conv": None,
+        "state": None,
+        "norm": None,
+    }
+
+
+def serving_rules(multi_pod: bool = False) -> dict:
+    """Serving layout: weight-stationary TP + pure DP — no FSDP dim on
+    weights ('embed' replicates over 'data')."""
+    r = default_rules(multi_pod)
+    r["embed"] = None
+    return r
+
+
+def context_rules(multi_pod: bool = False) -> dict:
+    """Sequence / context parallelism: activation time over 'model' in
+    place of the attention heads."""
+    r = default_rules(multi_pod)
+    r["seq"] = "model"
+    r["act_heads"] = None
+    return r
+
+
+def fsdp2d_rules(multi_pod: bool = False) -> dict:
+    """2D weight sharding on the non-contraction dims: the output / TP
+    dims over (model, data), no FSDP on the contraction dim."""
+    r = default_rules(multi_pod)
+    r["embed"] = None
+    data = ("data", "pod") if multi_pod else ("data",)
+    for name in ("ff", "heads", "kv_heads", "vocab", "experts"):
+        r[name] = ("model", *data)
+    return r
+
+
+RULE_SETS = {
+    "default": default_rules,
+    "serving": serving_rules,
+    "context": context_rules,
+    "fsdp2d": fsdp2d_rules,
+}
+
+
+def tp_serving_rules() -> dict:
+    """The tensor-parallel serving mesh's table (``serve/distributed.py``):
+    weight-stationary tensor parallelism over 'model', replication over
+    'data'.  Heads, KV heads and the MLP hidden dim shard; the model dim of
+    weights ('embed'), the layer axis and the page axis of the KV pool
+    never do (block tables must resolve locally on every rank).  It
+    departs from the JAX :func:`serving_rules` table, whose 'vocab' shards
+    over 'model' and whose activation names map too: the serving mesh
+    resolves only the packed codes' and the pool's axes (as the JAX serving
+    mesh resolves only ``PACKED_AXES`` / ``POOL_AXES``), and its embedding
+    and LM head replicate, so 'vocab' has no rule here."""
     return {
         "heads": "model",
         "kv_heads": "model",
@@ -39,25 +126,113 @@ def serving_rules() -> dict:
 
 
 def logical_to_pspec(mesh_shape: Mapping[str, int], rules: Mapping[str, Any],
-                     logical: Sequence[Optional[str]],
+                     logical: LogicalAxes,
                      shape: Optional[Sequence[int]] = None) -> tuple:
-    """Resolve logical axis names to a spec: per dim a mesh axis name or
-    ``None``.  With ``shape``, an assignment whose dim the mesh axis does not
-    divide is dropped (the divisibility fallback); a mesh axis already used
-    by an earlier dim is dropped too."""
+    """Resolve logical axis names to a spec: per dim a mesh axis name, a
+    tuple of them, or ``None``.  With ``shape``, only the greedy prefix of
+    a rule's axes whose product divides the dim is kept (the divisibility
+    fallback); a mesh axis already used by an earlier dim, or absent from
+    the mesh, is dropped."""
     spec: list = []
     used: set = set()
     for i, name in enumerate(logical):
-        axis = None if name is None else rules.get(name)
-        if axis is not None and (axis in used or axis not in mesh_shape):
-            axis = None
-        if (axis is not None and shape is not None
-                and shape[i] % mesh_shape[axis] != 0):
-            axis = None
-        if axis is not None:
-            used.add(axis)
-        spec.append(axis)
+        axes = None if name is None else rules.get(name)
+        if axes is None:
+            spec.append(None)
+            continue
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        axes = tuple(a for a in axes if a not in used and a in mesh_shape)
+        if shape is not None:
+            keep, size = [], 1
+            for a in axes:
+                if shape[i] % (size * mesh_shape[a]) == 0:
+                    keep.append(a)
+                    size *= mesh_shape[a]
+            axes = tuple(keep)
+        if not axes:
+            spec.append(None)
+            continue
+        used.update(axes)
+        spec.append(axes[0] if len(axes) == 1 else axes)
     return tuple(spec)
+
+
+def _spec_size(mesh_shape: Mapping[str, int], entry: MeshAxes) -> int:
+    if entry is None:
+        return 1
+    if isinstance(entry, str):
+        return mesh_shape[entry]
+    return math.prod(mesh_shape[a] for a in entry)
+
+
+def local_shape(spec: Sequence[MeshAxes], shape: Sequence[int],
+                mesh_shape: Mapping[str, int]) -> tuple:
+    """One device's block of an array of ``shape`` sharded by ``spec``:
+    each dim divided by the product of its mesh axes (rounded up, the
+    padded block, where the spec was resolved without the shape)."""
+    return tuple(-(-n // _spec_size(mesh_shape, e))
+                 for n, e in zip(shape, tuple(spec) + (None,) * len(shape)))
+
+
+def _is_axes(v) -> bool:
+    return isinstance(v, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in v)
+
+
+def param_shardings(ctx, abstract_params, logical_axes):
+    """A tree of specs for a tree of tensors: ``logical_axes`` has the
+    tree's structure with a tuple of logical names at each leaf (the JAX
+    function's pairing), or one per-layer axes dict against a list of
+    per-layer dicts (the port's unstacked layers).  ``ctx`` is anything
+    with ``pspec(logical, shape)``."""
+    if _is_axes(logical_axes):
+        return ctx.pspec(logical_axes, tuple(abstract_params.shape))
+    if isinstance(logical_axes, dict) and isinstance(abstract_params, list):
+        return [param_shardings(ctx, a, logical_axes)
+                for a in abstract_params]
+    if isinstance(logical_axes, dict):
+        return {k: param_shardings(ctx, abstract_params[k], v)
+                for k, v in logical_axes.items()}
+    if isinstance(abstract_params, (list, tuple)) and isinstance(
+            logical_axes, (list, tuple)):
+        return [param_shardings(ctx, a, ax)
+                for a, ax in zip(abstract_params, logical_axes)]
+    raise TypeError(f"axes {logical_axes!r} do not pair with the tree")
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A device mesh as a description: ordered ``(name, size)`` pairs and
+    an optional device list — no process group, nothing allocated (a
+    256-chip production mesh is a shape, as ``jax.make_mesh`` under the
+    JAX dry run's fake devices is)."""
+
+    axes: tuple  # ((name, size), ...)
+    devices: Optional[tuple] = None
+
+    @property
+    def shape(self) -> dict:
+        return dict(self.axes)
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(n for n, _ in self.axes)
+
+    @property
+    def size(self) -> int:
+        return math.prod(s for _, s in self.axes)
+
+
+@dataclasses.dataclass
+class ShardingContext:
+    """A (mesh, rules) pair that resolves logical shardings to specs (the
+    JAX package's ``MeshContext``)."""
+
+    mesh: AbstractMesh
+    rules: dict
+
+    def pspec(self, logical: LogicalAxes, shape=None) -> tuple:
+        return logical_to_pspec(self.mesh.shape, self.rules, logical, shape)
 
 
 @dataclasses.dataclass
@@ -73,7 +248,7 @@ class MeshContext:
     mp: int
     rank: int = 0
     device: Any = "cpu"
-    rules: dict = dataclasses.field(default_factory=serving_rules)
+    rules: dict = dataclasses.field(default_factory=tp_serving_rules)
     comm: Any = None
 
     @property

@@ -60,7 +60,10 @@ waiting on.  Commands come from one thread: the first to call
 :meth:`ServingMesh.call`, or one that takes the mesh over with
 :meth:`ServingMesh.adopt` (a front door's engine thread);
 :meth:`ServingMesh.broken_reason` polls the workers from any thread
-without sending a command.
+without sending a command.  Every rank logs its newest commands (kind,
+sent or received, acked) to a :class:`CommandLog` file, which
+:meth:`ServingMesh.command_log` reads from any thread while a rank is
+stuck.
 
     mesh = make_serving_mesh(1, 2, device="cpu")
     dec = DistributedCachedDecoder.from_quantized(qm, mesh=mesh)
@@ -82,6 +85,7 @@ import subprocess
 import sys
 import tempfile
 import threading
+import time
 import traceback
 import weakref
 from collections import deque
@@ -102,6 +106,7 @@ from repro_torch.serve.kv_cache import PagedKVPool
 __all__ = [
     "DistributedCachedDecoder",
     "MeshThreadError",
+    "CommandLog",
     "ServingMesh",
     "make_serving_mesh",
     "shard_quantized_linear",
@@ -138,6 +143,8 @@ MAX_RANKS_PER_CARD = 4
 # command channel waits far longer (rank 0 may sit idle between requests)
 COLLECTIVE_TIMEOUT_S = 600
 COMMAND_TIMEOUT_S = 24 * 3600
+# commands each rank's log keeps (the newest)
+COMMAND_LOG_SLOTS = 256
 
 _LOOPBACK = "127.0.0.1"
 
@@ -249,6 +256,59 @@ class _Channel:
         return pickle.loads(data.numpy().tobytes())
 
 
+class CommandLog:
+    """The newest ``COMMAND_LOG_SLOTS`` mesh commands one rank saw, in a
+    small file beside the mesh's rendezvous store (a ring the rank writes
+    and any process reads, so that rank 0 can show where every rank waits
+    while one of them is stuck in a collective).  Per command: its number,
+    its kind (the command function's name), when it was sent (rank 0) or
+    received (a worker), and when that rank was done with it (its ack;
+    NaN while pending), on the host's wall clock."""
+
+    DTYPE = np.dtype([("seq", "<i8"), ("kind", "S40"), ("sent", "<f8"),
+                      ("done", "<f8")])
+
+    def __init__(self, prefix: str, rank: int,
+                 slots: int = COMMAND_LOG_SLOTS):
+        self.prefix, self.rank, self.seq = prefix, rank, 0
+        self.ring = np.memmap(f"{prefix}.{rank}", dtype=self.DTYPE,
+                              mode="w+", shape=(slots,))
+        self.ring["seq"] = -1
+
+    def start(self, kind: str) -> int:
+        i = self.seq % len(self.ring)
+        self.ring[i] = (self.seq, kind.encode()[:40], time.time(), np.nan)
+        self.seq += 1
+        return i
+
+    def done(self, i: int) -> None:
+        self.ring["done"][i] = time.time()
+
+    @classmethod
+    def read(cls, prefix: str, rank: int) -> list:
+        """Rank ``rank``'s entries, oldest first (empty if it has none)."""
+        try:
+            ring = np.fromfile(f"{prefix}.{rank}", dtype=cls.DTYPE)
+        except OSError:
+            return []
+        return sorted((e for e in ring.tolist() if e[0] >= 0),
+                      key=lambda e: e[0])
+
+    @classmethod
+    def dump(cls, prefix: str, ranks: int, last: int = 12) -> str:
+        """Every rank's newest ``last`` commands, times in seconds before
+        now."""
+        now = time.time()
+        lines = [f"mesh command log (last {last} a rank, seconds before "
+                 f"now):"]
+        for r in range(ranks):
+            for seq, kind, sent, done in cls.read(prefix, r)[-last:]:
+                ack = "pending" if np.isnan(done) else f"-{now - done:.3f}"
+                lines.append(f"  rank {r} #{seq} {kind.decode()}: sent "
+                             f"-{now - sent:.3f}, ack {ack}")
+        return "\n".join(lines)
+
+
 # ---------------------------------------------------------------------------
 # the mesh
 # ---------------------------------------------------------------------------
@@ -289,6 +349,7 @@ class ServingMesh(MeshContext):
     _broken: Optional[str] = None
     _closed: bool = False
     _owner: Optional[int] = None  # ident of the thread that sends commands
+    cmdlog: Optional[CommandLog] = None
 
     __hash__ = object.__hash__  # one mesh is one live set of processes
 
@@ -371,6 +432,7 @@ class ServingMesh(MeshContext):
         drops = []
         while self._drops:  # popleft is atomic against drop_later
             drops.append(self._drops.popleft())
+        entry = self.cmdlog.start(fn.__name__) if self.cmdlog else None
         try:
             self.channel.send((drops, fn, args))
         except BaseException as e:  # a rank that died is the cause
@@ -379,11 +441,22 @@ class ServingMesh(MeshContext):
             raise
         try:
             _drop(self, drops)
-            return fn(self, *args)
+            out = fn(self, *args)
+            if entry is not None:
+                self.cmdlog.done(entry)
+            return out
         except BaseException as e:
             self.abort(self._dead_rank()
                        or f"rank 0 failed in {fn.__name__}: {e!r}")
             raise
+
+    def command_log(self, last: int = 12) -> str:
+        """Every rank's newest ``last`` commands (:class:`CommandLog`),
+        read from their files: safe from any thread, and while a rank is
+        stuck.  Empty once the mesh is closed (its directory is gone)."""
+        if self.cmdlog is None:
+            return ""
+        return CommandLog.dump(self.cmdlog.prefix, self.size, last)
 
     def abort(self, reason: str) -> None:
         """Mark the mesh broken and end every worker."""
@@ -444,10 +517,13 @@ class ServingMesh(MeshContext):
     def serve(self) -> None:
         while True:
             drops, fn, args = self.channel.recv()
+            entry = self.cmdlog.start(fn.__name__) if self.cmdlog else None
             _drop(self, drops)
             if fn is _cmd_stop:
                 return
             fn(self, *args)
+            if entry is not None:
+                self.cmdlog.done(entry)
 
 
 def _drop(mesh: ServingMesh, oids) -> None:
@@ -489,7 +565,8 @@ def _connect(spec: dict, rank: int) -> ServingMesh:
                              dp * mp, "gloo", COMMAND_TIMEOUT_S)
     mesh = ServingMesh(dp=dp, mp=mp, rank=rank, device=device,
                        backend=spec["backend"], staged=spec["staged"],
-                       channel=_Channel(control))
+                       channel=_Channel(control),
+                       cmdlog=CommandLog(spec["cmdlog"], rank))
     if rank == 0:
         # the caller owns rank 0's decoders and pools: when it drops one,
         # its finalizer tells the workers to drop theirs
@@ -564,6 +641,7 @@ def make_serving_mesh(dp: int, mp: int, *,
     workdir = tempfile.mkdtemp(prefix="repro_torch_mesh_")
     spec = {"dp": dp, "mp": mp, "devices": devices, "backend": backend,
             "staged": staged, "store": os.path.join(workdir, "store"),
+            "cmdlog": os.path.join(workdir, "cmdlog"),
             "parent": os.getpid()}
     pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))

@@ -33,7 +33,11 @@ for name in ("repro_torch.serve.frontdoor.server",
              "repro_torch.optim", "repro_torch.optim.optimizers",
              "repro_torch.optim.schedule", "repro_torch.optim.compression",
              "repro_torch.launch.steps", "repro_torch.launch.train",
-             "repro_torch.tree"):
+             "repro_torch.tree", "repro_torch.runtime.elastic",
+             "repro_torch.runtime.op_analysis",
+             "repro_torch.runtime.op_breakdown",
+             "repro_torch.runtime.roofline", "repro_torch.launch.dryrun",
+             "repro_torch.launch.mesh", "repro_torch.launch.specs"):
     assert name in names, name
 """
 
