@@ -223,6 +223,22 @@ Phases, each printing its own lines:
      trapped, step 3 restored, the final checkpoint equal to the
      uninterrupted run's bit for bit), then that run extended to 10 steps
      (resumed from step 8).
+ 16. training over a mesh — ``launch/train.py``'s ``train`` (the
+     function under the CLI's ``--devices``) on a (1, 2) mesh of two
+     ranks sharing the card over gloo, collectives staged through host
+     memory (no kernel; every kernel's launches read 0 around the mesh
+     runs).  ``qwen3-14b`` at full width, depth cut to ``MESH_LAYERS`` =
+     2 of 40 for memory, 8 x 64 tokens in 2 microbatches, in a fresh
+     process (rank 0; deterministic algorithms from its first CUDA call):
+     (a) 3 fp32 adamw steps on one device, then on the mesh: loss and
+     grad norm of every step within ``MESH_LOSS_RTOL``, adamw's first
+     moment of every leaf within ``MESH_M_RTOL`` of its max, every param
+     leaf within ``MESH_UPDATE_RTOL`` of the one-device run's move, and
+     the replicated leaves bit-identical on both ranks; (b) 4 bf16 steps
+     on the mesh, each rank's step time (CUDA events); (c) the train
+     CLI with ``--devices 2`` at the smoke config (started beside phase
+     2's build): an uninterrupted run and one with ``--fail-at 3``, whose
+     final checkpoints are equal bit for bit.
 
 Phase 3 also runs kron_mul at every dense width's factors (16 x 32 to
 168 x 176, and 192 x 256, the largest the kernel takes), quant_matmul at
@@ -234,7 +250,8 @@ int8 pages, each with its SDPA yardstick).
 
 The next-to-last line is a JSON record of the six kernels (each with its
 launches on every path, phase 11's by rank, (d)'s too, and phase 14's
-``train`` path with 0 of each); the last line is
+``train`` and phase 16's ``train_mesh`` paths with 0 of each); the last
+line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Nothing of JAX or of the ``repro`` package is imported.
 """
@@ -5628,9 +5645,12 @@ def phase_dryrun(torch, *, seed: int, dryrun: dict, cfg=None) -> dict:
             f"{r['dominant']}-bound, useful {r['useful_ratio']:.3f}, mfu "
             f"bound {r['mfu_bound']:.3f}; collectives {coll}; traced in "
             f"{rec['trace_s']} s")
-        if rec["status"] != "ok" or (rec["chips"] > 1) != (
-                rec["collectives"] is None) or r["collective_s"] is None \
-                and rec["chips"] == 1:
+        # counted on one chip, and for a train cell on a mesh (one rank's
+        # trace); null with its reason for a decode cell on a mesh
+        counted = rec["chips"] == 1 or rec["kind"] == "train"
+        if rec["status"] != "ok" or counted != (
+                rec["collectives"] is not None) or counted != (
+                r["collective_s"] is not None):
             raise AssertionError(f"[{tag}] {arch} x {shape_name}: a bad "
                                  f"record")
     log(f"[{tag}] the dry run's {len(DRYRUN_CELLS)} cells ran beside "
@@ -5676,6 +5696,316 @@ def _fake_collectives(torch) -> None:
         f"collective bytes {got} (want {want})")
     if got != want:
         raise AssertionError(f"[{tag}] collective bytes off the conventions")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: training over a mesh of ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# (a), (b): qwen3-14b at full width, cut to this depth for memory (a
+# one-device fp32 step of 2 layers holds ~50 GB; each of two ranks half of
+# the state, but the whole replicated activations and its own CUDA
+# context), 8 x 64 tokens in 2 microbatches
+MESH_RANKS, MESH_LAYERS = 2, 2
+MESH_BATCH, MESH_SEQ, MESH_MICRO = 8, 64, 4
+MESH_STEPS_FP32, MESH_STEPS_BF16 = 3, 4
+# (a) gates: loss and grad norm as on the CPU (relative 1e-5).  adamw's
+# first moment, linear in the gradients: max |dm| of each leaf within
+# MESH_M_RTOL of its max |m|.  Params: each leaf's distance from the
+# one-device params within MESH_UPDATE_RTOL of how far that run moved it
+# (L2), no element off by more than MESH_OUTSIDE_MAX — not the CPU's
+# elementwise tolerance, because the ranks' split products round
+# otherwise than one device's and adamw's normalized update turns an ulp
+# of a near-zero gradient into up to 2 lr a step (the most it moves an
+# element, weight decay aside), where the elements outside that
+# tolerance are counted and logged
+MESH_LOSS_RTOL = 1e-5
+# about 3.5 times the worst reading on the H100 (8.7e-5, attn/wq), far
+# below what a gradient off by a factor would read
+MESH_M_RTOL = 3e-4
+MESH_UPDATE_RTOL = 1e-2
+MESH_LEAF_RTOL, MESH_LEAF_ATOL = 1e-5, 1e-6
+MESH_OUTSIDE_MAX = 2 * 3e-4 * 1.1 * MESH_STEPS_FP32
+# (c): the train CLI's fault drill on 2 ranks at the smoke config
+MESH_DRILL = ["--arch", "qwen3-14b", "--smoke", "--steps", "6",
+              "--global-batch", "4", "--seq-len", "16", "--save-every", "2",
+              "--log-every", "1", "--devices", str(MESH_RANKS)]
+MESH_CHILD = r"""
+import json, sys
+import chip_smoke
+print(json.dumps(chip_smoke.train_mesh_child(json.loads(sys.argv[1]))))
+"""
+
+
+def start_mesh_drill() -> dict:
+    """(c), started: the train CLI with ``--devices 2`` (two ranks sharing
+    the card on gloo) at the smoke config in one fresh process beside the
+    build: an uninterrupted run, then the same with ``--fail-at 3``."""
+    import os
+
+    dirs = (WORK_DIR / "mesh_a", WORK_DIR / "mesh_b")
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+    base = MESH_DRILL + ["--device", DEV]
+    argvs = [base + ["--ckpt-dir", str(dirs[0])],
+             base + ["--ckpt-dir", str(dirs[1]), "--fail-at", "3"]]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")])}
+    logs = (WORK_DIR / "mesh_drill.out", WORK_DIR / "mesh_drill.err")
+    with open(logs[0], "w") as out, open(logs[1], "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", TRAIN_DRILL_CHILD,
+                                 json.dumps(argvs)], env=env, cwd=ROOT,
+                                stdout=out, stderr=err)
+    return {"proc": proc, "dirs": dirs, "logs": logs,
+            "t0": time.perf_counter()}
+
+
+def train_mesh_child(spec: dict) -> dict:
+    """(a) and (b), in a fresh process (deterministic algorithms from its
+    first CUDA call; this process is rank 0 and starts rank 1): ``train``
+    of ``spec["cfg"]`` in fp32 on one device, then on (1, 2), both
+    keeping their params, held here to each other leaf by leaf on the
+    device; then (1, 2) in the config's dtype, timed.  Launches are
+    counted from 0 around the two mesh runs."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ArchConfig
+    from repro_torch.kernels import reset_counts
+    from repro_torch.launch.train import TrainOptions, train
+
+    dev = spec["device"]
+    cfg = ArchConfig.from_dict(spec["cfg"])
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    opts = TrainOptions(steps=MESH_STEPS_FP32, global_batch=MESH_BATCH,
+                        seq_len=MESH_SEQ, seed=spec["seed"], device=dev,
+                        log_every=1)
+    keep = ("params", "opt/m")
+    t0 = time.perf_counter()
+    ref = train(c32, opts, keep=keep)
+    t_ref = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    mp = spec.get("mp", MESH_RANKS)
+    got = train(c32, opts, dp=1, mp=mp, keep=keep)
+    t_mesh = time.perf_counter() - t0
+    # the params both runs started from: the same seeded one-device init
+    from repro_torch.convert import stack_layers
+    from repro_torch.models.lm import build_model
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(spec["seed"])
+    init = dict(_flat({"params": stack_layers(build_model(c32).init(
+        g, device=dev))}))
+    leaves = {}
+    want = dict(_flat(ref["state"]))
+    for k, t in _flat(got["state"]):
+        a, b = t.to(dev), want[k].to(dev)
+        d = (a - b).abs()
+        v = {"n": b.numel(), "max_abs": float(d.max()),
+             "max_ref": float(b.abs().max()),
+             "outside": int((d > MESH_LEAF_RTOL * b.abs()
+                             + MESH_LEAF_ATOL).sum())}
+        if k in init:
+            v["dist"] = float(torch.linalg.vector_norm(a - b))
+            v["moved"] = float(torch.linalg.vector_norm(b - init.pop(k)))
+        leaves[k] = v
+        del a, b, d
+    del ref["state"], got["state"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    b16 = train(cfg, dataclasses.replace(opts, steps=MESH_STEPS_BF16),
+                dp=1, mp=mp)
+    t_b16 = time.perf_counter() - t0
+    return {"ref": ref["history"], "mesh": got["history"], "leaves": leaves,
+            "block_sha": got["block_sha"], "launches": _counts(),
+            "bf16_ms_by_rank": b16["ms_by_rank"], "bf16": b16["history"],
+            "wall": {"one device fp32": t_ref, "mesh fp32": t_mesh,
+                     "mesh bf16": t_b16}}
+
+
+def _flat(tree):
+    from repro_torch.tree import flatten_with_paths
+
+    return flatten_with_paths(tree)
+
+
+def _mesh_drill(drill: dict) -> None:
+    """(c), checked: both CLI runs exit 0, the second traps its failure at
+    step 3 and restores step 2 on both ranks, and its final checkpoint
+    equals the first's bit for bit."""
+    from repro_torch.checkpoint.store import load_arrays
+
+    tag = "train-mesh (c)"
+    a, b = drill["dirs"]
+    try:
+        drill["proc"].wait(timeout=600)
+    finally:
+        stop_train_drill(drill)
+    wall = time.perf_counter() - drill["t0"]
+    stdout, stderr = (p.read_text() for p in drill["logs"])
+    if drill["proc"].returncode != 0:
+        log(stdout[-4000:] + stderr[-4000:])
+        raise AssertionError(f"[{tag}] the drill's process exited "
+                             f"{drill['proc'].returncode}")
+    runs = json.loads(stdout.strip().splitlines()[-1])
+    for i, r in enumerate(runs):
+        for line in r["out"].splitlines():
+            log(f"[{tag}] run {i + 1}: {line}")
+    out2 = runs[1]["out"]
+    la, _, _, _ = load_arrays(a, step=6)
+    lb, _, _, _ = load_arrays(b, step=6)
+    same = list(la) == list(lb) and all(
+        la[k].dtype == lb[k].dtype and la[k].tobytes() == lb[k].tobytes()
+        for k in la)
+    checks = {
+        "every exit code 0": all(r["rc"] == 0 for r in runs),
+        "both runs on a mesh of 2 ranks": all(
+            "mesh data=1 model=2" in r["out"] for r in runs),
+        "run 2 trapped one failure": out2.count("FAILED (") == 1,
+        "run 2 restored step 2": "restored to step 2, continuing" in out2,
+        f"run 2's final checkpoint equals run 1's bit for bit ({len(la)} "
+        f"leaves)": same,
+    }
+    for what, ok in checks.items():
+        log(f"[{tag}] {what}: {'OK' if ok else 'FAIL'}")
+    log(f"[{tag}] two CLI runs of 2 ranks in one process, {wall:.1f}s "
+        f"from its start to its check")
+    if not all(checks.values()):
+        raise AssertionError(f"[{tag}] the mesh fault drill failed")
+
+
+def run_mesh_child(cfg, mp: int, seed: int, tag: str) -> dict:
+    """:func:`train_mesh_child` of ``cfg`` on (1, ``mp``) in a fresh
+    process; logs its lines and returns its record."""
+    import dataclasses
+    import os
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT), os.environ.get("PYTHONPATH", "")])}
+    logs = (WORK_DIR / f"{tag}.out", WORK_DIR / f"{tag}.err")
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+    with open(logs[0], "w") as o, open(logs[1], "w") as e:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", MESH_CHILD,
+             json.dumps({"cfg": dataclasses.asdict(cfg), "seed": seed,
+                         "device": DEV, "mp": mp})], env=env,
+            cwd=ROOT, stdout=o, stderr=e)
+    try:
+        rc = proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    stdout, stderr = (p.read_text() for p in logs)
+    if rc != 0:
+        log(stdout[-4000:] + stderr[-4000:])
+        raise AssertionError(f"[{tag}] the mesh process exited {rc}")
+    lines = stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"[{tag}] {line}")
+    return json.loads(lines[-1])
+
+
+def mesh_gates(tag: str, res: dict, cfg, mp: int) -> None:
+    """(a) and (b)'s gates on a :func:`train_mesh_child` record of a
+    (1, ``mp``) mesh."""
+    from repro_torch.runtime.train_mesh import ShardPlan, TrainMesh
+
+    # ---- (a) fp32 against one device ----
+    worst = 0.0
+    for s, (r, g) in enumerate(zip(res["ref"], res["mesh"])):
+        d = {k: abs(g[k] - r[k]) / abs(r[k]) for k in ("loss", "grad_norm")}
+        worst = max(worst, *d.values())
+        log(f"[{tag} (a)] step {s}: loss {g['loss']:.7f} vs {r['loss']:.7f}"
+            f" (rel {d['loss']:.2e}), grad_norm {g['grad_norm']:.6f} vs "
+            f"{r['grad_norm']:.6f} (rel {d['grad_norm']:.2e})")
+    ok_loss = (len(res["mesh"]) == len(res["ref"]) == MESH_STEPS_FP32
+               and worst <= MESH_LOSS_RTOL)
+    ok_leaves = True
+    for k, v in res["leaves"].items():
+        if k.startswith("opt/m/"):
+            rel = v["max_abs"] / max(v["max_ref"], 1e-30)
+            ok = rel <= MESH_M_RTOL
+            reading = (f"max |dm| {v['max_abs']:.3e} = {rel:.2e} of max |m| "
+                       f"(gate {MESH_M_RTOL:g})")
+        else:
+            rel = v["dist"] / max(v["moved"], 1e-30)
+            ok = rel <= MESH_UPDATE_RTOL and v["max_abs"] <= MESH_OUTSIDE_MAX
+            reading = (f"|p - p_ref| {v['dist']:.3e} = {rel:.2e} of the "
+                       f"one-device run's move {v['moved']:.3e} (gate "
+                       f"{MESH_UPDATE_RTOL:g}), max |d| {v['max_abs']:.3e} "
+                       f"(gate {MESH_OUTSIDE_MAX:.2e})")
+        ok_leaves &= ok
+        log(f"[{tag} (a)] {k}: {reading}; {v['outside']} of {v['n']} "
+            f"elements outside |d| <= {MESH_LEAF_RTOL:g}|ref| + "
+            f"{MESH_LEAF_ATOL:g}: {'OK' if ok else 'FAIL'}")
+    # ranks holding the same block hold the same bits (on (1, mp): every
+    # leaf not split over 'model')
+    plan = ShardPlan(cfg, TrainMesh(dp=1, mp=mp))
+    replicas = {f"params/{k}" for k, sp in plan.spec_by_key.items()
+                if "model" not in sp}
+    ok_rep = all(len(set(res["block_sha"][k])) == 1 for k in replicas)
+    log(f"[{tag} (a)] loss and grad_norm within {MESH_LOSS_RTOL:g} (worst "
+        f"{worst:.2e}): {'OK' if ok_loss else 'FAIL'}; every leaf: "
+        f"{'OK' if ok_leaves else 'FAIL'}; the {len(replicas)} replicated "
+        f"leaves bit-identical on every rank: {'OK' if ok_rep else 'FAIL'}")
+    if not (ok_loss and ok_leaves and ok_rep):
+        raise AssertionError(f"[{tag} (a)] the mesh step is not the "
+                             f"one-device step")
+
+    # ---- (b) step time per rank ----
+    for r, ms in enumerate(res["bf16_ms_by_rank"]):
+        steady = sorted(ms[1:])[len(ms[1:]) // 2]
+        log(f"[{tag} (b)] rank {r}: {cfg.dtype} step ms (CUDA events) "
+            + ", ".join(f"{t:.1f}" for t in ms)
+            + f"; median of steps 1..{len(ms) - 1} {steady:.1f} ms")
+    losses = [h["loss"] for h in res["bf16"]]
+    ok = all(math.isfinite(x) for x in losses) and len(losses) == \
+        MESH_STEPS_BF16
+    log(f"[{tag} (b)] {cfg.dtype} losses {[round(x, 4) for x in losses]} "
+        f"finite: {'OK' if ok else 'FAIL'}; wall (host clock, process "
+        f"starts included): " + ", ".join(f"{k} {v:.1f} s"
+                                          for k, v in res["wall"].items()))
+    if not ok:
+        raise AssertionError(f"[{tag} (b)] the {cfg.dtype} mesh run failed")
+
+
+def phase_train_mesh(torch, *, seed: int, drill=None, cfg=None) -> dict:
+    """Phase 16: training over a (1, 2) mesh of ranks sharing the card on
+    gloo (``launch/train.py``'s ``train``, the function under the CLI's
+    ``--devices``; no kernel: fp weights): (a) fp32 against one device,
+    (b) bf16 step time per rank, (c) the CLI's fault drill (``drill``,
+    from :func:`start_mesh_drill`; started here if None).  ``cfg``
+    replaces the model (a rehearsal on the CPU at a smoke config).
+    Returns the launches of (a) and (b)'s mesh runs."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    tag = "train-mesh"
+    drill = drill or start_mesh_drill()
+    if cfg is None:
+        full = get_config(TRAIN_ARCH)
+        cfg = dataclasses.replace(full, n_layers=MESH_LAYERS,
+                                  microbatch=MESH_MICRO)
+        log(f"[{tag}] DEPTH CUT: {MESH_LAYERS} of {full.n_layers} layers "
+            f"(memory); full width")
+    log(f"[{tag}] {cfg.name}, {cfg.n_layers} layers, {MESH_BATCH} x "
+        f"{MESH_SEQ} tokens in {MESH_BATCH // cfg.microbatch} microbatches, "
+        f"{MESH_RANKS} ranks on one {DEV} device (gloo; collectives on "
+        f"CUDA tensors staged through host memory)")
+    res = run_mesh_child(cfg, MESH_RANKS, seed, tag)
+    mesh_gates(tag, res, cfg, MESH_RANKS)
+    log(f"[{tag}] kernel launches around the mesh runs (rank 0): "
+        f"{res['launches']}")
+    _mesh_drill(drill)
+    log(f"[{tag}] phase 16 passed in {time.perf_counter() - t_phase:.1f}s")
+    return {"train_mesh": res["launches"]}
 
 
 REPLACES = {
@@ -5734,6 +6064,9 @@ def main(argv=None) -> int:
     # phase 15 (d)'s dry run: CPU only, beside the build and the phases
     dry = start_dryrun()
     atexit.register(stop_train_drill, dry)
+    # phase 16 (c)'s two CLI runs of 2 ranks, beside the build too
+    mesh_drill = start_mesh_drill()
+    atexit.register(stop_train_drill, mesh_drill)
     phase_build()
     reps = phase_kernels(torch)
     _release(torch, "phase 3")
@@ -5767,6 +6100,8 @@ def main(argv=None) -> int:
     _release(torch, "phase 14")
     dryrun = phase_dryrun(torch, seed=args.seed, dryrun=dry)
     _release(torch, "phase 15")
+    train_mesh = phase_train_mesh(torch, seed=args.seed, drill=mesh_drill)
+    _release(torch, "phase 16")
     # launches: each kernel on the path that runs it — the synthetic serve
     # for the serving kernels, the quantize run for ldlq and kron_mul, the
     # hadamard linear for hadamard; phases 7's to 10's paths beside them
@@ -5774,7 +6109,7 @@ def main(argv=None) -> int:
              "hadamard_linear": quant["hadamard_launches"],
              "serve_quantized": quant["serve_launches"], **dense,
              **lifecycle, **speculative, **observe, **tp, **frontdoor,
-             **families, **train, **dryrun}
+             **families, **train, **dryrun, **train_mesh}
     main_path = {"ldlq": "quantize", "kron_mul": "quantize",
                  "hadamard": "hadamard_linear"}
     kernels = []

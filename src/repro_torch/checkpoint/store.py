@@ -152,6 +152,36 @@ def latest_step(directory) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _manifest(directory, step: Optional[int]):
+    directory = pathlib.Path(directory)
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {directory}")
+    path = directory / f"step_{step:08d}"
+    return path, step, json.loads((path / _MANIFEST).read_text())
+
+
+def _shards(path: pathlib.Path, manifest: dict, verify: bool,
+            corrupt=()):
+    """Each shard's ``{key: array}`` in turn, its digest checked first."""
+    digests = manifest.get("shard_digests")
+    if verify and digests is None:
+        warnings.warn(
+            f"{path} manifest predates shard checksums; loading unverified",
+            stacklevel=3)
+    for i in range(manifest["n_shards"]):
+        spath = path / f"shard_{i:05d}.npz"
+        if verify and digests is not None:
+            actual = _sha256(spath)
+            if i in corrupt:
+                actual = "0" * 64
+            if actual != digests[i]:
+                raise ArtifactCorruption(i, spath, digests[i], actual)
+        with np.load(spath) as z:
+            yield {k.replace("::", "/"): z[k] for k in z.files}
+
+
 def load_arrays(
     directory, *, step: Optional[int] = None, verify: bool = True,
     _corrupt_shards=(),
@@ -164,30 +194,10 @@ def load_arrays(
     fault-injection hook: listed shard indices are treated as if their
     bytes had rotted (see serve/faults.py).  Returns (arrays, step, meta,
     bf16_keys)."""
-    directory = pathlib.Path(directory)
-    if step is None:
-        step = latest_step(directory)
-        if step is None:
-            raise FileNotFoundError(f"no checkpoints in {directory}")
-    path = directory / f"step_{step:08d}"
-    manifest = json.loads((path / _MANIFEST).read_text())
-    digests = manifest.get("shard_digests")
-    if verify and digests is None:
-        warnings.warn(
-            f"{path} manifest predates shard checksums; loading unverified",
-            stacklevel=2)
+    path, step, manifest = _manifest(directory, step)
     arrays: dict[str, np.ndarray] = {}
-    for i in range(manifest["n_shards"]):
-        spath = path / f"shard_{i:05d}.npz"
-        if verify and digests is not None:
-            actual = _sha256(spath)
-            if i in _corrupt_shards:
-                actual = "0" * 64
-            if actual != digests[i]:
-                raise ArtifactCorruption(i, spath, digests[i], actual)
-        with np.load(spath) as z:
-            for k in z.files:
-                arrays[k.replace("::", "/")] = z[k]
+    for shard in _shards(path, manifest, verify, _corrupt_shards):
+        arrays.update(shard)
     return (arrays, step, manifest.get("meta", {}),
             set(manifest.get("bf16_keys", ())))
 
@@ -218,21 +228,31 @@ def save_checkpoint(directory, step: int, tree: Any, *, shard_mb: int = 512,
 
 
 def load_checkpoint(directory, like: Any, *, step: Optional[int] = None,
-                    device=DEFAULT_DEVICE) -> tuple[Any, int, dict]:
+                    device=DEFAULT_DEVICE, block=None) -> tuple[Any, int, dict]:
     """Restore a tree of ``like``'s structure (tensors, or ``meta``
     tensors: only their dtypes are read), each leaf cast to its ``like``
     leaf's dtype on ``device``; a bf16 leaf stored as raw 16 bits comes
     back bit for bit.  ``step`` None takes the newest complete step.
-    Returns (tree, step, meta)."""
+    ``block(key, array)``, if given, cuts each logical leaf to the part
+    this process keeps (a mesh rank's block) before it leaves the host;
+    the shards are read one at a time.  Returns (tree, step, meta)."""
     device = resolve_device(device)
-    arrays, step, meta, bf16_keys = load_arrays(directory, step=step)
+    path, step, manifest = _manifest(directory, step)
+    bf16_keys = set(manifest.get("bf16_keys", ()))
+    want = dict(flatten_with_paths(like))
     leaves = {}
-    for key, leaf in flatten_with_paths(like):
-        if key not in arrays:
-            raise KeyError(f"checkpoint missing leaf {key!r}")
-        t = _from_numpy(key, arrays[key], key in bf16_keys)
-        leaves[key] = t.to(device=device, dtype=leaf.dtype)
-    return unflatten(like, leaves), step, meta
+    for shard in _shards(path, manifest, verify=True):
+        for key, a in shard.items():
+            if key not in want:
+                continue
+            if block is not None:
+                a = block(key, a).copy()  # drops the rest of the leaf
+            t = _from_numpy(key, a, key in bf16_keys)
+            leaves[key] = t.to(device=device, dtype=want[key].dtype)
+    missing = [k for k in want if k not in leaves]
+    if missing:
+        raise KeyError(f"checkpoint missing leaf {missing[0]!r}")
+    return unflatten(like, leaves), step, manifest.get("meta", {})
 
 
 @dataclasses.dataclass
@@ -243,10 +263,16 @@ class CheckpointManager:
     keep: int = 3
     save_every: int = 50
 
+    def due(self, step: int) -> bool:
+        return step % self.save_every == 0
+
     def maybe_save(self, step: int, tree: Any,
                    **meta) -> Optional[pathlib.Path]:
-        if step % self.save_every:
+        if not self.due(step):
             return None
+        return self.save(step, tree, **meta)
+
+    def save(self, step: int, tree: Any, **meta) -> pathlib.Path:
         p = save_checkpoint(self.directory, step, tree, extra_meta=meta)
         self.gc()
         return p
@@ -268,5 +294,6 @@ class CheckpointManager:
             if ".tmp-" in p.name:
                 shutil.rmtree(p, ignore_errors=True)
 
-    def restore_latest(self, like: Any, device=DEFAULT_DEVICE):
-        return load_checkpoint(self.directory, like, device=device)
+    def restore_latest(self, like: Any, device=DEFAULT_DEVICE, block=None):
+        return load_checkpoint(self.directory, like, device=device,
+                               block=block)

@@ -26,6 +26,9 @@ forward per-layer views of it without copying.  :func:`stack_axes`,
 :func:`stack_cache` and :func:`stack_cache_axes` do the same for a
 param-axes tree, a cache and a cache-axes tree (the dry run's byte
 accounting, and the comparison with the JAX package's ``eval_shape``s).
+:func:`shard_params` and :func:`gather_params` move a stacked tree between
+its logical tensors and one rank's blocks under a spec tree (a training
+mesh's storage layout, ``runtime/train_mesh.py``).
 """
 from __future__ import annotations
 
@@ -37,7 +40,6 @@ from repro_torch.core import incoherence as inc
 from repro_torch.core.quantizer import QuantizedLinear
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.launch.quantize import QuantizedModel
-from repro_torch.serve.artifacts import save_quantized
 
 __all__ = [
     "transform_from_numpy",
@@ -49,6 +51,9 @@ __all__ = [
     "stack_axes",
     "stack_cache",
     "stack_cache_axes",
+    "local_block",
+    "shard_params",
+    "gather_params",
     "write_port_artifact",
 ]
 
@@ -196,6 +201,48 @@ def stack_cache_axes(axes: dict) -> dict:
     return _prefix_layers(axes)
 
 
+def _blocks(tree, specs, fn):
+    if isinstance(tree, dict):
+        return {k: _blocks(v, specs[k], fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_blocks(v, specs[i], fn) for i, v in enumerate(tree))
+    return fn(tree, specs)
+
+
+def local_block(a, spec, ctx):
+    """This rank's block of ``a`` (a tensor or a numpy array; a view)
+    under ``spec``: each dim a mesh axis shards cut to
+    ``ctx.local_range``."""
+    for d, ax in enumerate(spec):
+        if ax is not None:
+            lo, hi = ctx.local_range(a.shape[d], ax)
+            a = a[(slice(None),) * d + (slice(lo, hi),)]
+    return a
+
+
+def shard_params(tree, ctx, specs):
+    """Each logical leaf of ``tree`` -> this rank's block of it (a copy)
+    under its spec in ``specs`` (``runtime.sharding.param_shardings``)."""
+    return _blocks(tree, specs,
+                   lambda t, spec: local_block(t, spec, ctx).clone())
+
+
+def gather_params(tree, ctx, specs, *, to=None):
+    """Each block of ``tree`` (this rank's, under ``specs``) -> the logical
+    leaf, all-gathered over the mesh axes of its spec (``ctx.comm`` for
+    ``model``, ``ctx.data_comm`` for ``data``): every rank takes part and
+    every rank gets it.  ``to`` moves each gathered leaf as it is made
+    (``"cpu"``; ``"meta"`` keeps only its shape)."""
+    def whole(t, spec):
+        for d, ax in enumerate(spec):
+            if ax is not None:
+                comm = ctx.comm if ax == "model" else ctx.data_comm
+                t = comm.gather_dim(t, d)
+        return t if to is None else t.to(to)
+
+    return _blocks(tree, specs, whole)
+
+
 def _leaves(x):
     if isinstance(x, dict):
         for v in x.values():
@@ -214,5 +261,7 @@ def write_port_artifact(directory, arch_config: dict, tree: dict,
                         quip_config: dict, extra_meta=None):
     """Convert quantized numpy state and write it as a port artifact (the
     conversion stays on the host: the arrays go straight to disk)."""
+    from repro_torch.serve.artifacts import save_quantized
+
     qm = quantized_model_from_numpy(arch_config, tree, device="cpu")
     return save_quantized(directory, qm, quip_config, extra_meta=extra_meta)

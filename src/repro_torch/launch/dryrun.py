@@ -20,11 +20,18 @@ so for every cell it
     * puts FLOPs, bytes and collectives through the roofline with H100
       constants (``runtime/roofline.py``).
 
-The step is one process's program: a cell on more than one chip issues
-no collective in the trace, so its record says ``"collectives": null``
-with the reason and its ``collective_s`` is ``null``; ``dominant`` is
-chosen among the terms that were counted.  A one-chip cell's collectives
-are counted (none).  Records are JSON under ``--out``.
+The step traced for FLOPs and bytes is one process's program.  A train
+cell of the dense family on a ``(data, model)`` mesh of more than one chip
+also traces one rank's step at its local shapes, under
+``torch.distributed``'s ``fake`` backend (its collectives return at once,
+on ``meta``): the training mesh's step (``runtime/train_mesh.py``), whose
+``c10d`` ops the op analysis counts into ``collectives`` and the roofline
+into ``collective_s``.  Other cells on more than one chip (decode and
+prefill, whose port step is one process's; the other families; a
+multi-pod mesh; a rule set that shards a dim over two axes) record
+``"collectives": null`` with the reason and a ``null`` ``collective_s``;
+``dominant`` is chosen among the terms that were counted.  A one-chip
+cell's collectives are counted (none).  Records are JSON under ``--out``.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-14b \\
@@ -45,6 +52,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config, shapes_for
 from repro_torch.convert import (
+    shard_params,
     stack_axes,
     stack_cache,
     stack_cache_axes,
@@ -60,6 +68,7 @@ from repro_torch.launch.steps import (
 from repro_torch.models.lm import build_model
 from repro_torch.optim import adamw, cosine_schedule
 from repro_torch.runtime.op_analysis import _tensors, analyze_step
+from repro_torch.runtime.process_group import Communicator
 from repro_torch.runtime.roofline import roofline_terms
 from repro_torch.runtime.sharding import (
     RULE_SETS,
@@ -68,6 +77,7 @@ from repro_torch.runtime.sharding import (
     local_shape,
     param_shardings,
 )
+from repro_torch.runtime.train_mesh import MESH_FAMILIES, TrainMesh
 
 __all__ = ["lower_cell", "analyze_cell", "main", "DEVICE_MEMORY_BYTES",
            "DEFAULT_OUT"]
@@ -85,10 +95,10 @@ _BATCH_AXES = {
     "frames": ("batch", "seq", "act_embed"),
     "patches": ("batch", None, "act_embed"),
 }
-_NO_COLLECTIVES = ("not counted: the port's step is one process's program "
-                   "(the global batch on one device) and issues no "
-                   "collective; the multi-card training slice's all-reduce "
-                   "is counted by the same recorder once it lands")
+_NO_COLLECTIVES = ("not counted: the port's {kind} step is one process's "
+                   "program (the global batch on one device) and issues no "
+                   "collective; only train cells trace a rank of the "
+                   "training mesh")
 
 
 def _apply_overrides(cfg, overrides: dict):
@@ -236,11 +246,15 @@ def analyze_cell(cfg, shape, mesh, rules, *, kv_dtype: str = "bf16") -> dict:
     # device's exact argument bytes
     temp = stats.peak_live_bytes - stats.arg_bytes
     peak_dev = by_dev["total"] + temp / chips
-    counted = chips == 1
-    coll = stats.collectives.summary() if counted else None
+    note = None
+    if chips == 1:
+        coll = stats.collectives.summary()
+    else:
+        coll, note, t_rank = _rank_collectives(cfg, shape, mesh, rules)
+        t_trace += t_rank
     terms = roofline_terms(
         hlo_flops=stats.flops / chips, hlo_bytes=stats.bytes_accessed / chips,
-        collective_bytes=coll["total_bytes"] if counted else None,
+        collective_bytes=None if coll is None else coll["total_bytes"],
         chips=chips, cfg=cfg, shape=shape, flops_are_global=False)
 
     def top(key):
@@ -273,9 +287,56 @@ def analyze_cell(cfg, shape, mesh, rules, *, kv_dtype: str = "bf16") -> dict:
         "top_ops": {"flops": top("flops"), "bytes": top("bytes")},
         "op_table": stats.ops,
     }
-    if not counted:
-        rec["collectives_note"] = _NO_COLLECTIVES
+    if coll is None:
+        rec["collectives_note"] = note
     return rec
+
+
+def _rank_collectives(cfg, shape, mesh, rules):
+    """(collective summary, None, trace seconds) of rank 0's step on the
+    training mesh ``mesh`` at its local shapes (params, optimizer state
+    and gradients in its blocks, its rows of each microbatch), traced on
+    ``meta`` under the ``fake`` backend; (None, the reason, 0.0) where
+    that mesh does not take the cell."""
+    if shape.kind != "train":
+        return None, _NO_COLLECTIVES.format(kind=shape.kind), 0.0
+    if cfg.family not in MESH_FAMILIES:
+        return None, (f"not counted: the {cfg.family} family does not "
+                      f"train on a mesh of more than one rank"), 0.0
+    if set(mesh.shape) != {"data", "model"}:
+        return None, ("not counted: the training mesh has the axes (data, "
+                      f"model), not {tuple(mesh.shape)}"), 0.0
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dp, mp = mesh.shape["data"], mesh.shape["model"]
+    meta = torch.device("meta")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=dp * mp)
+    try:
+        tm = TrainMesh(dp=dp, mp=mp, rank=0, device=meta, rules=dict(rules))
+        tm.comm = Communicator(dist.new_group(list(range(mp))), mp, meta,
+                               False, 0)
+        tm.data_comm = Communicator(
+            dist.new_group(list(range(0, dp * mp, mp))), dp, meta, False, 0)
+        model = build_model(cfg)
+        opt = adamw(cosine_schedule(3e-4, 10_000, 500))
+        step = make_train_step(model, opt, mesh=tm)
+        specs = step.plan.specs
+        if any(isinstance(ax, tuple) for s in step.plan.spec_by_key.values()
+               for ax in s):
+            return None, ("not counted: the rule set shards a dim over "
+                          "several mesh axes, which the training mesh does "
+                          "not take"), 0.0
+        params = shard_params(stack_layers(model.abstract_params()), tm,
+                              specs)
+        t0 = time.perf_counter()
+        stats, _ = analyze_step(step, params, abstract_opt_state(opt, params),
+                                input_specs(cfg, shape)["batch"], 0,
+                                device="meta")
+        return stats.collectives.summary(), None, time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
 
 
 def main(argv=None):

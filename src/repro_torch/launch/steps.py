@@ -19,16 +19,34 @@ package's leaves:
   * the optimizer updates params and state in place (the JAX step donates
     both), and ``metrics`` holds the mean ``ce`` as ``loss`` beside the
     optimizer's ``grad_norm``.
+
+With ``mesh`` (a ``runtime/train_mesh.py`` ``TrainMesh`` of more than one
+rank) the state is this rank's blocks under the plan's specs
+(``ShardPlan``; dense family only, adafactor refused) and the step is the
+one-device step:
+
+  * each data rank takes its rows of every microbatch, after
+    ``split_microbatches``, so the data ranks' rows put together are the
+    one-device microbatch;
+  * the forward runs on the plan's compute layout under its
+    ``mesh_context`` (``constrain`` places the collectives);
+  * gradients of leaves not sharded over ``data`` are summed over it (a
+    ``data``-sharded leaf's by the gather's backward) and every gradient
+    is divided by ``n_micro · dp``; ``loss`` is the mean over data ranks;
+  * the optimizer runs on the blocks, under the plan's context (the
+    global norm is the logical tree's).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 
 from repro_torch.convert import layer_views
-from repro_torch.models.lm import Model
+from repro_torch.models.lm import Model, build_model
 from repro_torch.optim.optimizers import Optimizer
+from repro_torch.runtime.sharding import mesh_context
 from repro_torch.tree import flatten_with_paths, tree_map, unflatten
 
 __all__ = ["make_train_step", "make_prefill_step", "make_decode_step",
@@ -49,39 +67,64 @@ def split_microbatches(batch: dict, n_micro: int) -> dict:
 
 def make_train_step(model: Model, optimizer: Optimizer, *,
                     n_micro: Optional[int] = None,
-                    accum_dtype=torch.float32, aux_coef: float = 0.01):
+                    accum_dtype=torch.float32, aux_coef: float = 0.01,
+                    mesh=None):
     cfg = model.cfg
+    plan = None
+    if mesh is not None and mesh.size > 1:
+        from repro_torch.runtime.train_mesh import ShardPlan
+
+        if optimizer.name == "adafactor":
+            raise ValueError(
+                f"adafactor does not train on a mesh of more than one rank "
+                f"(mesh {mesh.dp}x{mesh.mp}): its factored moments reduce "
+                f"over dims the mesh may shard")
+        plan = ShardPlan(cfg, mesh)
+        model = build_model(plan.local_cfg)
+    dp = plan.mesh.dp if plan else 1
 
     def train_step(params, opt_state, batch, step):
         Bg = batch["tokens"].shape[0]
         nm = n_micro or max(1, Bg // max(cfg.microbatch, 1))
         micro = split_microbatches(batch, nm)
+        if plan:
+            micro = plan.data_slice(micro)
         flat = flatten_with_paths(params)
         keys = [k for k, _ in flat]
         leaves = [p.detach().requires_grad_() for _, p in flat]
-        views = layer_views(unflatten(params, dict(zip(keys, leaves))))
+        tree = unflatten(params, dict(zip(keys, leaves)))
         g_sum = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
                  for p in leaves]
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
-        for i in range(nm):
-            mb = tree_map(lambda x: x[i], micro)
-            loss, metrics = model.loss(views, mb, aux_coef=aux_coef)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with mesh_context(plan) if plan else contextlib.nullcontext():
+            views = None if plan else layer_views(tree)
+            for i in range(nm):
+                mb = tree_map(lambda x: x[i], micro)
+                # on a mesh the gathers run per microbatch (their
+                # backward returns each gradient to its block)
+                v = layer_views(plan.compute(tree)) if plan else views
+                loss, metrics = model.loss(v, mb, aux_coef=aux_coef)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                with torch.no_grad():
+                    for acc, g in zip(g_sum, grads):
+                        if g is not None:
+                            acc.add_(g.to(accum_dtype))
+                    loss_sum += metrics["ce"].detach()
+                del loss, metrics, grads, v
+            del views, leaves, tree
             with torch.no_grad():
-                for acc, g in zip(g_sum, grads):
-                    if g is not None:
-                        acc.add_(g.to(accum_dtype))
-                loss_sum += metrics["ce"].detach()
-            del loss, metrics, grads
-        del views, leaves
-        with torch.no_grad():
-            grads = unflatten(params, {k: g.div_(nm)
-                                       for k, g in zip(keys, g_sum)})
-        params, opt_state, opt_metrics = optimizer.update(
-            grads, opt_state, params, step)
-        return params, opt_state, {"loss": loss_sum / nm, **opt_metrics}
+                if plan:
+                    plan.reduce_grads(keys, g_sum)
+                    loss_sum = plan.sum_over_data(loss_sum)
+                grads = unflatten(params, {k: g.div_(nm * dp)
+                                           for k, g in zip(keys, g_sum)})
+            params, opt_state, opt_metrics = optimizer.update(
+                grads, opt_state, params, step)
+        return params, opt_state, {"loss": loss_sum / (nm * dp),
+                                   **opt_metrics}
 
+    train_step.plan = plan  # the mesh's placement (None on one device)
     return train_step
 
 

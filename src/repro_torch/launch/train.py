@@ -1,11 +1,13 @@
-"""Fault-tolerant training driver.
+"""Fault-tolerant training driver, on one device or SPMD over a mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b \\
         --smoke --device cpu --steps 8 --save-every 3 --fail-at 5 \\
-        --ckpt-dir /tmp/ck
+        --ckpt-dir /tmp/ck [--devices 2]
 
 The JAX package's ``launch/train.py`` with its flags, plus ``--device``
-(``cuda``, the default, or ``cpu``):
+(``cuda``, the default, or ``cpu``) and ``--devices N``, the counterpart of
+the JAX device count (default: every visible card with ``--device cuda``,
+1 with ``--device cpu``):
 
   * deterministic ``(seed, step)`` data stream (``token_batches``) ->
     exact resume semantics;
@@ -13,38 +15,110 @@ The JAX package's ``launch/train.py`` with its flags, plus ``--device``
     over a cosine schedule, ``global_batch // cfg.microbatch``
     microbatches;
   * CheckpointManager: atomic save-every-K, keep-k GC, auto-resume, and an
-    unconditional final save;
-  * failure trap: any step exception restores the latest checkpoint and
+    unconditional final save; each checkpoint's meta holds the ``loss``,
+    ``grad_norm`` and step ms of every step before it;
+  * failure trap: a step exception restores the latest checkpoint and
     continues from its step with the stream rebuilt there (``--fail-at``
-    injects a fault for testing); the 4th consecutive failure is raised.
+    injects a fault for testing); the 4th consecutive failure is raised;
+  * elastic re-mesh on resume: the mesh is the one ``remesh`` picks for
+    the devices present, and checkpoints are logical, so a run restarted
+    on fewer devices resumes from the latest checkpoint on its new mesh.
+
+**The mesh** (``N`` > 1).  This process is rank 0; it starts ``N − 1``
+ranks, which die with it (``runtime/process_group.py``), and every rank
+runs the same loop on its own device: one rank per card on NCCL where the
+cards suffice, else ranks sharing cards on gloo with collectives staged
+through host memory; gloo on the CPU.  Only rank 0 prints.  Parameters,
+gradients and adamw state are **stored sharded by ``default_rules``**
+(``runtime/train_mesh.py``): the JAX driver computes the same specs and
+never places anything by them (it keeps every leaf whole on its mesh), so
+placing them is this port's design choice.  The step equals the
+one-device step (``launch/steps.py``).  Checkpoints are logical: rank 0
+gathers each leaf and writes it, every rank then passes a barrier; a
+restore reads the logical file on every rank and keeps its block under
+the current mesh.  ``--fail-at`` raises on every rank at the same step,
+so all ranks restore together; that is the only failure the trap takes on
+a mesh.  A rank that dies, or a collective that fails or times out
+(``TRAIN_TIMEOUT_S``), ends the run with a non-zero exit and a message
+naming the rank: rank 0 watches its ranks, kills the rest when one dies,
+and never trains on the survivors.  The elastic path is the JAX one:
+start ``train`` again on the devices left.
 
 A fresh start initialises from ``torch.Generator(device).manual_seed(
-seed)``, whose values differ from the JAX package's ``jax.random`` init.
-The encdec and vlm archs are refused: the stream has no ``frames`` /
+seed)`` (on a mesh every rank draws the whole init and keeps its block),
+whose values differ from the JAX package's ``jax.random`` init.  The
+encdec and vlm archs are refused: the stream has no ``frames`` /
 ``patches`` embeddings (the JAX CLI fails there with a ``KeyError``).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import hashlib
+import json
 import os
+import shutil
+import sys
 import tempfile
+import threading
 import time
+import traceback
+from typing import Optional
 
 import torch
 
 from repro_torch.checkpoint.store import CheckpointManager, save_checkpoint
-from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.convert import stack_layers
+from repro_torch.configs import ArchConfig, get_config, get_smoke_config
+from repro_torch.convert import (gather_params, local_block, shard_params,
+                                 stack_layers)
 from repro_torch.data.synthetic import token_batches
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.lm import build_model
 from repro_torch.optim import adamw, cosine_schedule
-from repro_torch.tree import tree_map
+from repro_torch.runtime.elastic import remesh
+from repro_torch.runtime.process_group import (die_with_parent, layout,
+                                               spawn_workers)
+from repro_torch.runtime.train_mesh import (ShardPlan, TrainMesh,
+                                            connect_train_mesh, spec_items)
+from repro_torch.tree import flatten_with_paths, tree_map
 
-__all__ = ["main"]
+__all__ = ["main", "train", "mesh_shape", "TrainOptions", "RankFailure",
+           "TRAIN_TIMEOUT_S"]
 
 _EMBEDDED = {"encdec": "frames", "vlm": "patches"}
+
+# seconds a collective of the training mesh may wait for its peers (NCCL
+# learns of a killed peer only through it); barriers wait longer, while
+# rank 0 writes a checkpoint
+TRAIN_TIMEOUT_S = 180
+CONTROL_TIMEOUT_S = 3600
+_POLL_S = 0.2
+
+
+class RankFailure(RuntimeError):
+    """A rank of the training mesh died or failed: the run ends."""
+
+
+class _InjectedFailure(RuntimeError):
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainOptions:
+    """The CLI's flags (``ckpt_dir`` None: no checkpoints)."""
+
+    steps: int = 100
+    global_batch: int = 8
+    seq_len: int = 64
+    lr: float = 3e-4
+    ckpt_dir: Optional[str] = None
+    save_every: int = 25
+    keep: int = 2
+    seed: int = 0
+    fail_at: int = -1
+    log_every: int = 10
+    device: str = "cuda"
 
 
 def _deterministic_cuda() -> None:
@@ -75,88 +149,387 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda (the default) or cpu")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="ranks of the mesh (default: every visible card "
+                         "with --device cuda, 1 with --device cpu)")
     args = ap.parse_args(argv)
 
-    if args.device == "cuda":
-        _deterministic_cuda()
-    device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.family in _EMBEDDED:
         raise SystemExit(
             f"--arch {args.arch}: the {cfg.family} family's stub frontend "
             f"needs {_EMBEDDED[cfg.family]} embeddings beside the tokens, "
             f"which token_batches does not make")
+    n = args.devices
+    if n is None:
+        n = (torch.cuda.device_count() if args.device == "cuda"
+             and torch.cuda.is_available() else 1)
+    dp, mp = mesh_shape(n)
+    opts = TrainOptions(
+        steps=args.steps, global_batch=args.global_batch,
+        seq_len=args.seq_len, lr=args.lr, ckpt_dir=args.ckpt_dir,
+        save_every=args.save_every, keep=args.keep, seed=args.seed,
+        fail_at=args.fail_at, log_every=args.log_every, device=args.device)
+    try:
+        train(cfg, opts, dp=dp, mp=mp)
+    except RankFailure as e:
+        print(f"[train] {e}", file=sys.stderr, flush=True)
+        return 1
+    return 0
+
+
+def mesh_shape(n_devices: int) -> tuple[int, int]:
+    """``(dp, mp)`` of the mesh ``remesh`` picks for ``n_devices`` (every
+    axis but 'model' is data; ranks beyond the cards present share them,
+    as the layout decides)."""
+    shape = remesh(n_devices, devices=[None] * n_devices).mesh.shape
+    dp = 1
+    for ax, size in shape.items():
+        dp *= size if ax != "model" else 1
+    return dp, shape["model"]
+
+
+# ---------------------------------------------------------------------------
+# one rank's loop
+# ---------------------------------------------------------------------------
+
+
+def _timer(device):
+    """Starts a timer; the returned callable gives the ms since (CUDA
+    events on a card, the host clock elsewhere)."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        return lambda: 1e3 * (time.perf_counter() - t0)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+
+    def stop():
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+
+    return stop
+
+
+def _run(cfg: ArchConfig, opts: TrainOptions, mesh=None, *,
+         keep: tuple = ()) -> dict:
+    """The training loop on this rank (every rank runs it).  Returns
+    {"step", "history" (per step: loss, grad_norm, ms), "ms" (this
+    rank's per step), "state" (the parts of the final train state that
+    ``keep`` names by path — "params", "opt", "opt/m" — logical, on the
+    host, rank 0; None without ``keep``)}, and on a mesh "ms_by_rank"
+    and, with ``keep``, "block_sha" (:func:`_block_digests`)."""
+    lead = mesh is None or mesh.rank == 0
+    device = mesh.device if mesh else resolve_device(opts.device)
+    if device.type == "cuda":
+        _deterministic_cuda()
+    say = print if lead else (lambda *a, **k: None)
     model = build_model(cfg)
-    opt = adamw(cosine_schedule(args.lr, args.steps, max(args.steps // 20, 1)))
-    n_micro = max(1, args.global_batch // max(cfg.microbatch, 1))
-    train_step = make_train_step(model, opt, n_micro=n_micro)
-    mgr = CheckpointManager(args.ckpt_dir, keep=args.keep,
-                            save_every=args.save_every)
+    opt = adamw(cosine_schedule(opts.lr, opts.steps,
+                                max(opts.steps // 20, 1)))
+    n_micro = max(1, opts.global_batch // max(cfg.microbatch, 1))
+    train_step = make_train_step(model, opt, n_micro=n_micro, mesh=mesh)
+    plan = ShardPlan(cfg, mesh) if mesh is not None else None
+    mgr = (CheckpointManager(opts.ckpt_dir, keep=opts.keep,
+                             save_every=opts.save_every)
+           if opts.ckpt_dir else None)
 
     def fresh():
         g = torch.Generator(device=device)
-        g.manual_seed(args.seed)
+        g.manual_seed(opts.seed)
         params = stack_layers(model.init(g, device=device))
+        if plan:
+            params = shard_params(params, mesh, plan.specs)
         return params, opt.init(params)
 
     def stream_from(step):
-        return token_batches(cfg.vocab, args.global_batch, args.seq_len,
-                             seed=args.seed, start_step=step, device=device)
+        return token_batches(cfg.vocab, opts.global_batch, opts.seq_len,
+                             seed=opts.seed, start_step=step, device=device)
 
-    params, opt_state = fresh()
-    # the restore reads only dtypes: hold shapes, not a second state
-    state_like = tree_map(lambda t: torch.empty_like(t, device="meta"),
-                          {"params": params, "opt": opt_state})
+    # the state's shapes and dtypes on ``meta``: a restore reads into them,
+    # so a resumed run never holds the fresh init beside the restored state
+    aparams = stack_layers(model.abstract_params())
+    if plan:
+        aparams = shard_params(aparams, mesh, plan.specs)
+    state_like = {"params": aparams, "opt": opt.init(aparams)}
+    specs = plan.state_specs(state_like) if plan else None
+    block = None
+    if plan:  # each rank keeps its block of each logical leaf it reads
+        by_key = {"/".join(map(str, p)): s
+                  for p, _, s in spec_items(state_like, specs)}
+
+        def block(key, a):
+            return local_block(a, by_key[key], mesh)
+    history: list = []
+    ms: dict = {}
+
+    def restore():
+        restored, step, meta = mgr.restore_latest(state_like, device=device,
+                                                  block=block)
+        history[:] = meta.get("metrics", [])[:step]
+        return restored["params"], restored["opt"], step
+
+    def save(step, final=False):
+        state = {"params": params, "opt": opt_state}
+        if plan:
+            state = gather_params(state, mesh, specs,
+                                  to="cpu" if lead else "meta")
+        if lead:
+            meta = {"metrics": history[:step]}
+            if final:
+                save_checkpoint(opts.ckpt_dir, step, state, extra_meta=meta)
+            else:
+                mgr.save(step, state, **meta)
+        if plan:
+            mesh.barrier()
+
     start = 0
     try:
-        restored, step, _ = mgr.restore_latest(state_like, device=device)
-        params, opt_state = restored["params"], restored["opt"]
-        start = step
-        print(f"[train] resumed from step {step}")
+        if mgr is None:
+            raise FileNotFoundError
+        params, opt_state, start = restore()
+        say(f"[train] resumed from step {start}")
     except FileNotFoundError:
-        print("[train] fresh start")
+        params, opt_state = fresh()
+        say("[train] fresh start")
+    if plan:
+        say(f"[train] mesh data={mesh.dp} model={mesh.mp}: {mesh.size} "
+            f"ranks, backend {mesh.backend}"
+            + ("; collectives on CUDA tensors staged through host memory"
+               if mesh.staged else ""))
 
     stream = stream_from(start)
     step = start
     injected = False
     consecutive_failures = 0
-    while step < args.steps:
+    while step < opts.steps:
         batch = next(stream)
         try:
-            if step == args.fail_at and not injected:
+            if step == opts.fail_at and not injected:
                 injected = True
-                raise RuntimeError("injected node failure")
+                raise _InjectedFailure("injected node failure")
             t0 = time.time()
+            stop = _timer(device)
             params, opt_state, metrics = train_step(params, opt_state, batch,
                                                     step)
-            if step % args.log_every == 0:
-                print(f"[train] step {step} "
-                      f"loss={float(metrics['loss']):.4f} "
-                      f"gnorm={float(metrics['grad_norm']):.3f} "
-                      f"dt={time.time() - t0:.2f}s")
+            ms[step] = stop()
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            history[step:] = [{"loss": loss, "grad_norm": gnorm,
+                               "ms": ms[step]}]
+            if step % opts.log_every == 0:
+                say(f"[train] step {step} loss={loss:.4f} gnorm={gnorm:.3f} "
+                    f"dt={time.time() - t0:.2f}s")
             step += 1
             consecutive_failures = 0
-            mgr.maybe_save(step, {"params": params, "opt": opt_state})
+            if mgr is not None and mgr.due(step):
+                save(step)
         except Exception as e:  # failure trap: restore + continue
+            if plan and not isinstance(e, _InjectedFailure):
+                raise  # one rank's failure: the mesh cannot agree on it
             consecutive_failures += 1
             if consecutive_failures > 3:
                 raise  # persistent failure: surface it, don't spin
-            print(f"[train] step {step} FAILED ({e}); restoring…", flush=True)
+            say(f"[train] step {step} FAILED ({e}); restoring…", flush=True)
+            params = opt_state = None  # not held beside the restored state
             try:
-                restored, ck_step, _ = mgr.restore_latest(state_like,
-                                                          device=device)
-                params, opt_state = restored["params"], restored["opt"]
-                step = ck_step
+                if mgr is None:
+                    raise FileNotFoundError
+                params, opt_state, step = restore()
                 stream = stream_from(step)
-                print(f"[train] restored to step {ck_step}, continuing")
+                say(f"[train] restored to step {step}, continuing")
             except FileNotFoundError:
-                print("[train] no checkpoint yet; restarting from scratch")
+                say("[train] no checkpoint yet; restarting from scratch")
                 params, opt_state = fresh()
+                history.clear()
                 step = 0
                 stream = stream_from(0)
-    save_checkpoint(args.ckpt_dir, step, {"params": params, "opt": opt_state})
-    print(f"[train] done at step {step}")
-    return 0
+    if mgr is not None:
+        save(step, final=True)
+    say(f"[train] done at step {step}")
+    out = {"step": step, "history": history,
+           "ms": [ms.get(s, float("nan")) for s in range(opts.steps)],
+           "state": None}
+    if keep:
+        state = _select({"params": params, "opt": opt_state}, keep)
+        out["state"] = (gather_params(state, mesh, _select(specs, keep),
+                                      to="cpu" if lead else "meta")
+                        if plan else tree_map(lambda t: t.cpu(), state))
+        if plan:
+            out["block_sha"] = _block_digests(state, mesh)
+    if plan:  # every rank's step ms, in rank order
+        out["ms_by_rank"] = [p.tolist() for p in mesh.control.all_gather(
+            torch.tensor(out["ms"], dtype=torch.float64))]
+    return out
+
+
+def _select(tree: dict, paths) -> dict:
+    """The subtrees of ``tree`` at ``paths`` ("params", "opt/m"), in a
+    tree of their own."""
+    out: dict = {}
+    for path in paths:
+        *head, last = path.split("/")
+        src, dst = tree, out
+        for k in head:
+            src, dst = src[k], dst.setdefault(k, {})
+        dst[last] = src[last]
+    return out
+
+
+def _block_digests(state, mesh) -> dict:
+    """{key: every rank's SHA-256 of its block of that leaf, in rank
+    order}: replicas of a leaf hold the same bits when their digests
+    agree."""
+    flat = flatten_with_paths(state)
+    mine = b"".join(hashlib.sha256(t.detach().reshape(-1).cpu()
+                                   .view(torch.uint8).numpy()).digest()
+                    for _, t in flat)
+    parts = [p.numpy().tobytes() for p in mesh.control.all_gather(
+        torch.frombuffer(bytearray(mine), dtype=torch.uint8))]
+    return {k: [p[32 * i:32 * (i + 1)].hex() for p in parts]
+            for i, (k, _) in enumerate(flat)}
+
+
+# ---------------------------------------------------------------------------
+# the mesh: rank 0 here, the others in processes of their own
+# ---------------------------------------------------------------------------
+
+
+def _dead(procs) -> list:
+    """(rank, exit code) of the ranks that ended with a non-zero code,
+    those killed by a signal first."""
+    dead = [(r, p.poll()) for r, p in enumerate(procs, start=1)]
+    dead = [(r, rc) for r, rc in dead if rc not in (None, 0)]
+    return sorted(dead, key=lambda d: (d[1] >= 0, d[0]))
+
+
+def _describe(dead) -> str:
+    return "; ".join(f"rank {r} was killed by signal {-rc}" if rc < 0
+                     else f"rank {r} exited with code {rc}" for r, rc in dead)
+
+
+class _Watch:
+    """Rank 0's watch over the other ranks: the first that dies ends the
+    others (no rank trains on without it) and aborts the mesh's NCCL
+    groups, so that rank 0's pending collectives fail."""
+
+    def __init__(self, procs):
+        self.procs, self.reason, self.mesh = procs, None, None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="train-mesh-watch")
+        self._thread.start()
+
+    def _loop(self):
+        while not self._stop.wait(_POLL_S):
+            dead = _dead(self.procs)
+            if dead:
+                self.reason = _describe(dead)
+                # said at once: rank 0 may itself be ended next (NCCL's
+                # watchdog) before its failed collective raises
+                print(f"[train] {self.reason}; ending the run",
+                      file=sys.stderr, flush=True)
+                _kill(self.procs)
+                if self.mesh is not None:
+                    self.mesh.abort()
+                return
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+
+
+def _kill(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+
+
+def train(cfg: ArchConfig, opts: TrainOptions, *, dp: int = 1, mp: int = 1,
+          keep: tuple = ()) -> dict:
+    """Train ``cfg`` on a ``(dp, mp)`` mesh (one device for (1, 1)), this
+    process rank 0; returns rank 0's :func:`_run` result, with
+    ``"ms_by_rank"`` on a mesh.  Raises :class:`RankFailure` naming the
+    rank when a rank dies or fails."""
+    if dp < 1 or mp < 1:
+        raise ValueError(f"mesh {dp}x{mp} needs at least one rank on each "
+                         f"axis")
+    if dp * mp == 1:
+        return _run(cfg, opts, keep=keep)
+    ShardPlan(cfg, TrainMesh(dp=dp, mp=mp))  # refuses what cannot be planned
+    n_micro = max(1, opts.global_batch // max(cfg.microbatch, 1))
+    if (opts.global_batch // n_micro) % dp:
+        raise ValueError(
+            f"a microbatch of {opts.global_batch // n_micro} rows (global "
+            f"batch {opts.global_batch} in {n_micro}) does not split over "
+            f"{dp} data ranks")
+    devices, backend, staged = layout(dp, mp, opts.device)
+    workdir = tempfile.mkdtemp(prefix="repro_torch_train_")
+    spec = {"dp": dp, "mp": mp, "devices": devices, "backend": backend,
+            "staged": staged, "store": os.path.join(workdir, "store"),
+            "timeout_s": TRAIN_TIMEOUT_S,
+            "control_timeout_s": CONTROL_TIMEOUT_S, "parent": os.getpid(),
+            "cfg": dataclasses.asdict(cfg),
+            "opts": dataclasses.asdict(opts), "keep": list(keep)}
+    cpu = devices[0] == "cpu"
+    threads = torch.get_num_threads()
+    if cpu:  # every CPU rank computes on one thread: replicated work
+        torch.set_num_threads(1)  # then gives every rank the same bits
+    procs = spawn_workers("repro_torch.launch.train", spec, dp * mp, cpu=cpu)
+    watch = _Watch(procs)
+    mesh = None
+    try:
+        mesh = connect_train_mesh(spec, 0)
+        watch.mesh = mesh
+        out = _run(cfg, opts, mesh, keep=keep)
+        for r, p in enumerate(procs, start=1):
+            rc = p.wait(timeout=TRAIN_TIMEOUT_S)
+            if rc != 0:
+                raise RankFailure(f"rank {r} exited with code {rc}")
+        return out
+    except Exception as e:
+        # a rank's death shows in its exit code within moments of the
+        # collective that failed on rank 0
+        deadline = time.monotonic() + 2.0
+        while watch.reason is None and not _dead(procs) \
+                and time.monotonic() < deadline:
+            time.sleep(_POLL_S / 4)
+        reason = watch.reason or (_describe(_dead(procs)) if _dead(procs)
+                                  else None)
+        _kill(procs)
+        if isinstance(e, RankFailure):
+            raise
+        if reason:
+            raise RankFailure(f"{reason}; the run ends") from e
+        raise RankFailure(f"rank 0 failed ({e!r}); the run ends") from e
+    finally:
+        watch.stop()
+        _kill(procs)
+        for p in procs:
+            p.wait()
+        if mesh is not None:
+            mesh.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+        torch.set_num_threads(threads)
+
+
+def worker_main(spec_json: str, rank: int) -> None:
+    """Entry point of rank ``rank`` (started by :func:`train` through
+    ``spawn_workers``, which has SIGINT and SIGTERM ignored already)."""
+    try:
+        spec = json.loads(spec_json)
+        die_with_parent(spec["parent"])
+        mesh = connect_train_mesh(spec, rank)
+        _run(ArchConfig.from_dict(spec["cfg"]), TrainOptions(**spec["opts"]),
+             mesh, keep=tuple(spec["keep"]))
+        # no NCCL shutdown here: it waits on rank 0's, which comes after
+        # rank 0 has waited for this process; os._exit releases it all
+    except BaseException:
+        print(f"[train] rank {rank} failed:", file=sys.stderr, flush=True)
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    sys.stdout.flush()
+    os._exit(0)
 
 
 if __name__ == "__main__":

@@ -12,6 +12,12 @@ to V's dtype for the PV product, as the JAX package does; with
 statistics around bf16 exponentials and probabilities, as the JAX
 package's branch does.
 
+Layout changes are marked with ``runtime/sharding.py``'s ``constrain``
+at the JAX package's points (and where an activation enters a
+column-parallel product): a no-op without a mesh context; under a training
+mesh the embedding and the logits are vocab-parallel, attention
+head-parallel and the MLP ``ff``-parallel where the plan says so.
+
 ``init_*`` draw from an explicit ``torch.Generator`` on ``device`` (the
 values differ from ``jax.random``'s; tests convert the JAX package's params
 instead) and return the JAX package's tree with (in, out) weights.
@@ -28,6 +34,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import packing
 from repro_torch.kernels.quant_matmul.ops import quant_matmul
 from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+from repro_torch.runtime.sharding import constrain, current_mesh_context
 
 __all__ = [
     "NEG",
@@ -336,12 +343,25 @@ def embedding_axes(cfg: ArchConfig) -> dict:
 
 
 def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens]
+    """Rows of ``tok``; vocab-parallel under a mesh that splits the vocab
+    (``tok`` is then this rank's rows: a token outside them gives zeros,
+    and the ranks' rows are summed)."""
+    tok = p["tok"]
+    ctx = current_mesh_context()
+    if ctx is None or not ctx.parallel("vocab"):
+        return constrain(tok[tokens], ("batch", "seq", "act_embed"))
+    local = tokens - ctx.model_rank * tok.shape[0]
+    mine = (local >= 0) & (local < tok.shape[0])
+    h = tok[torch.where(mine, local, 0)] * mine[..., None].to(tok.dtype)
+    return constrain(h, ("batch", "seq", "act_embed"), summed="vocab")
 
 
 def lm_logits(p: dict, h: torch.Tensor) -> torch.Tensor:
+    """h @ head (or tokᵀ): under a mesh that splits the vocab, this rank's
+    columns of the logits."""
     w = p["head"] if "head" in p else p["tok"].T
-    return matmul(h, w)
+    h = constrain(h, ("batch", "seq", "act_embed"), feeds="vocab")
+    return constrain(matmul(h, w), ("batch", "seq", "act_ff"))
 
 
 # ---------------------------------------------------------------------------
@@ -362,12 +382,15 @@ def mlp_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
               plain: bool = False) -> torch.Tensor:
     """The MLP (``wi wo``, ``wg`` for swiglu, ``bi``/``bo`` with
     ``mlp_bias``), each weight dense or packed (:func:`apply_w`)."""
+    x = constrain(x, ("batch", "seq", "act_embed"), feeds="act_ff")
     h = apply_w(p["wi"], x, cfg, plain=plain)
     if cfg.mlp_bias:
         h = h + p["bi"]
     gate = apply_w(p["wg"], x, cfg, plain=plain) if cfg.mlp == "swiglu" \
         else None
-    out = apply_w(p["wo"], mlp_act(h, gate, cfg), cfg, plain=plain)
+    h = constrain(mlp_act(h, gate, cfg), ("batch", "seq", "act_ff"))
+    out = constrain(apply_w(p["wo"], h, cfg, plain=plain),
+                    ("batch", "seq", "act_embed"), summed="act_ff")
     if cfg.mlp_bias:
         out = out + p["bo"]
     return out
@@ -474,11 +497,18 @@ def attention_full(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     ``(k, v)`` (B, Skv, KV, hd) with ``return_kv``.
     """
     B, S, _ = x.shape
+    x = constrain(x, ("batch", "seq", "act_embed"), feeds="act_heads")
+    if x_kv is not None:
+        x_kv = constrain(x_kv, ("batch", "seq", "act_embed"),
+                         feeds="act_heads")
     q, k, v = project_qkv(p, x, cfg, positions, x_kv=x_kv, plain=plain)
+    q = constrain(q, ("batch", "seq", "act_heads", None))
+    k = constrain(k, ("batch", "seq", "act_heads", None))
     o = attend(q, k, v, positions, cfg, causal=causal,
                bf16_probs=cfg.attn_bf16_probs)
     out = apply_w(p["wo"], o.to(x.dtype).reshape(B, S, cfg.q_dim), cfg,
                   plain=plain)
+    out = constrain(out, ("batch", "seq", "act_embed"), summed="act_heads")
     out = _gated(p, out, x.dtype)
     if return_kv:
         return out, (k, v)

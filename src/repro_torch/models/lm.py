@@ -33,6 +33,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import multimodal as MM
 from repro_torch.models import recurrent as R
 from repro_torch.models import transformer as T
+from repro_torch.runtime.collectives import max_over
+from repro_torch.runtime.sharding import constrain, current_mesh_context
 
 __all__ = ["Model", "build_model"]
 
@@ -71,14 +73,21 @@ class Model:
 
     def loss(self, params, batch: dict, aux_coef: float = 0.01):
         """Mean next-token cross entropy (+ MoE aux), as the JAX package
-        computes it (the last position has no target)."""
+        computes it (the last position has no target).  Under a mesh that
+        splits the vocab the logits are this rank's columns, and the max,
+        the sum of exponentials and the target's logit are taken over
+        ``model``."""
         hidden, aux = self.forward(params, batch)
         targets = batch.get("targets")
         if targets is None:
             targets = torch.roll(batch["tokens"], -1, dims=-1)
         logits = self.logits(params, hidden).to(torch.float32)
-        logp = F.log_softmax(logits, dim=-1)
-        nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+        ctx = current_mesh_context()
+        if ctx is not None and ctx.parallel("vocab"):
+            nll = _vocab_parallel_nll(logits, targets, ctx)
+        else:
+            logp = F.log_softmax(logits, dim=-1)
+            nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
         # the last position has no target; the mask comes from an arange,
         # not an indexed store of a Python scalar, which dispatches other
         # ops on the CPU than on the card or ``meta`` (the op analysis
@@ -109,6 +118,22 @@ class Model:
         per-layer layout; ``convert.stack_cache`` gives the JAX one."""
         return self._init_cache(self.cfg, batch, max_len, kv_dtype,
                                 device="meta")
+
+
+def _vocab_parallel_nll(logits, targets, ctx):
+    """-log softmax(logits)[target] from this rank's vocab columns:
+    ``log Σ exp(x − m) − (x_t − m)`` with the max ``m``, the sum and the
+    target's logit taken over ``model`` (the target lies in one rank's
+    columns; the others add zero)."""
+    rows = logits.shape[-1]
+    z = logits - max_over(logits.amax(dim=-1), ctx.comm)[..., None]
+    se = constrain(torch.exp(z).sum(dim=-1), ("batch", "seq"),
+                   summed="vocab")
+    local = targets.long() - ctx.model_rank * rows
+    mine = (local >= 0) & (local < rows)
+    zt = torch.gather(z, -1, torch.where(mine, local, 0)[..., None])[..., 0]
+    zt = constrain(zt * mine.to(z.dtype), ("batch", "seq"), summed="vocab")
+    return torch.log(se) - zt
 
 
 # --- family adapters (batch dict vs tokens-only signatures) ---------------

@@ -15,6 +15,14 @@ them: the counterpart of the JAX train step donating both, so a step at
 full width holds one copy of the state, not two.  The caller must not
 keep the old values.  ``step`` is an int or a 0-d tensor; ``t = step +
 1`` and the lr are fp32, as in the JAX package.
+
+Over a training mesh (a ``ShardPlan`` active through
+``runtime/sharding.py``'s ``mesh_context``) the trees hold this rank's
+blocks: adamw and sgd are elementwise and run on them as they are, and
+:func:`global_norm` sums the squares of each block, counts a replicated
+leaf once and adds over the mesh, so the norm and the clip scale are the
+one-device ones.  adafactor's factored moments reduce over dims the mesh
+may shard; the mesh's train step refuses it by name.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.runtime.sharding import current_mesh_context
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["Optimizer", "adamw", "adafactor", "sgd", "global_norm",
@@ -35,9 +44,16 @@ _F32 = torch.float32
 class Optimizer:
     init: Callable  # params -> state
     update: Callable  # (grads, state, params, step) -> (params, state, metrics)
+    name: str = ""
 
 
 def global_norm(tree) -> torch.Tensor:
+    """The L2 norm of every leaf; under a training mesh ``tree`` is the
+    params' tree of this rank's blocks and the norm is the logical
+    tree's."""
+    ctx = current_mesh_context()
+    if ctx is not None:
+        return torch.sqrt(ctx.sum_squares(tree))
     return torch.sqrt(sum(torch.sum(torch.square(x.to(_F32)))
                           for x in tree_leaves(tree)))
 
@@ -107,7 +123,7 @@ def adamw(lr: Callable | float, *, b1: float = 0.9, b2: float = 0.95,
         tree_map(upd, grads, state["m"], state["v"], state["master"], params)
         return params, state, {"grad_norm": gn}
 
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=init, update=update, name="adamw")
 
 
 def adafactor(lr: Callable | float, *, decay: float = 0.8, eps: float = 1e-30,
@@ -154,7 +170,7 @@ def adafactor(lr: Callable | float, *, decay: float = 0.8, eps: float = 1e-30,
         tree_map(upd, grads, state["moments"], state["master"], params)
         return params, state, {"grad_norm": gn}
 
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=init, update=update, name="adafactor")
 
 
 def sgd(lr: Callable | float, momentum: float = 0.0) -> Optimizer:
@@ -180,4 +196,4 @@ def sgd(lr: Callable | float, momentum: float = 0.0) -> Optimizer:
                      grads, params)
         return params, state, {"grad_norm": gn}
 
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=init, update=update, name="sgd")

@@ -17,12 +17,23 @@ tensor-parallel serving mesh (``serve/distributed.py``) keeps its own
 table, :func:`tp_serving_rules`.
 
 Plain functions on shapes: nothing here touches ``torch.distributed`` or
-a device.  A :class:`MeshContext` adds what one process of a serving mesh
-knows — the mesh shape ``(dp, mp)``, its rank, its place on the model
-axis, its device and its model-axis communicator.
+a device.  A :class:`MeshContext` adds what one process of a mesh knows —
+the mesh shape ``(dp, mp)``, its rank, its place on each axis, its device
+and its model-axis communicator.
+
+:func:`mesh_context` and :func:`constrain` are the JAX package's: model
+code names the layout of an activation by logical axes, and without a
+context ``constrain`` does nothing.  Under a training mesh
+(``runtime/train_mesh.py``'s ``ShardPlan``) it is where the layout
+changes and autograd must know it (``runtime/collectives.py``):
+``summed=`` a partial sum leaving a row-parallel product, summed over
+``model``; ``feeds=`` a whole activation entering a column-parallel one,
+whose gradient is summed over ``model``.  Both act only where the named
+dim is computed in parallel on that mesh.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Mapping, Optional, Sequence, Union
@@ -30,7 +41,8 @@ from typing import Any, Mapping, Optional, Sequence, Union
 __all__ = ["default_rules", "serving_rules", "context_rules", "fsdp2d_rules",
            "RULE_SETS", "tp_serving_rules", "logical_to_pspec", "local_shape",
            "param_shardings", "AbstractMesh", "ShardingContext",
-           "MeshContext"]
+           "MeshContext", "mesh_context", "current_mesh_context",
+           "constrain"]
 
 MeshAxes = Union[str, tuple, None]
 LogicalAxes = Sequence[Optional[str]]
@@ -237,7 +249,7 @@ class ShardingContext:
 
 @dataclasses.dataclass
 class MeshContext:
-    """One process's view of a ``(data, model)`` serving mesh.
+    """One process's view of a ``(data, model)`` mesh.
 
     ``rank`` counts data-major (rank = d·mp + m); ``model_rank`` is m, this
     process's place on the model axis.  ``comm`` is the model-axis
@@ -278,3 +290,48 @@ class MeshContext:
         k = self.shape[axis]
         r = self.model_rank if axis == "model" else self.data_rank
         return r * n // k, (r + 1) * n // k
+
+
+# the active training context: process-wide, not thread-local, because
+# autograd runs a remat'd block's forward again inside the backward, on a
+# device thread for CUDA tensors, and that forward must issue the same
+# collectives as the first
+_ACTIVE: list = []
+
+
+@contextlib.contextmanager
+def mesh_context(ctx):
+    """Activate ``ctx`` (a ``ShardPlan``: ``parallel(name)`` and the
+    model-axis ``comm``) for :func:`constrain` calls in model code."""
+    _ACTIVE.append(ctx)
+    try:
+        yield ctx
+    finally:
+        _ACTIVE.pop()
+
+
+def current_mesh_context():
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+def constrain(x, logical: LogicalAxes, *, summed: Optional[str] = None,
+              feeds: Optional[str] = None):
+    """``x`` laid out as ``logical``; a no-op without a context.
+
+    ``summed=name``: ``x`` is this rank's partial sum of a product
+    contracted over the logical dim ``name`` (row-parallel); it is summed
+    over ``model`` (its gradient passes through).  ``feeds=name``: ``x``
+    is whole on every rank and feeds this rank's part of a product whose
+    ``name`` dim is split; its gradient is summed over ``model``.  Either
+    acts only where the context computes ``name`` in parallel; otherwise,
+    and with neither, ``x`` already has the layout (a rank's heads, its
+    ``ff`` columns) and is returned as it is."""
+    ctx = current_mesh_context()
+    name = summed or feeds
+    if ctx is None or name is None or not ctx.parallel(name):
+        return x
+    from repro_torch.runtime import collectives
+
+    if summed:
+        return collectives.sum_over(x, ctx.comm)
+    return collectives.grad_sum_over(x, ctx.comm)

@@ -48,7 +48,8 @@ logs.  Nothing falls back from one to the other.  Commands travel on a
 gloo group of all ranks.  Rendezvous is a ``FileStore`` in a temporary
 directory.  A worker that fails prints its traceback and exits nonzero;
 rank 0 then fails in the next collective or command (its peer is gone)
-and kills the rest.
+and kills the rest.  The process groups, the communicator, the layout and
+the worker spawn are ``runtime/process_group.py``'s, shared with training.
 
 **Lifetime.**  Rank 0 alone decides when the workers stop: by
 :meth:`ServingMesh.close` or :meth:`ServingMesh.abort`.  Workers ignore
@@ -75,13 +76,10 @@ from __future__ import annotations
 
 import atexit
 import dataclasses
-import datetime
 import json
 import os
 import pickle
 import shutil
-import signal
-import subprocess
 import sys
 import tempfile
 import threading
@@ -97,8 +95,15 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core import incoherence as inc
 from repro_torch.core.quantizer import QuantizedLinear
-from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.models import layers as L
+from repro_torch.runtime.process_group import (
+    Communicator,
+    die_with_parent,
+    layout,
+    process_group,
+    spawn_workers,
+)
 from repro_torch.runtime.sharding import MeshContext
 from repro_torch.serve.adapter import CachedDecoder
 from repro_torch.serve.kv_cache import PagedKVPool
@@ -137,8 +142,6 @@ PACKED_AXES: dict[str, tuple] = {
 # Physical page pool (L, P, ps, KV, hd): shard KV heads, never pages.
 POOL_AXES: tuple = ("layers", "pages", None, "kv_heads", None)
 
-# ranks a mesh may place on one card when cards are fewer than ranks
-MAX_RANKS_PER_CARD = 4
 # seconds a collective inside a dispatch may wait for its peers; the
 # command channel waits far longer (rank 0 may sit idle between requests)
 COLLECTIVE_TIMEOUT_S = 600
@@ -146,88 +149,6 @@ COMMAND_TIMEOUT_S = 24 * 3600
 # commands each rank's log keeps (the newest)
 COMMAND_LOG_SLOTS = 256
 
-_LOOPBACK = "127.0.0.1"
-
-
-# ---------------------------------------------------------------------------
-# process groups
-# ---------------------------------------------------------------------------
-
-
-def _process_group(store, rank: int, size: int, backend: str,
-                   timeout_s: float):
-    """A process group on ``store`` without torch.distributed's global
-    state, so one process may hold several meshes (tests do)."""
-    import torch.distributed as dist
-
-    timeout = datetime.timedelta(seconds=timeout_s)
-    if backend == "nccl":
-        opts = dist.ProcessGroupNCCL.Options()
-        opts._timeout = timeout
-        return dist.ProcessGroupNCCL(store, rank, size, opts)
-    opts = dist.ProcessGroupGloo._Options()
-    opts._devices = [dist.ProcessGroupGloo.create_device(hostname=_LOOPBACK)]
-    opts._timeout = timeout
-    return dist.ProcessGroupGloo(store, rank, size, opts)
-
-
-class Communicator:
-    """Collectives over one model-axis group.
-
-    ``staged``: the backend is gloo and the tensors live on a card, so
-    every collective copies its buffer to host memory, runs there and
-    copies the result back (one copy each way)."""
-
-    def __init__(self, pg, size: int, device: torch.device, staged: bool):
-        self.pg, self.size = pg, size
-        self.device, self.staged = device, staged
-
-    def all_gather(self, buf: torch.Tensor) -> list:
-        """Every rank's ``buf`` (same shape and dtype), in rank order."""
-        x = buf.contiguous()
-        # all-gather only moves bytes: 2-byte floats travel as int16
-        wire = x.view(torch.int16) if x.element_size() == 2 else x
-        if self.staged:
-            wire = wire.cpu()
-        outs = [torch.empty_like(wire) for _ in range(self.size)]
-        self.pg.allgather([outs], [wire]).wait()
-        if self.staged:
-            outs = list(torch.stack(outs).to(self.device).unbind(0))
-        return [o.view(x.dtype) for o in outs]
-
-    def all_gather_cat(self, tensors: list) -> list:
-        """Each (..., m_i) tensor (same leading shape and dtype) -> the
-        (..., m_i · size) tensor of every rank's piece in rank order, all
-        in one collective."""
-        if self.size == 1:
-            return list(tensors)
-        lead = tensors[0].shape[:-1]
-        widths = [t.shape[-1] for t in tensors]
-        buf = torch.cat([t.reshape(-1, w) for t, w in zip(tensors, widths)],
-                        dim=1)
-        parts = self.all_gather(buf)
-        out, off = [], 0
-        for w in widths:
-            out.append(torch.cat([p[:, off:off + w] for p in parts], dim=1)
-                       .reshape(*lead, w * self.size))
-            off += w
-        return out
-
-    def all_reduce_sum(self, tensors: list) -> list:
-        """The sum over ranks of each tensor, added in rank order (every
-        rank holds the same bits), all in one collective."""
-        if self.size == 1:
-            return list(tensors)
-        flat = torch.cat([t.reshape(-1) for t in tensors])
-        parts = self.all_gather(flat)
-        total = parts[0].clone()
-        for p in parts[1:]:
-            total += p
-        out, off = [], 0
-        for t in tensors:
-            out.append(total[off:off + t.numel()].reshape(t.shape))
-            off += t.numel()
-        return out
 
 
 class _Channel:
@@ -381,12 +302,20 @@ class ServingMesh(MeshContext):
         engine thread that adopted it has ended)."""
         self._owner = None
 
-    def _dead_rank(self) -> Optional[str]:
-        for r, p in enumerate(self.procs, start=1):
-            rc = p.poll()
-            if rc is not None:
-                return f"rank {r} exited with code {rc}"
-        return None
+    def _dead_rank(self, grace: float = 0.0) -> Optional[str]:
+        """The first worker that has exited, waiting up to ``grace``
+        seconds for one to show: a send or a collective fails moments
+        after a peer dies, and meanwhile another thread's ``wait`` on that
+        process may hold its exit status (``poll`` then answers None)."""
+        deadline = time.monotonic() + grace
+        while True:
+            for r, p in enumerate(self.procs, start=1):
+                rc = p.poll()
+                if rc is not None:
+                    return f"rank {r} exited with code {rc}"
+            if time.monotonic() >= deadline:
+                return None
+            time.sleep(0.02)
 
     def broken_reason(self) -> Optional[str]:
         """Why this mesh can serve no more, or None: broken, closed, or a
@@ -436,7 +365,7 @@ class ServingMesh(MeshContext):
         try:
             self.channel.send((drops, fn, args))
         except BaseException as e:  # a rank that died is the cause
-            self.abort(self._dead_rank()
+            self.abort(self._dead_rank(grace=2.0)
                        or f"sending a command failed: {e!r}")
             raise
         try:
@@ -446,7 +375,7 @@ class ServingMesh(MeshContext):
                 self.cmdlog.done(entry)
             return out
         except BaseException as e:
-            self.abort(self._dead_rank()
+            self.abort(self._dead_rank(grace=2.0)
                        or f"rank 0 failed in {fn.__name__}: {e!r}")
             raise
 
@@ -535,23 +464,6 @@ def _cmd_stop(mesh: ServingMesh) -> None:
     pass
 
 
-def _layout(dp: int, mp: int, device) -> tuple[list, str, bool]:
-    """(device of each rank, backend, staged) for a dp x mp mesh."""
-    need = dp * mp
-    dev = resolve_device(device)
-    if dev.type == "cpu":
-        return ["cpu"] * need, "gloo", False
-    have = torch.cuda.device_count()
-    if have >= need:
-        return [f"cuda:{r}" for r in range(need)], "nccl", False
-    if need > have * MAX_RANKS_PER_CARD:
-        raise ValueError(
-            f"mesh {dp}x{mp} needs {need} ranks but only {have} CUDA "
-            f"device(s) are visible, at most {MAX_RANKS_PER_CARD} ranks "
-            f"each")
-    return [f"cuda:{r % have}" for r in range(need)], "gloo", True
-
-
 def _connect(spec: dict, rank: int) -> ServingMesh:
     """Join the mesh ``spec`` describes as ``rank``."""
     import torch.distributed as dist
@@ -561,7 +473,7 @@ def _connect(spec: dict, rank: int) -> ServingMesh:
     if device.type == "cuda":
         torch.cuda.set_device(device)
     store = dist.FileStore(spec["store"], dp * mp)
-    control = _process_group(dist.PrefixStore("control", store), rank,
+    control = process_group(dist.PrefixStore("control", store), rank,
                              dp * mp, "gloo", COMMAND_TIMEOUT_S)
     mesh = ServingMesh(dp=dp, mp=mp, rank=rank, device=device,
                        backend=spec["backend"], staged=spec["staged"],
@@ -574,42 +486,20 @@ def _connect(spec: dict, rank: int) -> ServingMesh:
     pg = None
     if mp > 1:
         row = rank // mp
-        pg = _process_group(dist.PrefixStore(f"model{row}", store), rank % mp,
+        pg = process_group(dist.PrefixStore(f"model{row}", store), rank % mp,
                             mp, spec["backend"], COLLECTIVE_TIMEOUT_S)
-    mesh.comm = Communicator(pg, mp, device, spec["staged"])
+    mesh.comm = Communicator(pg, mp, device, spec["staged"],
+                             rank % mp)
     return mesh
-
-
-# a worker ignores SIGINT and SIGTERM from its first line on (before the
-# slow imports): rank 0 alone stops it
-_WORKER = ("import signal, sys; signal.signal(signal.SIGINT, signal.SIG_IGN);"
-           " signal.signal(signal.SIGTERM, signal.SIG_IGN); "
-           "from repro_torch.serve.distributed import worker_main; "
-           "worker_main(sys.argv[1], int(sys.argv[2]))")
-
-_PR_SET_PDEATHSIG = 1
-
-
-def _die_with_parent(parent: int) -> None:
-    """On Linux, SIGKILL this process when the thread that started it
-    ends (``PR_SET_PDEATHSIG``); exit now if rank 0 ``parent`` is already
-    gone (it died before the request took effect)."""
-    if sys.platform.startswith("linux"):
-        import ctypes
-
-        libc = ctypes.CDLL(None, use_errno=True)
-        if libc.prctl(_PR_SET_PDEATHSIG, signal.SIGKILL, 0, 0, 0) != 0:
-            raise OSError(ctypes.get_errno(), "prctl(PR_SET_PDEATHSIG)")
-    if os.getppid() != parent:
-        os._exit(1)
 
 
 def worker_main(spec_json: str, rank: int) -> None:
     """Entry point of a worker rank (started by :func:`make_serving_mesh`
-    as ``_WORKER``, which has SIGINT and SIGTERM ignored already)."""
+    through ``spawn_workers``, which has SIGINT and SIGTERM ignored
+    already)."""
     try:
         spec = json.loads(spec_json)
-        _die_with_parent(spec["parent"])
+        die_with_parent(spec["parent"])
         mesh = _connect(spec, rank)
         mesh.serve()
     except BaseException:
@@ -627,7 +517,7 @@ def make_serving_mesh(dp: int, mp: int, *,
     starts ``dp·mp − 1`` worker processes (``python -c``, the same
     interpreter, this package on their path).  Ranks go one per card with
     NCCL when there are enough cards, else share cards (at most
-    ``MAX_RANKS_PER_CARD`` each) with gloo; on the CPU, gloo.  Raises
+    ``process_group.MAX_RANKS_PER_CARD`` each) with gloo; on the CPU, gloo.  Raises
     ``ValueError`` for a mesh the devices cannot hold.
 
     Call it from a thread that lives as long as the mesh (the main
@@ -637,23 +527,14 @@ def make_serving_mesh(dp: int, mp: int, *,
     if dp < 1 or mp < 1:
         raise ValueError(f"mesh {dp}x{mp} needs at least one rank on each "
                          f"axis")
-    devices, backend, staged = _layout(dp, mp, device)
+    devices, backend, staged = layout(dp, mp, device)
     workdir = tempfile.mkdtemp(prefix="repro_torch_mesh_")
     spec = {"dp": dp, "mp": mp, "devices": devices, "backend": backend,
             "staged": staged, "store": os.path.join(workdir, "store"),
             "cmdlog": os.path.join(workdir, "cmdlog"),
             "parent": os.getpid()}
-    pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    env = dict(os.environ)
-    if devices[0] == "cpu":
-        # CPU ranks share the host's cores with rank 0: one thread each
-        env["OMP_NUM_THREADS"] = "1"
-    env["PYTHONPATH"] = os.pathsep.join(
-        [pkg_root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
-    procs = [subprocess.Popen([sys.executable, "-c", _WORKER,
-                               json.dumps(spec), str(r)], env=env)
-             for r in range(1, dp * mp)]
+    procs = spawn_workers("repro_torch.serve.distributed", spec, dp * mp,
+                          cpu=devices[0] == "cpu")
     try:
         mesh = _connect(spec, 0)
     except BaseException:

@@ -37,7 +37,10 @@ for name in ("repro_torch.serve.frontdoor.server",
              "repro_torch.runtime.op_analysis",
              "repro_torch.runtime.op_breakdown",
              "repro_torch.runtime.roofline", "repro_torch.launch.dryrun",
-             "repro_torch.launch.mesh", "repro_torch.launch.specs"):
+             "repro_torch.launch.mesh", "repro_torch.launch.specs",
+             "repro_torch.runtime.process_group",
+             "repro_torch.runtime.collectives",
+             "repro_torch.runtime.train_mesh"):
     assert name in names, name
 """
 
@@ -49,3 +52,17 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.strip().endswith("[]")
+
+
+def test_train_driver_imports_nothing_of_serving():
+    """The training driver shares the process-group helpers with serving
+    through ``runtime/process_group.py``: importing it loads no module of
+    ``repro_torch.serve``."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    probe = ("import sys, repro_torch.launch.train; print(sorted(m for m in "
+             "sys.modules if m.startswith('repro_torch.serve')))")
+    out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

@@ -365,7 +365,7 @@ def test_cli_flags_are_the_jax_clis_plus_device():
                                  p.read_text())
     ref = flags(ROOT / "src/repro/launch/train.py")
     port = flags(ROOT / "src/repro_torch/launch/train.py")
-    assert port == ref + ["--device"]
+    assert port == ref + ["--device", "--devices"]
 
 
 @pytest.mark.parametrize("arch,what", [("whisper-small", "frames"),
