@@ -223,22 +223,35 @@ Phases, each printing its own lines:
      trapped, step 3 restored, the final checkpoint equal to the
      uninterrupted run's bit for bit), then that run extended to 10 steps
      (resumed from step 8).
- 16. training over a mesh — ``launch/train.py``'s ``train`` (the
-     function under the CLI's ``--devices``) on a (1, 2) mesh of two
-     ranks sharing the card over gloo, collectives staged through host
-     memory (no kernel; every kernel's launches read 0 around the mesh
-     runs).  ``qwen3-14b`` at full width, depth cut to ``MESH_LAYERS`` =
-     2 of 40 for memory, 8 x 64 tokens in 2 microbatches, in a fresh
-     process (rank 0; deterministic algorithms from its first CUDA call):
-     (a) 3 fp32 adamw steps on one device, then on the mesh: loss and
-     grad norm of every step within ``MESH_LOSS_RTOL``, adamw's first
-     moment of every leaf within ``MESH_M_RTOL`` of its max, every param
-     leaf within ``MESH_UPDATE_RTOL`` of the one-device run's move, and
-     the replicated leaves bit-identical on both ranks; (b) 4 bf16 steps
-     on the mesh, each rank's step time (CUDA events); (c) the train
-     CLI with ``--devices 2`` at the smoke config (started beside phase
-     2's build): an uninterrupted run and one with ``--fail-at 3``, whose
-     final checkpoints are equal bit for bit.
+ 16. training over a mesh — ``launch/train.py``'s ``train_jobs`` (under
+     the CLI's ``--devices``) on a (1, 2) mesh of two ranks sharing the
+     card over gloo, collectives staged through host memory (no kernel;
+     every kernel's launches read 0 around the mesh runs).  Every run at
+     full width, 8 x 64 tokens in 2 microbatches, in one fresh process
+     (rank 0; deterministic algorithms from its first CUDA call): each
+     gated run first on one device, then every run on the mesh, one start
+     of the ranks for all of them.  A gated run keeps only
+     ``MESH_SAMPLE`` seeded elements of each leaf of its final state
+     (``sample_leaves``), read where they lie, and of its init: (a)
+     qwen3-14b at ``MESH_LAYERS`` = 2 of 40 layers (memory), 3 fp32 adamw
+     steps: loss and grad norm of every step within ``MESH_LOSS_RTOL``,
+     adamw's first moment within ``MESH_M_RTOL`` of its max, every param
+     leaf within ``MESH_UPDATE_RTOL`` of the one-device run's move; (b)
+     its 4 bf16 steps, each rank's step time (CUDA events); (d)
+     llama4-scout-17b-a16e at 1 of 48 layers (memory), 8 of its 16
+     experts stored and computed a rank: 3 fp32 sgd steps gated as (a)
+     (and the dropped pairs equal), then 4 bf16 steps timed; (e) one fp32
+     sgd step of rwkv6-1.6b (1 layer), zamba2-7b (6: five Mamba2 layers
+     and the shared block), whisper-small (1 encoder and 1 decoder layer,
+     1,500 frames), the 5-layer llama-3.2-vision-90b (4 self and 1 gated
+     cross layer, seeded non-zero gates) in bf16, gated on loss and grad
+     norm, and 3 adafactor steps of (a)'s model; in every gated run the
+     leaves with replicas bit-identical on both ranks; (c) the train CLI
+     with ``--devices 2`` at the smoke config (started beside phase 2's
+     build): an uninterrupted run and one with ``--fail-at 3``, whose
+     final checkpoints are equal bit for bit.  CPU rehearsal:
+     ``phase_train_mesh(torch, seed=0, runs=mesh_runs(smoke=True))`` with
+     ``DEV = "cpu"`` and ``MESH_BATCH, MESH_SEQ = 8, 16``.
 
 Phase 3 also runs kron_mul at every dense width's factors (16 x 32 to
 168 x 176, and 192 x 256, the largest the kernel takes), quant_matmul at
@@ -5705,20 +5718,48 @@ def _fake_collectives(torch) -> None:
 # (a), (b): qwen3-14b at full width, cut to this depth for memory (a
 # one-device fp32 step of 2 layers holds ~50 GB; each of two ranks half of
 # the state, but the whole replicated activations and its own CUDA
-# context), 8 x 64 tokens in 2 microbatches
+# context), 8 x 64 tokens in 2 microbatches; every run of the phase takes
+# the same tokens
 MESH_RANKS, MESH_LAYERS = 2, 2
 MESH_BATCH, MESH_SEQ, MESH_MICRO = 8, 64, 4
 MESH_STEPS_FP32, MESH_STEPS_BF16 = 3, 4
+# (d): llama4-scout-17b-a16e at full width (16 experts, 8 a rank), one
+# layer for memory: 4.1e9 parameters, 16.6 GB in fp32; adamw's master and
+# moments would add 49.8 GB on one device, so the gated run takes sgd
+# (its update linear in the gradient), as does its bf16 timing
+MESH_MOE_ARCH, MESH_MOE_LAYERS, MESH_MOE_OPT = "llama4-scout-17b-a16e", 1, \
+    "sgd"
+# (e): one fp32 sgd step against one device at full width, at the fewest
+# layers that hold each block kind: (tag, arch, depth fields, dtype).  The
+# vlm's 5 layers (4 self, 1 gated cross; 6.4e9 parameters) do not fit one
+# device in fp32 with their gradients and fp32 sum (77 GB), so it runs in
+# bf16, gated on loss and grad norm only; its gates take seeded non-zero
+# values.  Then 3 adafactor steps of (a)'s model.
+MESH_FAMILY_RUNS = (
+    ("rwkv6", "rwkv6-1.6b", {"n_layers": 1}, "float32"),
+    ("zamba2", "zamba2-7b", {"n_layers": 6}, "float32"),
+    ("whisper", "whisper-small",
+     {"n_layers": 1, "n_enc_layers": 1, "n_dec_layers": 1}, "float32"),
+    ("vlm", "llama-3.2-vision-90b", {"n_layers": 5}, "bfloat16"),
+)
+MESH_ADAFACTOR_STEPS = 3
+# the elements of each kept leaf the gates read (every element of a
+# smaller leaf): the runs' states stay on their devices, only these move
+MESH_SAMPLE = 1 << 16
 # (a) gates: loss and grad norm as on the CPU (relative 1e-5).  adamw's
-# first moment, linear in the gradients: max |dm| of each leaf within
-# MESH_M_RTOL of its max |m|.  Params: each leaf's distance from the
-# one-device params within MESH_UPDATE_RTOL of how far that run moved it
-# (L2), no element off by more than MESH_OUTSIDE_MAX — not the CPU's
-# elementwise tolerance, because the ranks' split products round
-# otherwise than one device's and adamw's normalized update turns an ulp
-# of a near-zero gradient into up to 2 lr a step (the most it moves an
-# element, weight decay aside), where the elements outside that
-# tolerance are counted and logged
+# first moment, linear in the gradients: max |dm| of each leaf's sample
+# within MESH_M_RTOL of its max |m|.  Params: each leaf's distance from
+# the one-device params within MESH_UPDATE_RTOL of how far that run moved
+# it (L2 over the sample), no element off by more than MESH_OUTSIDE_MAX —
+# not the CPU's elementwise tolerance, because the ranks' split products
+# round otherwise than one device's and adamw's normalized update turns
+# an ulp of a near-zero gradient into up to 2 lr a step (the most it
+# moves an element, weight decay aside), where the elements outside that
+# tolerance are counted and logged.  sgd's and adafactor's runs take the
+# loss, grad norm and distance gates; sgd's also no element off by more
+# than MESH_UPDATE_RTOL of the sample's largest move (its update is
+# linear in the gradient) plus the two roundings of p - lr g, within an
+# ulp of p: 2^-22 |p|
 MESH_LOSS_RTOL = 1e-5
 # about 3.5 times the worst reading on the H100 (8.7e-5, attn/wq), far
 # below what a gradient off by a factor would read
@@ -5726,6 +5767,11 @@ MESH_M_RTOL = 3e-4
 MESH_UPDATE_RTOL = 1e-2
 MESH_LEAF_RTOL, MESH_LEAF_ATOL = 1e-5, 1e-6
 MESH_OUTSIDE_MAX = 2 * 3e-4 * 1.1 * MESH_STEPS_FP32
+MESH_SGD_ULP = 2.0 ** -22
+# the bf16 vlm against one device in bf16, relative: each logit a bf16
+# ulp (2^-8) apart at most, averaged over 512 tokens into the loss; the
+# grad norm summed over 6.4e9 elements
+MESH_BF16_LOSS_RTOL, MESH_BF16_GNORM_RTOL = 1e-3, 1e-2
 # (c): the train CLI's fault drill on 2 ranks at the smoke config
 MESH_DRILL = ["--arch", "qwen3-14b", "--smoke", "--steps", "6",
               "--global-batch", "4", "--seq-len", "16", "--save-every", "2",
@@ -5761,76 +5807,200 @@ def start_mesh_drill() -> dict:
             "t0": time.perf_counter()}
 
 
-def train_mesh_child(spec: dict) -> dict:
-    """(a) and (b), in a fresh process (deterministic algorithms from its
-    first CUDA call; this process is rank 0 and starts rank 1): ``train``
-    of ``spec["cfg"]`` in fp32 on one device, then on (1, 2), both
-    keeping their params, held here to each other leaf by leaf on the
-    device; then (1, 2) in the config's dtype, timed.  Launches are
-    counted from 0 around the two mesh runs."""
+def mesh_runs(smoke: bool = False) -> list:
+    """Phase 16's runs of the mesh, in order: (a) and (b) of qwen3-14b,
+    (d) of llama4-scout, (e) of the other families and adafactor.  Each is
+    a dict: ``tag``, ``cfg`` (a dict), ``optimizer``, ``steps``, ``gate``
+    ("adamw", "sgd", "bf16", "adafactor"; "time": the mesh alone, timed),
+    ``keep``, ``init_values``.  ``smoke``: every config's smoke form (a
+    CPU rehearsal)."""
     import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, get_smoke_config
+
+    get = get_smoke_config if smoke else get_config
+
+    def cut(tag, arch, fields, why="memory"):
+        full = get(arch)
+        if smoke:
+            return full
+        cfg = dataclasses.replace(full, **fields)
+        log(f"[train-mesh {tag}] DEPTH CUT: {cfg.n_layers} of "
+            f"{full.n_layers} layers ({why}); full width"
+            + (f" ({', '.join(f'{k}={v}' for k, v in fields.items())})"
+               if len(fields) > 1 else ""))
+        return cfg
+
+    def run(tag, cfg, optimizer, steps, gate, keep=("params",),
+            init_values=None):
+        cfg = dataclasses.replace(cfg, microbatch=MESH_MICRO)
+        return {"tag": tag, "cfg": dataclasses.asdict(cfg),
+                "optimizer": optimizer, "steps": steps, "gate": gate,
+                "keep": list(keep), "init_values": init_values or {}}
+
+    qwen = cut("(a)", TRAIN_ARCH, {"n_layers": MESH_LAYERS})
+    f32 = dataclasses.replace(qwen, dtype="float32")
+    scout = cut("(d)", MESH_MOE_ARCH, {"n_layers": MESH_MOE_LAYERS})
+    runs = [run("(a)", f32, "adamw", MESH_STEPS_FP32, "adamw",
+                keep=("params", "opt/m")),
+            run("(b)", qwen, "adamw", MESH_STEPS_BF16, "time"),
+            run("(d)", dataclasses.replace(scout, dtype="float32"),
+                MESH_MOE_OPT, MESH_STEPS_FP32, "sgd"),
+            run("(d) bf16", scout, MESH_MOE_OPT, MESH_STEPS_BF16, "time")]
+    for tag, arch, fields, dtype in MESH_FAMILY_RUNS:
+        cfg = dataclasses.replace(cut(f"(e) {tag}", arch, fields),
+                                  dtype=dtype)
+        gates = {}
+        if cfg.family == "vlm":  # seeded non-zero gates: the cross path
+            g = np.random.default_rng(9)
+            gates = {k: float(g.uniform(0.3, 0.9) * g.choice([-1, 1]))
+                     for k in ("cross_layers/mlp_gate",
+                               "cross_layers/xattn/gate")}
+        runs.append(run(f"(e) {tag}", cfg, "sgd", 1,
+                        "bf16" if dtype == "bfloat16" else "sgd",
+                        init_values=gates))
+    runs.append(run("(e) adafactor", f32, "adafactor", MESH_ADAFACTOR_STEPS,
+                    "adafactor", keep=("params",)))
+    return runs
+
+
+def _mesh_batches(torch, cfg, steps: int, seed: int):
+    """The batches of a run whose family takes stub embeddings (frames,
+    patches) beside the tokens: ``token_batches``' first ``steps`` and a
+    seeded draw of the embeddings in the model's dtype, on the host; None
+    for the token-only families (the run reads the stream itself)."""
+    from repro_torch.data.synthetic import token_batches
+
+    key = FAMILY_EMBEDDED.get(cfg.family)
+    if key is None:
+        return None
+    n = FAMILY_FRAMES if cfg.family == "encdec" else cfg.n_patches
+    g = torch.Generator().manual_seed(seed + 7)
+    stream = token_batches(cfg.vocab, MESH_BATCH, MESH_SEQ, seed=seed,
+                           device="cpu")
+    out = []
+    for _ in range(steps):
+        b = next(stream)
+        b[key] = torch.randn(MESH_BATCH, n, cfg.d_model, generator=g).to(
+            getattr(torch, cfg.dtype))
+        out.append(b)
+    return out
+
+
+def _mesh_job(torch, r: dict, seed: int, dev: str):
+    from repro_torch.configs import ArchConfig
+    from repro_torch.launch.train import Job, TrainOptions
+
+    cfg = ArchConfig.from_dict(r["cfg"])
+    opts = TrainOptions(steps=r["steps"], global_batch=MESH_BATCH,
+                        seq_len=MESH_SEQ, seed=seed, device=dev,
+                        log_every=1)
+    timed = r["gate"] == "time"
+    return Job(cfg, opts, keep=() if timed else tuple(r["keep"]),
+               optimizer=r["optimizer"],
+               batches=_mesh_batches(torch, cfg, r["steps"], seed),
+               sample=0 if timed else MESH_SAMPLE,
+               init_values=r["init_values"])
+
+
+def _init_sample(torch, job) -> dict:
+    """:func:`sample_leaves` of the run's fresh init (the params every run
+    of it starts from), drawn again on the device."""
+    from repro_torch.convert import stack_layers
+    from repro_torch.launch.train import sample_leaves
+    from repro_torch.models.lm import build_model
+
+    g = torch.Generator(device=job.opts.device)
+    g.manual_seed(job.opts.seed)
+    params = stack_layers(build_model(job.cfg).init(
+        g, device=job.opts.device))
+    leaves = dict(_flat(params))
+    for k, v in job.init_values.items():
+        leaves[k].fill_(v)
+    out = sample_leaves({"params": params}, job.sample)
+    del params, leaves
+    return out
+
+
+def _leaf_stats(torch, got: dict, want: dict, init: dict) -> dict:
+    """Per leaf, from the samples of the mesh run, the one-device run and
+    the init: the differences the gates read."""
+    out = {}
+    for k, a in got.items():
+        b = want[k]
+        d = (a.double() - b.double()).abs()
+        v = {"n": b.numel(), "max_abs": float(d.max()),
+             "max_ref": float(b.abs().max()),
+             "outside": int((d > MESH_LEAF_RTOL * b.double().abs()
+                             + MESH_LEAF_ATOL).sum())}
+        if k in init:
+            moved = b.double() - init[k].double()
+            v["dist"] = float(torch.linalg.vector_norm(a.double()
+                                                       - b.double()))
+            v["moved"] = float(torch.linalg.vector_norm(moved))
+            v["max_moved"] = float(moved.abs().max())
+            v["sgd_outside"] = int((d > MESH_UPDATE_RTOL * v["max_moved"]
+                                    + MESH_SGD_ULP * b.double().abs()).sum())
+        out[k] = v
+    return out
+
+
+def train_mesh_child(spec: dict) -> dict:
+    """Phase 16's runs (``spec["runs"]``, :func:`mesh_runs`) in a fresh
+    process (deterministic algorithms from its first CUDA call; this
+    process is rank 0 and starts the other ranks): first each gated run
+    on one device, keeping only :func:`sample_leaves` of its final state
+    and of its init; then every run on the (1, ``mp``) mesh, all of them
+    one after another in one start of the ranks, each gated run's final
+    state sampled where it lies.  Launches are counted from 0 around the
+    mesh runs."""
+    import gc
 
     import torch
 
-    from repro_torch.configs import ArchConfig
     from repro_torch.kernels import reset_counts
-    from repro_torch.launch.train import TrainOptions, train
+    from repro_torch.launch.train import train_jobs
 
-    dev = spec["device"]
-    cfg = ArchConfig.from_dict(spec["cfg"])
-    c32 = dataclasses.replace(cfg, dtype="float32")
-    opts = TrainOptions(steps=MESH_STEPS_FP32, global_batch=MESH_BATCH,
-                        seq_len=MESH_SEQ, seed=spec["seed"], device=dev,
-                        log_every=1)
-    keep = ("params", "opt/m")
-    t0 = time.perf_counter()
-    ref = train(c32, opts, keep=keep)
-    t_ref = time.perf_counter() - t0
-    torch.cuda.empty_cache()
+    dev, seed, mp = spec["device"], spec["seed"], spec["mp"]
+    out, wall = {}, {}
+    for r in spec["runs"]:
+        if r["gate"] == "time":
+            continue
+        job = _mesh_job(torch, r, seed, dev)
+        t0 = time.perf_counter()
+        ref = train_jobs([job])[0]
+        init = _init_sample(torch, job)
+        wall[f"{r['tag']} one device"] = time.perf_counter() - t0
+        out[r["tag"]] = {"ref": ref["history"], "sample": ref["sample"],
+                         "init": init}
+        del ref, job
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
     reset_counts()
     t0 = time.perf_counter()
-    mp = spec.get("mp", MESH_RANKS)
-    got = train(c32, opts, dp=1, mp=mp, keep=keep)
-    t_mesh = time.perf_counter() - t0
-    # the params both runs started from: the same seeded one-device init
-    from repro_torch.convert import stack_layers
-    from repro_torch.models.lm import build_model
-
-    g = torch.Generator(device=dev)
-    g.manual_seed(spec["seed"])
-    init = dict(_flat({"params": stack_layers(build_model(c32).init(
-        g, device=dev))}))
-    leaves = {}
-    want = dict(_flat(ref["state"]))
-    for k, t in _flat(got["state"]):
-        a, b = t.to(dev), want[k].to(dev)
-        d = (a - b).abs()
-        v = {"n": b.numel(), "max_abs": float(d.max()),
-             "max_ref": float(b.abs().max()),
-             "outside": int((d > MESH_LEAF_RTOL * b.abs()
-                             + MESH_LEAF_ATOL).sum())}
-        if k in init:
-            v["dist"] = float(torch.linalg.vector_norm(a - b))
-            v["moved"] = float(torch.linalg.vector_norm(b - init.pop(k)))
-        leaves[k] = v
-        del a, b, d
-    del ref["state"], got["state"]
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    b16 = train(cfg, dataclasses.replace(opts, steps=MESH_STEPS_BF16),
-                dp=1, mp=mp)
-    t_b16 = time.perf_counter() - t0
-    return {"ref": ref["history"], "mesh": got["history"], "leaves": leaves,
-            "block_sha": got["block_sha"], "launches": _counts(),
-            "bf16_ms_by_rank": b16["ms_by_rank"], "bf16": b16["history"],
-            "wall": {"one device fp32": t_ref, "mesh fp32": t_mesh,
-                     "mesh bf16": t_b16}}
+    jobs = [_mesh_job(torch, r, seed, dev) for r in spec["runs"]]
+    mesh = train_jobs(jobs, dp=1, mp=mp)
+    wall["mesh, every run"] = time.perf_counter() - t0
+    launches = _counts()
+    for r, got in zip(spec["runs"], mesh):
+        rec = out.setdefault(r["tag"], {})
+        rec.update(gate=r["gate"], mesh=got["history"],
+                   ms_by_rank=got["ms_by_rank"])
+        if "sample" in rec:
+            rec["leaves"] = _leaf_stats(torch, got["sample"],
+                                        rec.pop("sample"), rec.pop("init"))
+            rec["block_sha"] = got["block_sha"]
+    return {"runs": out, "launches": launches, "wall": wall}
 
 
 def _flat(tree):
     from repro_torch.tree import flatten_with_paths
 
     return flatten_with_paths(tree)
+
 
 
 def _mesh_drill(drill: dict) -> None:
@@ -5878,10 +6048,9 @@ def _mesh_drill(drill: dict) -> None:
         raise AssertionError(f"[{tag}] the mesh fault drill failed")
 
 
-def run_mesh_child(cfg, mp: int, seed: int, tag: str) -> dict:
-    """:func:`train_mesh_child` of ``cfg`` on (1, ``mp``) in a fresh
+def run_mesh_child(runs: list, mp: int, seed: int, tag: str) -> dict:
+    """:func:`train_mesh_child` of ``runs`` on (1, ``mp``) in a fresh
     process; logs its lines and returns its record."""
-    import dataclasses
     import os
 
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
@@ -5891,9 +6060,8 @@ def run_mesh_child(cfg, mp: int, seed: int, tag: str) -> dict:
     with open(logs[0], "w") as o, open(logs[1], "w") as e:
         proc = subprocess.Popen(
             [sys.executable, "-c", MESH_CHILD,
-             json.dumps({"cfg": dataclasses.asdict(cfg), "seed": seed,
-                         "device": DEV, "mp": mp})], env=env,
-            cwd=ROOT, stdout=o, stderr=e)
+             json.dumps({"runs": runs, "seed": seed, "device": DEV,
+                         "mp": mp})], env=env, cwd=ROOT, stdout=o, stderr=e)
     try:
         rc = proc.wait(timeout=900)
     finally:
@@ -5910,97 +6078,136 @@ def run_mesh_child(cfg, mp: int, seed: int, tag: str) -> dict:
     return json.loads(lines[-1])
 
 
-def mesh_gates(tag: str, res: dict, cfg, mp: int) -> None:
-    """(a) and (b)'s gates on a :func:`train_mesh_child` record of a
-    (1, ``mp``) mesh."""
-    from repro_torch.runtime.train_mesh import ShardPlan, TrainMesh
+def _leaf_gate(gate: str, k: str, v: dict) -> tuple[bool, str]:
+    """A leaf's gate of a run against one device, from its sample."""
+    if k.startswith("opt/m/"):
+        rel = v["max_abs"] / max(v["max_ref"], 1e-30)
+        return rel <= MESH_M_RTOL, (f"max |dm| {v['max_abs']:.3e} = "
+                                    f"{rel:.2e} of max |m| (gate "
+                                    f"{MESH_M_RTOL:g})")
+    rel = v["dist"] / max(v["moved"], 1e-30)
+    ok = rel <= MESH_UPDATE_RTOL
+    reading = (f"|p - p_ref| {v['dist']:.3e} = {rel:.2e} of the one-device "
+               f"run's move {v['moved']:.3e} (gate {MESH_UPDATE_RTOL:g})")
+    if gate == "adamw":
+        ok &= v["max_abs"] <= MESH_OUTSIDE_MAX
+        reading += (f", max |d| {v['max_abs']:.3e} (gate "
+                    f"{MESH_OUTSIDE_MAX:.2e})")
+    elif gate == "sgd":
+        ok &= v["sgd_outside"] == 0
+        reading += (f", max |d| {v['max_abs']:.3e}, {v['sgd_outside']} "
+                    f"elements off by more than {MESH_UPDATE_RTOL:g} of the "
+                    f"largest move {v['max_moved']:.3e} + 2^-22|p|")
+    else:
+        reading += f", max |d| {v['max_abs']:.3e}"
+    return ok, reading
 
-    # ---- (a) fp32 against one device ----
-    worst = 0.0
-    for s, (r, g) in enumerate(zip(res["ref"], res["mesh"])):
-        d = {k: abs(g[k] - r[k]) / abs(r[k]) for k in ("loss", "grad_norm")}
-        worst = max(worst, *d.values())
-        log(f"[{tag} (a)] step {s}: loss {g['loss']:.7f} vs {r['loss']:.7f}"
-            f" (rel {d['loss']:.2e}), grad_norm {g['grad_norm']:.6f} vs "
-            f"{r['grad_norm']:.6f} (rel {d['grad_norm']:.2e})")
-    ok_loss = (len(res["mesh"]) == len(res["ref"]) == MESH_STEPS_FP32
-               and worst <= MESH_LOSS_RTOL)
-    ok_leaves = True
-    for k, v in res["leaves"].items():
-        if k.startswith("opt/m/"):
-            rel = v["max_abs"] / max(v["max_ref"], 1e-30)
-            ok = rel <= MESH_M_RTOL
-            reading = (f"max |dm| {v['max_abs']:.3e} = {rel:.2e} of max |m| "
-                       f"(gate {MESH_M_RTOL:g})")
-        else:
-            rel = v["dist"] / max(v["moved"], 1e-30)
-            ok = rel <= MESH_UPDATE_RTOL and v["max_abs"] <= MESH_OUTSIDE_MAX
-            reading = (f"|p - p_ref| {v['dist']:.3e} = {rel:.2e} of the "
-                       f"one-device run's move {v['moved']:.3e} (gate "
-                       f"{MESH_UPDATE_RTOL:g}), max |d| {v['max_abs']:.3e} "
-                       f"(gate {MESH_OUTSIDE_MAX:.2e})")
-        ok_leaves &= ok
-        log(f"[{tag} (a)] {k}: {reading}; {v['outside']} of {v['n']} "
-            f"elements outside |d| <= {MESH_LEAF_RTOL:g}|ref| + "
-            f"{MESH_LEAF_ATOL:g}: {'OK' if ok else 'FAIL'}")
-    # ranks holding the same block hold the same bits (on (1, mp): every
-    # leaf not split over 'model')
-    plan = ShardPlan(cfg, TrainMesh(dp=1, mp=mp))
-    replicas = {f"params/{k}" for k, sp in plan.spec_by_key.items()
-                if "model" not in sp}
-    ok_rep = all(len(set(res["block_sha"][k])) == 1 for k in replicas)
-    log(f"[{tag} (a)] loss and grad_norm within {MESH_LOSS_RTOL:g} (worst "
-        f"{worst:.2e}): {'OK' if ok_loss else 'FAIL'}; every leaf: "
-        f"{'OK' if ok_leaves else 'FAIL'}; the {len(replicas)} replicated "
-        f"leaves bit-identical on every rank: {'OK' if ok_rep else 'FAIL'}")
-    if not (ok_loss and ok_leaves and ok_rep):
-        raise AssertionError(f"[{tag} (a)] the mesh step is not the "
-                             f"one-device step")
 
-    # ---- (b) step time per rank ----
-    for r, ms in enumerate(res["bf16_ms_by_rank"]):
-        steady = sorted(ms[1:])[len(ms[1:]) // 2]
-        log(f"[{tag} (b)] rank {r}: {cfg.dtype} step ms (CUDA events) "
-            + ", ".join(f"{t:.1f}" for t in ms)
-            + f"; median of steps 1..{len(ms) - 1} {steady:.1f} ms")
-    losses = [h["loss"] for h in res["bf16"]]
-    ok = all(math.isfinite(x) for x in losses) and len(losses) == \
-        MESH_STEPS_BF16
-    log(f"[{tag} (b)] {cfg.dtype} losses {[round(x, 4) for x in losses]} "
-        f"finite: {'OK' if ok else 'FAIL'}; wall (host clock, process "
-        f"starts included): " + ", ".join(f"{k} {v:.1f} s"
-                                          for k, v in res["wall"].items()))
+def _mesh_timed(tag: str, rec: dict, cfg, steps: int) -> None:
+    for r, ms in enumerate(rec["ms_by_rank"]):
+        line = (f"[{tag}] rank {r}: {cfg.dtype} step ms (CUDA events) "
+                + ", ".join(f"{t:.1f}" for t in ms))
+        if len(ms) > 1:  # the first step builds and warms up
+            line += (f"; median of steps 1..{len(ms) - 1} "
+                     f"{sorted(ms[1:])[len(ms[1:]) // 2]:.1f} ms")
+        log(line)
+    losses = [h["loss"] for h in rec["mesh"]]
+    ok = all(math.isfinite(x) for x in losses) and len(losses) == steps
+    log(f"[{tag}] {cfg.dtype} losses {[round(x, 4) for x in losses]} "
+        f"finite: {'OK' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"[{tag} (b)] the {cfg.dtype} mesh run failed")
+        raise AssertionError(f"[{tag}] the {cfg.dtype} mesh run failed")
 
 
-def phase_train_mesh(torch, *, seed: int, drill=None, cfg=None) -> dict:
+def mesh_gates(res: dict, runs: list, mp: int) -> None:
+    """Phase 16's gates on a :func:`train_mesh_child` record of a (1,
+    ``mp``) mesh: each gated run against its one-device run (loss and
+    grad norm of every step, each leaf's sample, and the leaves with
+    replicas bit-identical on every rank), each timed run's step time a
+    rank."""
+    from repro_torch.configs import ArchConfig
+
+    failed = []
+    for r in runs:
+        tag, rec = f"train-mesh {r['tag']}", res["runs"][r["tag"]]
+        cfg = ArchConfig.from_dict(r["cfg"])
+        log(f"[{tag}] {cfg.name}, {cfg.n_layers} layers, {cfg.dtype}, "
+            f"{r['optimizer']}, {r['steps']} step(s)"
+            + (f", init {r['init_values']}" if r["init_values"] else ""))
+        if cfg.n_experts:
+            from repro_torch.runtime.train_mesh import ShardPlan, TrainMesh
+
+            plan = ShardPlan(cfg, TrainMesh(dp=1, mp=mp))
+            local = (cfg.n_experts // mp if plan.parallel("act_experts")
+                     else cfg.n_experts)
+            log(f"[{tag}] expert-parallel: "
+                f"{plan.parallel('act_experts')}; {local} of "
+                f"{cfg.n_experts} experts stored and computed a rank")
+        if r["gate"] == "time":
+            _mesh_timed(tag, rec, cfg, r["steps"])
+            continue
+        rtol = {"loss": MESH_LOSS_RTOL, "grad_norm": MESH_LOSS_RTOL}
+        if r["gate"] == "bf16":
+            rtol = {"loss": MESH_BF16_LOSS_RTOL,
+                    "grad_norm": MESH_BF16_GNORM_RTOL}
+        ok_loss = len(rec["mesh"]) == len(rec["ref"]) == r["steps"]
+        for s, (a, b) in enumerate(zip(rec["ref"], rec["mesh"])):
+            d = {k: abs(b[k] - a[k]) / abs(a[k]) for k in rtol}
+            ok_loss &= all(d[k] <= rtol[k] for k in rtol)
+            log(f"[{tag}] step {s}: loss {b['loss']:.7f} vs {a['loss']:.7f}"
+                f" (rel {d['loss']:.2e}), grad_norm {b['grad_norm']:.6f} vs "
+                f"{a['grad_norm']:.6f} (rel {d['grad_norm']:.2e})"
+                + (f", aux {b['aux']:.6f} vs {a['aux']:.6f}, dropped "
+                   f"{b['dropped']} vs {a['dropped']}" if "aux" in a else ""))
+            if "dropped" in a:
+                ok_loss &= a["dropped"] == b["dropped"]
+        ok_leaves = True
+        if r["gate"] != "bf16":
+            for k, v in rec["leaves"].items():
+                ok, reading = _leaf_gate(r["gate"], k, v)
+                ok_leaves &= ok
+                log(f"[{tag}] {k}: {reading}; {v['outside']} of {v['n']} "
+                    f"sampled elements outside |d| <= {MESH_LEAF_RTOL:g}|ref|"
+                    f" + {MESH_LEAF_ATOL:g}: {'OK' if ok else 'FAIL'}")
+        sha = rec["block_sha"]
+        ok_rep = all(len(set(h)) == 1 for h in sha.values())
+        log(f"[{tag}] loss and grad_norm within "
+            + ", ".join(f"{k} {v:g}" for k, v in rtol.items())
+            + f": {'OK' if ok_loss else 'FAIL'}; every sampled leaf: "
+            f"{'OK' if ok_leaves else 'FAIL'}; the {len(sha)} leaves with "
+            f"replicas bit-identical on every rank: "
+            f"{'OK' if ok_rep else 'FAIL'}")
+        if not (ok_loss and ok_leaves and ok_rep):
+            failed.append(r["tag"])
+        _mesh_timed(tag, rec, cfg, r["steps"])
+    log("[train-mesh] wall (host clock, process starts included): "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in res["wall"].items()))
+    if failed:
+        raise AssertionError(f"[train-mesh] the mesh step is not the "
+                             f"one-device step: {', '.join(failed)}")
+
+
+def phase_train_mesh(torch, *, seed: int, drill=None, runs=None) -> dict:
     """Phase 16: training over a (1, 2) mesh of ranks sharing the card on
-    gloo (``launch/train.py``'s ``train``, the function under the CLI's
-    ``--devices``; no kernel: fp weights): (a) fp32 against one device,
-    (b) bf16 step time per rank, (c) the CLI's fault drill (``drill``,
-    from :func:`start_mesh_drill`; started here if None).  ``cfg``
-    replaces the model (a rehearsal on the CPU at a smoke config).
-    Returns the launches of (a) and (b)'s mesh runs."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
-
+    gloo (``launch/train.py``'s ``train_jobs``, the function under the
+    CLI's ``--devices``; no kernel: fp weights): (a) qwen3-14b fp32
+    against one device, (b) its bf16 step time per rank, (d)
+    llama4-scout fp32 against one device and its bf16 step time, (e) the
+    other families and adafactor against one device, all in one start of
+    the ranks; (c) the CLI's fault drill (``drill``, from
+    :func:`start_mesh_drill`; started here if None).  ``runs`` replaces
+    :func:`mesh_runs` (a rehearsal on the CPU at the smoke configs).
+    Returns the launches of the mesh runs."""
     t_phase = time.perf_counter()
     tag = "train-mesh"
     drill = drill or start_mesh_drill()
-    if cfg is None:
-        full = get_config(TRAIN_ARCH)
-        cfg = dataclasses.replace(full, n_layers=MESH_LAYERS,
-                                  microbatch=MESH_MICRO)
-        log(f"[{tag}] DEPTH CUT: {MESH_LAYERS} of {full.n_layers} layers "
-            f"(memory); full width")
-    log(f"[{tag}] {cfg.name}, {cfg.n_layers} layers, {MESH_BATCH} x "
-        f"{MESH_SEQ} tokens in {MESH_BATCH // cfg.microbatch} microbatches, "
-        f"{MESH_RANKS} ranks on one {DEV} device (gloo; collectives on "
-        f"CUDA tensors staged through host memory)")
-    res = run_mesh_child(cfg, MESH_RANKS, seed, tag)
-    mesh_gates(tag, res, cfg, MESH_RANKS)
+    runs = runs if runs is not None else mesh_runs()
+    log(f"[{tag}] {len(runs)} runs, {MESH_BATCH} x {MESH_SEQ} tokens in "
+        f"{MESH_BATCH // MESH_MICRO} microbatches, {MESH_RANKS} ranks on one "
+        f"{DEV} device (gloo; collectives on CUDA tensors staged through "
+        f"host memory), started once for every run")
+    res = run_mesh_child(runs, MESH_RANKS, seed, tag)
+    mesh_gates(res, runs, MESH_RANKS)
     log(f"[{tag}] kernel launches around the mesh runs (rank 0): "
         f"{res['launches']}")
     _mesh_drill(drill)

@@ -2,16 +2,18 @@
 """Training over four cards (NCCL), then a rank SIGKILLed and a resume on
 three: the multi-card half of the port's mesh training, measured.
 
-    python3 scripts/train_mesh_drill.py [--layers 2] [--drill-layers 1]
+    python3 scripts/train_mesh_drill.py [--drill-layers 1] [--parts mesh,drill]
 
-Needs four visible cards.  qwen3-14b at full width, depth cut to
-``--layers`` (part 1) and ``--drill-layers`` (part 2) for memory:
+Needs four visible cards.  At full width, depth cut for memory:
 
-  1. ``chip_smoke.train_mesh_child`` on (1, 4), one rank a card on NCCL:
-     fp32 ``train`` on one card, then on the mesh, held to each other by
-     phase 16's gates (``chip_smoke.mesh_gates``), then the bf16 step
-     time (CUDA events) on every rank;
-  2. ``train`` on the mesh ``remesh`` picks for the four cards, saving
+  1. ``chip_smoke.train_mesh_child`` on (1, 4), one rank a card on NCCL,
+     of phase 16's runs (a), (b), (d) and (d) bf16: qwen3-14b at 2 layers
+     and llama4-scout-17b-a16e at 1 (4 of its 16 experts a rank), each
+     fp32 run on one card, then on the mesh, held to each other by phase
+     16's gates (``chip_smoke.mesh_gates``), and the bf16 step time (CUDA
+     events) on every rank;
+  2. qwen3-14b at ``--drill-layers``: ``train`` on the mesh ``remesh``
+     picks for the four cards, saving
      every 2 steps, in a process of its own; once step 2's checkpoint is
      written, rank ``KILL_RANK`` is SIGKILLed mid-step: the run must end
      non-zero within ``TRAIN_TIMEOUT_S``, naming the rank, with no rank
@@ -108,15 +110,19 @@ def _alive(pid: int) -> bool:
         return False
 
 
-def part_mesh(cfg, seed: int, rec: dict) -> bool:
+MESH_RUNS = ("(a)", "(b)", "(d)", "(d) bf16")
+
+
+def part_mesh(seed: int, rec: dict, runs=None) -> bool:
     tag = "mesh-4"
-    cs.log(f"[{tag}] {cfg.name} {cfg.n_layers} layers, (1, 4) on NCCL, "
-           f"{cs.MESH_BATCH} x {cs.MESH_SEQ} tokens in "
-           f"{cs.MESH_BATCH // cfg.microbatch} microbatches")
-    res = cs.run_mesh_child(cfg, 4, seed, tag)
+    runs = runs or [r for r in cs.mesh_runs() if r["tag"] in MESH_RUNS]
+    cs.log(f"[{tag}] runs {', '.join(r['tag'] for r in runs)} on (1, 4) on "
+           f"NCCL, {cs.MESH_BATCH} x {cs.MESH_SEQ} tokens in "
+           f"{cs.MESH_BATCH // cs.MESH_MICRO} microbatches")
+    res = cs.run_mesh_child(runs, 4, seed, tag)
     rec["mesh"] = res
     try:
-        cs.mesh_gates(tag, res, cfg, 4)
+        cs.mesh_gates(res, runs, 4)
     except AssertionError as e:
         cs.log(f"[{tag}] FAIL: {e}")
         return False
@@ -233,10 +239,12 @@ def part_drill(cfg, seed: int, rec: dict) -> bool:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--layers", type=int, default=cs.MESH_LAYERS)
     ap.add_argument("--drill-layers", type=int, default=1)
+    ap.add_argument("--parts", default="mesh,drill",
+                    help="which parts to run: mesh, drill or both")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    parts = set(args.parts.split(","))
 
     import torch
 
@@ -248,14 +256,16 @@ def main(argv=None) -> int:
     rec = {"device": cs.phase_device(torch)}
     full = get_config(cs.TRAIN_ARCH)
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(full, n_layers=args.layers,
-                              microbatch=cs.MESH_MICRO)
-    cs.log(f"[train-mesh-drill] DEPTH CUT: {args.layers} of {full.n_layers} "
-           f"layers (memory) for part 1, {args.drill_layers} for part 2 "
-           f"(three whole copies of the state, one a card)")
-    ok = part_mesh(cfg, args.seed, rec)
-    ok &= part_drill(dataclasses.replace(cfg, n_layers=args.drill_layers,
-                                         dtype="float32"), args.seed, rec)
+    ok = True
+    if "mesh" in parts:
+        ok &= part_mesh(args.seed, rec)
+    if "drill" in parts:
+        cs.log(f"[train-mesh-drill] DEPTH CUT: {args.drill_layers} of "
+               f"{full.n_layers} layers (memory) for part 2 (three whole "
+               f"copies of the state, one a card)")
+        ok &= part_drill(dataclasses.replace(
+            full, n_layers=args.drill_layers, microbatch=cs.MESH_MICRO,
+            dtype="float32"), args.seed, rec)
     rec["wall_s"] = time.perf_counter() - t0
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(rec, indent=1, default=str))

@@ -47,6 +47,7 @@ __all__ = [
     "quantized_model_from_numpy",
     "fp_params_from_numpy",
     "stack_layers",
+    "stack_shard",
     "layer_views",
     "stack_axes",
     "stack_cache",
@@ -202,6 +203,8 @@ def stack_cache_axes(axes: dict) -> dict:
 
 
 def _blocks(tree, specs, fn):
+    if tree is None:  # no leaf (adafactor's column moment of a 1-D leaf)
+        return None
     if isinstance(tree, dict):
         return {k: _blocks(v, specs[k], fn) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -225,6 +228,27 @@ def shard_params(tree, ctx, specs):
     under its spec in ``specs`` (``runtime.sharding.param_shardings``)."""
     return _blocks(tree, specs,
                    lambda t, spec: local_block(t, spec, ctx).clone())
+
+
+def stack_shard(params: dict, ctx, specs) -> dict:
+    """``shard_params(stack_layers(params), ctx, specs)`` one leaf at a
+    time, each whole leaf (and its layers' slices) released as its block
+    is cut: a rank drawing the whole init holds it once, not twice.
+    Consumes ``params`` (its entries are removed)."""
+    def take(src, spec):
+        if isinstance(src, dict):
+            return {k: take(src.pop(k), spec[k]) for k in sorted(src)}
+        if isinstance(src, list):  # a layer list: stack one leaf at a time
+            if isinstance(src[0], dict):
+                return {k: take([lp.pop(k) for lp in src], spec[k])
+                        for k in sorted(src[0])}
+            whole = torch.stack(src)
+            src.clear()
+        else:
+            whole = src
+        return local_block(whole, spec, ctx).clone()
+
+    return {k: take(params.pop(k), specs[k]) for k in sorted(params)}
 
 
 def gather_params(tree, ctx, specs, *, to=None):

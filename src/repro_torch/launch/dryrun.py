@@ -21,14 +21,15 @@ so for every cell it
       constants (``runtime/roofline.py``).
 
 The step traced for FLOPs and bytes is one process's program.  A train
-cell of the dense family on a ``(data, model)`` mesh of more than one chip
+cell of any family on a ``(data, model)`` mesh of more than one chip
 also traces one rank's step at its local shapes, under
 ``torch.distributed``'s ``fake`` backend (its collectives return at once,
 on ``meta``): the training mesh's step (``runtime/train_mesh.py``), whose
 ``c10d`` ops the op analysis counts into ``collectives`` and the roofline
-into ``collective_s``.  Other cells on more than one chip (decode and
-prefill, whose port step is one process's; the other families; a
-multi-pod mesh; a rule set that shards a dim over two axes) record
+into ``collective_s`` (a MoE's include its combine's sums over
+``model``).  Other cells on more than one chip (decode and prefill,
+whose port step is one process's; a multi-pod mesh; a rule set that
+shards a dim over two axes) record
 ``"collectives": null`` with the reason and a ``null`` ``collective_s``;
 ``dominant`` is chosen among the terms that were counted.  A one-chip
 cell's collectives are counted (none).  Records are JSON under ``--out``.
@@ -77,7 +78,7 @@ from repro_torch.runtime.sharding import (
     local_shape,
     param_shardings,
 )
-from repro_torch.runtime.train_mesh import MESH_FAMILIES, TrainMesh
+from repro_torch.runtime.train_mesh import TrainMesh
 
 __all__ = ["lower_cell", "analyze_cell", "main", "DEVICE_MEMORY_BYTES",
            "DEFAULT_OUT"]
@@ -300,9 +301,6 @@ def _rank_collectives(cfg, shape, mesh, rules):
     that mesh does not take the cell."""
     if shape.kind != "train":
         return None, _NO_COLLECTIVES.format(kind=shape.kind), 0.0
-    if cfg.family not in MESH_FAMILIES:
-        return None, (f"not counted: the {cfg.family} family does not "
-                      f"train on a mesh of more than one rank"), 0.0
     if set(mesh.shape) != {"data", "model"}:
         return None, ("not counted: the training mesh has the axes (data, "
                       f"model), not {tuple(mesh.shape)}"), 0.0

@@ -18,11 +18,13 @@ package's leaves:
     each block);
   * the optimizer updates params and state in place (the JAX step donates
     both), and ``metrics`` holds the mean ``ce`` as ``loss`` beside the
-    optimizer's ``grad_norm``.
+    optimizer's ``grad_norm``; a MoE model's also its mean load-balancing
+    ``aux`` and the ``dropped`` (token, choice) pairs of the step's
+    forward (``layers.moe_drops``).
 
 With ``mesh`` (a ``runtime/train_mesh.py`` ``TrainMesh`` of more than one
 rank) the state is this rank's blocks under the plan's specs
-(``ShardPlan``; dense family only, adafactor refused) and the step is the
+(``ShardPlan``; every family, every optimizer) and the step is the
 one-device step:
 
   * each data rank takes its rows of every microbatch, after
@@ -34,7 +36,11 @@ one-device step:
     ``data``-sharded leaf's by the gather's backward) and every gradient
     is divided by ``n_micro · dp``; ``loss`` is the mean over data ranks;
   * the optimizer runs on the blocks, under the plan's context (the
-    global norm is the logical tree's).
+    global norm is the logical tree's, adafactor's factored means the
+    logical leaf's).
+
+A batch that carries more than tokens (encdec's ``frames``, the vlm's
+``patches``) is sliced like the tokens: every leaf's rows.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ from typing import Optional
 import torch
 
 from repro_torch.convert import layer_views
+from repro_torch.models.layers import moe_drops
 from repro_torch.models.lm import Model, build_model
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.runtime.sharding import mesh_context
@@ -74,11 +81,6 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
     if mesh is not None and mesh.size > 1:
         from repro_torch.runtime.train_mesh import ShardPlan
 
-        if optimizer.name == "adafactor":
-            raise ValueError(
-                f"adafactor does not train on a mesh of more than one rank "
-                f"(mesh {mesh.dp}x{mesh.mp}): its factored moments reduce "
-                f"over dims the mesh may shard")
         plan = ShardPlan(cfg, mesh)
         model = build_model(plan.local_cfg)
     dp = plan.mesh.dp if plan else 1
@@ -95,9 +97,12 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
         tree = unflatten(params, dict(zip(keys, leaves)))
         g_sum = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
                  for p in leaves]
-        loss_sum = torch.zeros((), dtype=torch.float32,
-                               device=batch["tokens"].device)
-        with mesh_context(plan) if plan else contextlib.nullcontext():
+        dev = batch["tokens"].device
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        aux_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        dropped = torch.zeros((), dtype=torch.int64, device=dev)
+        with mesh_context(plan) if plan else contextlib.nullcontext(), \
+                moe_drops() as drops:
             views = None if plan else layer_views(tree)
             for i in range(nm):
                 mb = tree_map(lambda x: x[i], micro)
@@ -105,24 +110,33 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
                 # backward returns each gradient to its block)
                 v = layer_views(plan.compute(tree)) if plan else views
                 loss, metrics = model.loss(v, mb, aux_coef=aux_coef)
+                n_fwd = len(drops)  # the forward's, before any recompute
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
                 with torch.no_grad():
                     for acc, g in zip(g_sum, grads):
                         if g is not None:
                             acc.add_(g.to(accum_dtype))
                     loss_sum += metrics["ce"].detach()
+                    aux_sum += metrics["aux"].detach()
+                    dropped += sum(drops[:n_fwd], torch.zeros_like(dropped))
+                    drops.clear()
                 del loss, metrics, grads, v
             del views, leaves, tree
             with torch.no_grad():
                 if plan:
                     plan.reduce_grads(keys, g_sum)
                     loss_sum = plan.sum_over_data(loss_sum)
+                    if cfg.n_experts:
+                        aux_sum = plan.sum_over_data(aux_sum)
+                        dropped = plan.sum_over_data(dropped)
                 grads = unflatten(params, {k: g.div_(nm * dp)
                                            for k, g in zip(keys, g_sum)})
             params, opt_state, opt_metrics = optimizer.update(
                 grads, opt_state, params, step)
-        return params, opt_state, {"loss": loss_sum / (nm * dp),
-                                   **opt_metrics}
+        out = {"loss": loss_sum / (nm * dp), **opt_metrics}
+        if cfg.n_experts:  # the mean aux and the step's dropped pairs
+            out.update(aux=aux_sum / (nm * dp), dropped=dropped)
+        return params, opt_state, out
 
     train_step.plan = plan  # the mesh's placement (None on one device)
     return train_step

@@ -28,8 +28,10 @@ the JAX device count (default: every visible card with ``--device cuda``,
 ranks, which die with it (``runtime/process_group.py``), and every rank
 runs the same loop on its own device: one rank per card on NCCL where the
 cards suffice, else ranks sharing cards on gloo with collectives staged
-through host memory; gloo on the CPU.  Only rank 0 prints.  Parameters,
-gradients and adamw state are **stored sharded by ``default_rules``**
+through host memory; gloo on the CPU.  Only rank 0 prints.  Every model
+family trains there.  Parameters, gradients and optimizer state (adamw's,
+adafactor's factored moments, sgd's) are **stored sharded by
+``default_rules``**
 (``runtime/train_mesh.py``): the JAX driver computes the same specs and
 never places anything by them (it keeps every leaf whole on its mesh), so
 placing them is this port's design choice.  The step equals the
@@ -45,17 +47,31 @@ and never trains on the survivors.  The elastic path is the JAX one:
 start ``train`` again on the devices left.
 
 A fresh start initialises from ``torch.Generator(device).manual_seed(
-seed)`` (on a mesh every rank draws the whole init and keeps its block),
-whose values differ from the JAX package's ``jax.random`` init.  The
-encdec and vlm archs are refused: the stream has no ``frames`` /
-``patches`` embeddings (the JAX CLI fails there with a ``KeyError``).
+seed)`` (on a mesh every rank draws the whole init and keeps its block,
+one leaf at a time), whose values differ from the JAX package's
+``jax.random`` init.  The CLI refuses the encdec and vlm archs: the
+stream has no ``frames`` / ``patches`` embeddings (the JAX CLI fails
+there with a ``KeyError``).
+
+**From Python**, :func:`train` runs one run and :func:`train_jobs` runs
+several :class:`Job` s one after another on one start of the mesh's
+processes.  A job takes adamw, adafactor or sgd (:data:`OPTIMIZERS`),
+the batches of an encdec or vlm model (tokens beside ``frames`` or
+``patches``), constant values for leaves of its fresh init (a vlm's
+gates), and returns its final state gathered whole or, for a check of a
+run too large to move, :func:`sample_leaves` of it::
+
+    train(cfg, TrainOptions(steps=3, device="cpu"), dp=2, mp=2,
+          optimizer="adafactor", keep=("params", "opt"))
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import hashlib
 import json
+import math
 import os
 import shutil
 import sys
@@ -63,6 +79,7 @@ import tempfile
 import threading
 import time
 import traceback
+import zlib
 from typing import Optional
 
 import torch
@@ -70,12 +87,12 @@ import torch
 from repro_torch.checkpoint.store import CheckpointManager, save_checkpoint
 from repro_torch.configs import ArchConfig, get_config, get_smoke_config
 from repro_torch.convert import (gather_params, local_block, shard_params,
-                                 stack_layers)
+                                 stack_layers, stack_shard)
 from repro_torch.data.synthetic import token_batches
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.lm import build_model
-from repro_torch.optim import adamw, cosine_schedule
+from repro_torch.optim import adafactor, adamw, cosine_schedule, sgd
 from repro_torch.runtime.elastic import remesh
 from repro_torch.runtime.process_group import (die_with_parent, layout,
                                                spawn_workers)
@@ -83,8 +100,13 @@ from repro_torch.runtime.train_mesh import (ShardPlan, TrainMesh,
                                             connect_train_mesh, spec_items)
 from repro_torch.tree import flatten_with_paths, tree_map
 
-__all__ = ["main", "train", "mesh_shape", "TrainOptions", "RankFailure",
-           "TRAIN_TIMEOUT_S"]
+__all__ = ["main", "train", "train_jobs", "Job", "sample_leaves",
+           "mesh_shape", "TrainOptions", "RankFailure", "TRAIN_TIMEOUT_S",
+           "OPTIMIZERS"]
+
+# the optimizers a run takes (the CLI's is adamw), each over the cosine
+# schedule of the run's lr and steps
+OPTIMIZERS = {"adamw": adamw, "adafactor": adafactor, "sgd": sgd}
 
 _EMBEDDED = {"encdec": "frames", "vlm": "patches"}
 
@@ -119,6 +141,28 @@ class TrainOptions:
     fail_at: int = -1
     log_every: int = 10
     device: str = "cuda"
+
+
+@dataclasses.dataclass(frozen=True)
+class Job:
+    """One training run: ``cfg`` under ``opts`` with ``optimizer`` (a key
+    of :data:`OPTIMIZERS`).  ``batches``: the batches of steps ``0 ..
+    steps − 1`` (dicts of host tensors, the family's ``frames`` or
+    ``patches`` beside the tokens) in place of the token stream.  ``keep``
+    names the parts of the final state to return ("params", "opt",
+    "opt/m"); with ``sample`` > 0 only ``sample`` seeded elements of each
+    of their leaves are returned (:func:`sample_leaves`), not the leaves.
+    ``init_values``: leaves of a fresh init set to a constant, by key
+    (``cross_layers/mlp_gate``: a vlm's gates, which an init leaves at 0,
+    so its cross path is inert)."""
+
+    cfg: ArchConfig
+    opts: TrainOptions
+    keep: tuple = ()
+    optimizer: str = "adamw"
+    batches: Optional[list] = None
+    sample: int = 0
+    init_values: dict = dataclasses.field(default_factory=dict)
 
 
 def _deterministic_cuda() -> None:
@@ -211,22 +255,25 @@ def _timer(device):
     return stop
 
 
-def _run(cfg: ArchConfig, opts: TrainOptions, mesh=None, *,
-         keep: tuple = ()) -> dict:
-    """The training loop on this rank (every rank runs it).  Returns
-    {"step", "history" (per step: loss, grad_norm, ms), "ms" (this
-    rank's per step), "state" (the parts of the final train state that
-    ``keep`` names by path — "params", "opt", "opt/m" — logical, on the
-    host, rank 0; None without ``keep``)}, and on a mesh "ms_by_rank"
-    and, with ``keep``, "block_sha" (:func:`_block_digests`)."""
+def _run(job: Job, mesh=None) -> dict:
+    """The training loop of ``job`` on this rank (every rank runs it).
+    Returns {"step", "history" (per step: loss, grad_norm, ms), "ms"
+    (this rank's per step), "state" (the parts of the final train state
+    that ``job.keep`` names by path — "params", "opt", "opt/m" — logical,
+    on the host, rank 0; None without ``keep`` or with ``sample``)}, with
+    ``sample`` "sample" (:func:`sample_leaves` of those parts), and on a
+    mesh "ms_by_rank" and, with ``keep``, "block_sha"
+    (:func:`_block_digests`; with ``sample``, of the leaves that have
+    replicas)."""
+    cfg, opts, keep = job.cfg, job.opts, job.keep
     lead = mesh is None or mesh.rank == 0
     device = mesh.device if mesh else resolve_device(opts.device)
     if device.type == "cuda":
         _deterministic_cuda()
     say = print if lead else (lambda *a, **k: None)
     model = build_model(cfg)
-    opt = adamw(cosine_schedule(opts.lr, opts.steps,
-                                max(opts.steps // 20, 1)))
+    opt = OPTIMIZERS[job.optimizer](cosine_schedule(
+        opts.lr, opts.steps, max(opts.steps // 20, 1)))
     n_micro = max(1, opts.global_batch // max(cfg.microbatch, 1))
     train_step = make_train_step(model, opt, n_micro=n_micro, mesh=mesh)
     plan = ShardPlan(cfg, mesh) if mesh is not None else None
@@ -237,12 +284,18 @@ def _run(cfg: ArchConfig, opts: TrainOptions, mesh=None, *,
     def fresh():
         g = torch.Generator(device=device)
         g.manual_seed(opts.seed)
-        params = stack_layers(model.init(g, device=device))
-        if plan:
-            params = shard_params(params, mesh, plan.specs)
+        params = model.init(g, device=device)
+        params = (stack_shard(params, mesh, plan.specs) if plan
+                  else stack_layers(params))
+        leaves = dict(flatten_with_paths(params))
+        for key, value in job.init_values.items():
+            leaves[key].fill_(value)
         return params, opt.init(params)
 
     def stream_from(step):
+        if job.batches is not None:
+            return ({k: v.to(device) for k, v in b.items()}
+                    for b in job.batches[step:])
         return token_batches(cfg.vocab, opts.global_batch, opts.seq_len,
                              seed=opts.seed, start_step=step, device=device)
 
@@ -315,7 +368,9 @@ def _run(cfg: ArchConfig, opts: TrainOptions, mesh=None, *,
             ms[step] = stop()
             loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
             history[step:] = [{"loss": loss, "grad_norm": gnorm,
-                               "ms": ms[step]}]
+                               "ms": ms[step],
+                               **{k: metrics[k].item() for k in
+                                  ("aux", "dropped") if k in metrics}}]
             if step % opts.log_every == 0:
                 say(f"[train] step {step} loss={loss:.4f} gnorm={gnorm:.3f} "
                     f"dt={time.time() - t0:.2f}s")
@@ -351,11 +406,16 @@ def _run(cfg: ArchConfig, opts: TrainOptions, mesh=None, *,
            "state": None}
     if keep:
         state = _select({"params": params, "opt": opt_state}, keep)
-        out["state"] = (gather_params(state, mesh, _select(specs, keep),
-                                      to="cpu" if lead else "meta")
-                        if plan else tree_map(lambda t: t.cpu(), state))
+        kept = _select(specs, keep) if plan else None
+        if job.sample:
+            out["sample"] = sample_leaves(state, job.sample, kept, mesh)
+        else:
+            out["state"] = (gather_params(state, mesh, kept,
+                                          to="cpu" if lead else "meta")
+                            if plan else tree_map(lambda t: t.cpu(), state))
         if plan:
-            out["block_sha"] = _block_digests(state, mesh)
+            out["block_sha"] = _block_digests(
+                state, mesh, kept if job.sample else None)
     if plan:  # every rank's step ms, in rank order
         out["ms_by_rank"] = [p.tolist() for p in mesh.control.all_gather(
             torch.tensor(out["ms"], dtype=torch.float64))]
@@ -375,11 +435,16 @@ def _select(tree: dict, paths) -> dict:
     return out
 
 
-def _block_digests(state, mesh) -> dict:
+def _block_digests(state, mesh, specs=None) -> dict:
     """{key: every rank's SHA-256 of its block of that leaf, in rank
     order}: replicas of a leaf hold the same bits when their digests
-    agree."""
+    agree.  With ``specs``, only of the leaves some rank holds a replica
+    of (not sharded over every axis of more than one rank)."""
     flat = flatten_with_paths(state)
+    if specs is not None:
+        axes = {a for a, n in mesh.shape.items() if n > 1}
+        flat = [(k, t) for (k, t), (_, _, spec) in zip(
+            flat, spec_items(state, specs)) if not axes <= set(spec)]
     mine = b"".join(hashlib.sha256(t.detach().reshape(-1).cpu()
                                    .view(torch.uint8).numpy()).digest()
                     for _, t in flat)
@@ -387,6 +452,55 @@ def _block_digests(state, mesh) -> dict:
         torch.frombuffer(bytearray(mine), dtype=torch.uint8))]
     return {k: [p[32 * i:32 * (i + 1)].hex() for p in parts]
             for i, (k, _) in enumerate(flat)}
+
+
+def sample_leaves(tree, n: int, specs=None, mesh=None) -> dict:
+    """{key: the values, fp32 on the host, of ``n`` seeded elements of the
+    logical leaf (every element of a leaf of at most ``n``)}: the same
+    elements of the same tree wherever it is held, so a check of a large
+    run reads these instead of moving its state.  On a mesh ``tree`` is
+    this rank's blocks under ``specs``; each element is read by the one
+    rank that holds it at coordinate 0 of the axes its leaf replicates
+    over, and the ranks' vectors are added over the mesh (one holder an
+    element: the sum is exact)."""
+    items = (list(spec_items(tree, specs)) if mesh is not None else
+             [(tuple(k.split("/")), t, (None,) * t.ndim)
+              for k, t in flatten_with_paths(tree)])
+    keys, parts, sizes = [], [], []
+    for path, t, spec in items:
+        key = "/".join(map(str, path))
+        shape = [s * (mesh.shape[ax] if ax else 1)
+                 for s, ax in zip(t.shape, spec)]
+        numel = math.prod(shape)
+        if numel <= n:
+            idx = torch.arange(numel)
+        else:
+            g = torch.Generator().manual_seed(zlib.crc32(key.encode()))
+            idx = torch.randint(numel, (n,), generator=g)
+        coords = torch.unravel_index(idx, tuple(shape)) if shape else ()
+        held = torch.ones(idx.shape, dtype=torch.bool)
+        local = torch.zeros_like(idx)
+        for d, (c, ax) in enumerate(zip(coords, spec)):
+            lo = 0
+            if ax is not None:
+                lo, hi = mesh.local_range(shape[d], ax)
+                held &= (c >= lo) & (c < hi)
+            local = local * t.shape[d] + (c - lo).clamp(0, t.shape[d] - 1)
+        if mesh is not None and not all(  # replicas: coordinate 0 reads
+                r == 0 for ax, r in (("model", mesh.model_rank),
+                                     ("data", mesh.data_rank))
+                if ax not in spec):
+            held[:] = False
+        vals = torch.zeros(idx.shape, dtype=torch.float32)
+        pick = local[held].to(t.device)
+        vals[held] = t.reshape(-1)[pick].to(torch.float32).cpu()
+        keys.append(key)
+        parts.append(vals)
+        sizes.append(vals.numel())
+    flat = torch.cat(parts) if parts else torch.zeros(0)
+    if mesh is not None:
+        flat = mesh.sum_over_mesh(flat.to(mesh.device)).cpu()
+    return dict(zip(keys, torch.split(flat, sizes)))
 
 
 # ---------------------------------------------------------------------------
@@ -445,31 +559,71 @@ def _kill(procs) -> None:
 
 
 def train(cfg: ArchConfig, opts: TrainOptions, *, dp: int = 1, mp: int = 1,
-          keep: tuple = ()) -> dict:
+          keep: tuple = (), optimizer: str = "adamw", batches=None,
+          sample: int = 0, init_values=None) -> dict:
     """Train ``cfg`` on a ``(dp, mp)`` mesh (one device for (1, 1)), this
-    process rank 0; returns rank 0's :func:`_run` result, with
-    ``"ms_by_rank"`` on a mesh.  Raises :class:`RankFailure` naming the
-    rank when a rank dies or fails."""
+    process rank 0: :func:`train_jobs` of one :class:`Job`."""
+    return train_jobs([Job(cfg, opts, keep=keep, optimizer=optimizer,
+                           batches=batches, sample=sample,
+                           init_values=init_values or {})],
+                      dp=dp, mp=mp)[0]
+
+
+def _check(job: Job, dp: int, mp: int) -> None:
+    if job.optimizer not in OPTIMIZERS:
+        raise ValueError(f"optimizer {job.optimizer!r}: one of "
+                         f"{', '.join(OPTIMIZERS)}")
+    if job.batches is None and job.cfg.family in _EMBEDDED:
+        raise ValueError(
+            f"{job.cfg.name}: the {job.cfg.family} family's batches need "
+            f"{_EMBEDDED[job.cfg.family]} beside the tokens; pass batches")
+    if job.batches is not None and len(job.batches) < job.opts.steps:
+        raise ValueError(f"{len(job.batches)} batches for "
+                         f"{job.opts.steps} steps")
+    if dp * mp == 1:
+        return
+    ShardPlan(job.cfg, TrainMesh(dp=dp, mp=mp))
+    n_micro = max(1, job.opts.global_batch // max(job.cfg.microbatch, 1))
+    if (job.opts.global_batch // n_micro) % dp:
+        raise ValueError(
+            f"a microbatch of {job.opts.global_batch // n_micro} rows "
+            f"(global batch {job.opts.global_batch} in {n_micro}) does not "
+            f"split over {dp} data ranks")
+
+
+def train_jobs(jobs: list, *, dp: int = 1, mp: int = 1) -> list:
+    """Run each :class:`Job` in turn on a ``(dp, mp)`` mesh (one device for
+    (1, 1)), this process rank 0; the mesh's processes and groups are
+    started once for all of them.  Returns rank 0's :func:`_run` result of
+    each, with ``"ms_by_rank"`` on a mesh.  Raises :class:`RankFailure`
+    naming the rank when a rank dies or fails."""
     if dp < 1 or mp < 1:
         raise ValueError(f"mesh {dp}x{mp} needs at least one rank on each "
                          f"axis")
+    for job in jobs:
+        _check(job, dp, mp)
     if dp * mp == 1:
-        return _run(cfg, opts, keep=keep)
-    ShardPlan(cfg, TrainMesh(dp=dp, mp=mp))  # refuses what cannot be planned
-    n_micro = max(1, opts.global_batch // max(cfg.microbatch, 1))
-    if (opts.global_batch // n_micro) % dp:
-        raise ValueError(
-            f"a microbatch of {opts.global_batch // n_micro} rows (global "
-            f"batch {opts.global_batch} in {n_micro}) does not split over "
-            f"{dp} data ranks")
-    devices, backend, staged = layout(dp, mp, opts.device)
+        return [_run(job) for job in jobs]
+    if len({job.opts.device for job in jobs}) != 1:
+        raise ValueError("the jobs of one mesh run on one device type")
+    devices, backend, staged = layout(dp, mp, jobs[0].opts.device)
     workdir = tempfile.mkdtemp(prefix="repro_torch_train_")
+    wire = []
+    for i, job in enumerate(jobs):
+        path = None
+        if job.batches is not None:
+            path = os.path.join(workdir, f"batches{i}.pt")
+            torch.save(job.batches, path)
+        wire.append({"cfg": dataclasses.asdict(job.cfg),
+                     "opts": dataclasses.asdict(job.opts),
+                     "keep": list(job.keep), "optimizer": job.optimizer,
+                     "batches": path, "sample": job.sample,
+                     "init_values": job.init_values})
     spec = {"dp": dp, "mp": mp, "devices": devices, "backend": backend,
             "staged": staged, "store": os.path.join(workdir, "store"),
             "timeout_s": TRAIN_TIMEOUT_S,
             "control_timeout_s": CONTROL_TIMEOUT_S, "parent": os.getpid(),
-            "cfg": dataclasses.asdict(cfg),
-            "opts": dataclasses.asdict(opts), "keep": list(keep)}
+            "jobs": wire}
     cpu = devices[0] == "cpu"
     threads = torch.get_num_threads()
     if cpu:  # every CPU rank computes on one thread: replicated work
@@ -480,12 +634,15 @@ def train(cfg: ArchConfig, opts: TrainOptions, *, dp: int = 1, mp: int = 1,
     try:
         mesh = connect_train_mesh(spec, 0)
         watch.mesh = mesh
-        out = _run(cfg, opts, mesh, keep=keep)
+        outs = []
+        for job in jobs:
+            outs.append(_run(job, mesh))
+            _free(mesh.device)
         for r, p in enumerate(procs, start=1):
             rc = p.wait(timeout=TRAIN_TIMEOUT_S)
             if rc != 0:
                 raise RankFailure(f"rank {r} exited with code {rc}")
-        return out
+        return outs
     except Exception as e:
         # a rank's death shows in its exit code within moments of the
         # collective that failed on rank 0
@@ -512,15 +669,30 @@ def train(cfg: ArchConfig, opts: TrainOptions, *, dp: int = 1, mp: int = 1,
         torch.set_num_threads(threads)
 
 
+def _free(device) -> None:
+    """Return a finished job's memory before the next job starts."""
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def worker_main(spec_json: str, rank: int) -> None:
-    """Entry point of rank ``rank`` (started by :func:`train` through
-    ``spawn_workers``, which has SIGINT and SIGTERM ignored already)."""
+    """Entry point of rank ``rank`` (started by :func:`train_jobs` through
+    ``spawn_workers``, which has SIGINT and SIGTERM ignored already):
+    every job of the spec in turn."""
     try:
         spec = json.loads(spec_json)
         die_with_parent(spec["parent"])
         mesh = connect_train_mesh(spec, rank)
-        _run(ArchConfig.from_dict(spec["cfg"]), TrainOptions(**spec["opts"]),
-             mesh, keep=tuple(spec["keep"]))
+        for w in spec["jobs"]:
+            batches = (None if w["batches"] is None else
+                       torch.load(w["batches"], map_location="cpu"))
+            _run(Job(ArchConfig.from_dict(w["cfg"]),
+                     TrainOptions(**w["opts"]), keep=tuple(w["keep"]),
+                     optimizer=w["optimizer"], batches=batches,
+                     sample=w["sample"], init_values=w["init_values"]),
+                 mesh)
+            _free(mesh.device)
         # no NCCL shutdown here: it waits on rank 0's, which comes after
         # rank 0 has waited for this process; os._exit releases it all
     except BaseException:

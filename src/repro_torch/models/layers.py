@@ -16,7 +16,8 @@ Layout changes are marked with ``runtime/sharding.py``'s ``constrain``
 at the JAX package's points (and where an activation enters a
 column-parallel product): a no-op without a mesh context; under a training
 mesh the embedding and the logits are vocab-parallel, attention
-head-parallel and the MLP ``ff``-parallel where the plan says so.
+head-parallel, the MLP ``ff``-parallel and the MoE expert-parallel where
+the plan says so.
 
 ``init_*`` draw from an explicit ``torch.Generator`` on ``device`` (the
 values differ from ``jax.random``'s; tests convert the JAX package's params
@@ -24,6 +25,7 @@ instead) and return the JAX package's tree with (in, out) weights.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -34,6 +36,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import packing
 from repro_torch.kernels.quant_matmul.ops import quant_matmul
 from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+from repro_torch.runtime import collectives
 from repro_torch.runtime.sharding import constrain, current_mesh_context
 
 __all__ = [
@@ -77,6 +80,7 @@ __all__ = [
     "moe_capacity",
     "moe_route",
     "moe_apply",
+    "moe_drops",
 ]
 
 NEG = torch.finfo(torch.float32).min
@@ -103,10 +107,10 @@ def init_dense(g: torch.Generator, shape, dtype, scale: Optional[float] = None,
     """N(0, std²) with std = ``scale`` or fan-in ``shape[-2]`` ** -0.5.  A
     stacked (E, in, out) weight is drawn one slice at a time, so no fp32
     temporary of the whole stack is made (arctic's experts are 26.8 GB a
-    layer in bf16)."""
+    layer in bf16); on ``meta`` (shapes only) in one call."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in**-0.5
-    if len(shape) == 3:
+    if len(shape) == 3 and torch.device(device).type != "meta":
         out = torch.empty(shape, dtype=dtype, device=device)
         for e in range(shape[0]):
             out[e] = torch.randn(shape[1:], generator=g, device=device) * std
@@ -651,13 +655,44 @@ def moe_capacity(cfg: ArchConfig, tokens: int) -> int:
     return max(8, -(-c // 8) * 8)  # round up to a multiple of 8
 
 
+# the active counters of moe_apply's dropped (token, choice) pairs
+_DROPS: list = []
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """While active, each :func:`moe_apply` call appends the number of
+    (token, choice) pairs its routing dropped (a 0-d tensor; on data ranks
+    this rank's tokens') to the yielded list, in call order; a remat'd
+    block's recompute in the backward appends again."""
+    calls: list = []
+    _DROPS.append(calls)
+    try:
+        yield calls
+    finally:
+        _DROPS.pop()
+
+
+def _data_comm():
+    """The data axis's communicator of the active training mesh, where it
+    has more than one rank (else None)."""
+    comm = getattr(current_mesh_context(), "data_comm", None)
+    return comm if comm is not None and comm.size > 1 else None
+
+
 def moe_route(p: dict, xt: torch.Tensor, cfg: ArchConfig) -> dict:
     """The routing of tokens xt (T, D): router ``probs`` (T, E) fp32, the
     renormalized ``top_p`` and ``top_e`` (T, k) — ties go to the lower
     expert, as ``jax.lax.top_k`` breaks them (a stable descending sort) —
     and each (token, choice)'s slot ``pos`` in its expert, ``keep`` (slot
     below the capacity ``C``), all flattened to (T·k,) in token-major
-    order."""
+    order.
+
+    On a training mesh with data ranks, ``xt`` is this rank's rows of the
+    microbatch and the routing is the whole microbatch's: ``C`` comes from
+    its ``tokens`` (every data rank's), and each slot is offset by the
+    tokens the data ranks before this one sent to its expert (an exact
+    all-gather of the per-expert counts)."""
     E, k = cfg.n_experts, cfg.top_k
     logits = xt.to(torch.float32) @ p["router"].to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
@@ -667,9 +702,18 @@ def moe_route(p: dict, xt: torch.Tensor, cfg: ArchConfig) -> dict:
     e_flat = top_e.reshape(-1)
     onehot = F.one_hot(e_flat, E).to(torch.int32)  # (T*k, E)
     pos = torch.sum((torch.cumsum(onehot, dim=0) - onehot) * onehot, dim=-1)
-    C = moe_capacity(cfg, xt.shape[0])
+    tokens = xt.shape[0]
+    comm = _data_comm()
+    if comm is not None:
+        counts = comm.all_gather(onehot.sum(dim=0))
+        before = torch.zeros_like(counts[0])
+        for c in counts[:comm.rank]:
+            before = before + c
+        pos = pos + before[e_flat]
+        tokens *= comm.size
+    C = moe_capacity(cfg, tokens)
     return {"probs": probs, "top_p": top_p, "top_e": top_e, "e": e_flat,
-            "pos": pos, "keep": pos < C, "C": C}
+            "pos": pos, "keep": pos < C, "C": C, "tokens": tokens}
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
@@ -680,31 +724,63 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     at slot C - 1 and their gather reads slot 0 with weight 0, as the JAX
     package's ``.at[].add`` / ``where(keep, pos, 0)`` do.  The expert
     products are plain batched matmuls over E; ``plain`` reaches only the
-    dense residual's (possibly packed) weights."""
+    dense residual's (possibly packed) weights.
+
+    Expert parallelism (a training mesh whose plan computes
+    ``act_experts`` in parallel): ``wi wg wo`` hold this rank's experts
+    ``[r·El, (r+1)·El)``; every rank routes every token, fills and
+    computes only its experts' rows of the buffer, and its part of ``y``
+    (zero for the other experts' tokens) is summed over ``model``.  The
+    load-balancing aux is split the same way: ``E·Σ frac_tokens·
+    frac_probs`` over the rank's experts, summed.  On data ranks the
+    routing is the whole microbatch's (:func:`moe_route`) and the two
+    fractions are sums over every data rank's tokens."""
     B, S, D = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.top_k
-    xt = x.reshape(T, D)
+    xt = constrain(x, ("batch", "seq", "act_embed"),
+                   feeds="act_experts").reshape(T, D)
     r = moe_route(p, xt, cfg)
     e_flat, pos, keep, C = r["e"], r["pos"], r["keep"], r["C"]
+    if _DROPS:
+        _DROPS[-1].append(torch.sum(~keep))
+    El, lo = p["wi"].shape[0], 0  # this rank's experts, the first
+    if El < E:  # the others' tokens are no part of this rank's buffer
+        lo = current_mesh_context().model_rank * El
+        mine = (e_flat >= lo) & (e_flat < lo + El)
+        keep = keep & mine
+        e_flat = torch.where(mine, e_flat - lo, 0)
 
     x_rep = torch.repeat_interleave(xt, k, dim=0)  # (T*k, D)
-    buf = torch.zeros((E, C, D), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((El, C, D), dtype=x.dtype, device=x.device)
     buf.index_put_((e_flat, torch.where(keep, pos, C - 1)),
                    x_rep * keep[:, None].to(x.dtype), accumulate=True)
-    h = matmul(buf, p["wi"])  # (E, C, F), batched over E
+    buf = constrain(buf, ("act_experts", None, None))
+    h = matmul(buf, p["wi"])  # (El, C, F), batched over the experts
     h = F.silu(h) * matmul(buf, p["wg"])
-    y_e = matmul(h, p["wo"])  # (E, C, D)
+    h = constrain(h, ("act_experts", None, None))
+    y_e = matmul(h, p["wo"])  # (El, C, D)
 
     y_tok = y_e[e_flat, torch.where(keep, pos, 0)]  # (T*k, D)
     w = (keep[:, None] * r["top_p"].reshape(-1)[:, None]).to(x.dtype)
     y = torch.sum((y_tok * w).reshape(T, k, D), dim=1)
+    y = constrain(y, ("batch", "act_embed"), summed="act_experts")
     if cfg.dense_residual and "dense" in p:
         y = y + mlp_apply(p["dense"], x, cfg, plain=plain).reshape(T, D)
 
     # load-balancing aux loss (Switch-style)
-    frac_tokens = torch.mean(
-        F.one_hot(r["top_e"][:, 0], E).to(torch.float32), dim=0)
-    frac_probs = torch.mean(r["probs"], dim=0)
+    top1 = F.one_hot(r["top_e"][:, 0], E).to(torch.float32)
+    comm = _data_comm()
+    if comm is None:
+        frac_tokens = torch.mean(top1, dim=0)
+        frac_probs = torch.mean(r["probs"], dim=0)
+    else:  # the microbatch's means: sums over every data rank's tokens
+        frac_tokens = comm.all_reduce_sum([top1.sum(dim=0)])[0] / r["tokens"]
+        frac_probs = collectives.data_sum(r["probs"].sum(dim=0),
+                                          comm) / r["tokens"]
+    if El < E:
+        frac_tokens, frac_probs = (f[lo:lo + El] for f in (frac_tokens,
+                                                           frac_probs))
     aux = E * torch.sum(frac_tokens * frac_probs)
+    aux = constrain(aux, (), summed="act_experts")
     return y.reshape(B, S, D), aux

@@ -29,6 +29,13 @@ them without storing.  ``*_forward(plain=True)`` runs packed projections
 through quant_matmul's plain version (the oracle's path).  While grad is
 enabled, each encoder, decoder, self and cross layer of a forward runs
 under ``cfg.remat`` (``transformer.remat_wrap``).
+
+Under a training mesh (``runtime/train_mesh.py``) every self and cross
+attention is head-parallel (the encoder states or the patches feed the
+rank's K/V heads, so their gradient is summed over ``model``), every MLP
+``ff``-parallel and the embedding vocab-parallel; the vlm's ``xattn.gate``
+and ``mlp_gate`` scale an output after its sum, so they compute whole on
+every rank, as do the norms.
 """
 from __future__ import annotations
 

@@ -17,6 +17,13 @@ shared block's packed projections through quant_matmul's plain version;
 RWKV has no packed weights.  While grad is enabled, each layer of a
 forward (each Mamba2 layer and shared-block invocation of the hybrid)
 runs under ``cfg.remat`` (``transformer.remat_wrap``).
+
+Under a training mesh (``runtime/train_mesh.py``): the embedding and LM
+head are vocab-parallel; RWKV6's time mix is head-parallel and its
+channel mix ``ff``-parallel (``models/ssm.py`` says which leaves); the
+hybrid's shared block is head- and ``ff``-parallel as a dense block is,
+and its Mamba2 layers compute whole on every rank (``in_proj`` and
+``out_proj`` gathered: the ``in_proj`` output ``[z, xBC, dt]`` is fused).
 """
 from __future__ import annotations
 

@@ -11,6 +11,15 @@ steps, and the ``*_scan_ref`` oracles (tests only) apply them token by
 token.  Every product is a plain ``torch.matmul`` / ``einsum``, as in the
 JAX package, where none of this reaches a Pallas kernel.
 
+Under a training mesh (``runtime/sharding.py``'s ``constrain``, at the JAX
+package's points): RWKV6's time mix is head-parallel — its input feeds the
+rank's heads (``wr wk wv wg`` columns, ``decay_B``, ``w0``, ``ln_x`` and
+``bonus`` cut to them by the plan; the token-shift mixes and ``decay_A``
+whole), the group norm is per head and the row-parallel ``wo`` is summed;
+its channel mix is ``ff``-parallel (``wk`` columns, ``wv`` rows, summed)
+with the ``d_model``-wide ``wr`` gate whole; Mamba2 computes whole on
+every rank (its ``in_proj`` output ``[z, xBC, dt]`` is fused).
+
 Numerical safety: decay factors are applied as exp(Δlog) with Δlog ≤ 0
 wherever possible.  RWKV6's per-channel decay needs the factored form
 exp(+cum)·exp(−cum): log-decay is clamped to ≥ −4 (``_LOGW_MIN``) and the
@@ -32,6 +41,7 @@ from repro_torch.models.layers import (
     matmul,
     rms_norm,
 )
+from repro_torch.runtime.sharding import constrain
 
 __all__ = [
     "init_mamba2", "mamba2_axes", "mamba2_forward", "xBC_tail_state",
@@ -139,7 +149,7 @@ def mamba2_forward(p: dict, u: torch.Tensor, cfg: ArchConfig, *,
     y = y + p["D"][None, None, :, None] * xf
     y = y.reshape(B, T, di).to(u.dtype)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = matmul(y, p["out_proj"])
+    out = constrain(matmul(y, p["out_proj"]), ("batch", "seq", "act_embed"))
     if return_state:
         K = cfg.ssm_conv  # the pre-conv rows xBC_tail_state would recompute
         return out, {"ssm": h,
@@ -299,12 +309,14 @@ def _rwkv_logw(p: dict, xw: torch.Tensor) -> torch.Tensor:
 
 def _group_norm_gate(p: dict, y: torch.Tensor, g: torch.Tensor,
                      x: torch.Tensor) -> torch.Tensor:
-    """Per-head RMS norm (eps 64e-5, unit scale) of y (..., H, hs) fp32,
-    then ``ln_x`` and the gate, and ``wo``."""
-    B, T, D = x.shape
+    """Per-head RMS norm (eps 64e-5, unit scale) of y (B, T, H, hs) fp32,
+    then ``ln_x`` and the gate, and ``wo`` (summed over the heads'
+    ranks)."""
+    B, T = x.shape[:2]
     y = rms_norm(y, torch.ones(y.shape[-1], device=y.device), 64e-5)
-    y = (y.reshape(B, T, D).to(x.dtype) * p["ln_x"]) * g
-    return matmul(y, p["wo"])
+    y = (y.reshape(B, T, -1).to(x.dtype) * p["ln_x"]) * g
+    return constrain(matmul(y, p["wo"]), ("batch", "seq", "act_embed"),
+                     summed="act_heads")
 
 
 def rwkv6_time_mix(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
@@ -315,9 +327,10 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     ``return_state``)."""
     B, T, D = x.shape
     hs = cfg.rwkv_head_size
-    H = D // hs
+    x = constrain(x, ("batch", "seq", "act_embed"), feeds="act_heads")
     xr, xk, xv, xg, xw = _rwkv_mix(p, x, _token_shift(x, shift_state))
     f32 = torch.float32
+    H = p["wr"].shape[-1] // hs  # this rank's heads under a mesh
     r = matmul(xr, p["wr"]).reshape(B, T, H, hs).to(f32)
     k = matmul(xk, p["wk"]).reshape(B, T, H, hs).to(f32)
     v = matmul(xv, p["wv"]).reshape(B, T, H, hs).to(f32)
@@ -395,8 +408,12 @@ def channel_mix(p: dict, x: torch.Tensor, shift_state=None,
 def _channel_mix(p: dict, x: torch.Tensor, xprev: torch.Tensor):
     xk = x + (xprev - x) * p["mu_k"]
     xr = x + (xprev - x) * p["mu_r"]
+    xk = constrain(xk, ("batch", "seq", "act_embed"), feeds="act_ff")
     h = torch.square(F.relu(matmul(xk, p["wk"])))
-    return torch.sigmoid(matmul(xr, p["wr"])) * matmul(h, p["wv"])
+    h = constrain(h, ("batch", "seq", "act_ff"))
+    kv = constrain(matmul(h, p["wv"]), ("batch", "seq", "act_embed"),
+                   summed="act_ff")
+    return torch.sigmoid(matmul(xr, p["wr"])) * kv
 
 
 def channel_mix_step(p: dict, x: torch.Tensor, shift_state: torch.Tensor):

@@ -21,6 +21,12 @@ quant_matmul's plain version (the oracle's path).
 While grad is enabled, each block of a forward runs under the config's
 activation checkpointing (:func:`remat_wrap`, ``cfg.remat``); serving runs
 under ``no_grad`` and never checkpoints.
+
+Under a training mesh (``runtime/train_mesh.py``) attention is
+head-parallel, the MLP (and arctic's dense residual) ``ff``-parallel, a
+moe layer's experts expert-parallel (each rank its ``E/mp`` experts, the
+router whole on every rank: ``layers.moe_apply``) and the embedding and
+LM head vocab-parallel; the norms compute whole on every rank.
 """
 from __future__ import annotations
 

@@ -21,8 +21,11 @@ Over a training mesh (a ``ShardPlan`` active through
 blocks: adamw and sgd are elementwise and run on them as they are, and
 :func:`global_norm` sums the squares of each block, counts a replicated
 leaf once and adds over the mesh, so the norm and the clip scale are the
-one-device ones.  adafactor's factored moments reduce over dims the mesh
-may shard; the mesh's train step refuses it by name.
+one-device ones.  adafactor's factored moments reduce over a leaf's last
+two dims, which the mesh may shard: a mean over a sharded dim is the
+local sum summed over that axis in rank order, divided by the full size
+(:func:`_mean`); its row and column moments are stored as the plan's
+``state_specs`` place them.
 """
 from __future__ import annotations
 
@@ -126,6 +129,20 @@ def adamw(lr: Callable | float, *, b1: float = 0.9, b2: float = 0.95,
     return Optimizer(init=init, update=update, name="adamw")
 
 
+def _mean(x: torch.Tensor, dim: int, axis, keepdim: bool = False):
+    """The mean of ``x`` over ``dim`` (of the logical leaf): where the
+    mesh axis ``axis`` shards that dim, the local sum summed over the axis
+    in rank order and divided by the full size; else ``torch.mean``."""
+    ctx = current_mesh_context()
+    if ctx is None or axis is None:
+        return torch.mean(x, dim=dim, keepdim=keepdim)
+    if not isinstance(axis, str):
+        raise ValueError(f"a dim sharded over several mesh axes {axis}")
+    comm = ctx.axis_comm(axis)
+    total = comm.all_reduce_sum([torch.sum(x, dim=dim, keepdim=keepdim)])[0]
+    return total / (x.shape[dim] * comm.size)
+
+
 def adafactor(lr: Callable | float, *, decay: float = 0.8, eps: float = 1e-30,
               clip_norm: Optional[float] = 1.0) -> Optimizer:
     """Factored second moment for >=2D leaves (memory ~ O(m+n) per
@@ -148,17 +165,21 @@ def adafactor(lr: Callable | float, *, decay: float = 0.8, eps: float = 1e-30,
         t = _t(step)
         beta = 1.0 - t ** (-decay)
         lr_t = lr_fn(step)
+        # each leaf's spec on a mesh (which axes shard its last two dims)
+        ctx = current_mesh_context()
+        specs = ctx.specs if ctx is not None else tree_map(
+            lambda p: (None,) * p.ndim, params)
 
-        def upd(g, mom, master, p):
+        def upd(g, mom, master, p, spec):
             g = g32(g)
             row, col = mom
             g2 = g * g + eps
             if g.ndim >= 2:
-                row.copy_(beta * row + (1 - beta) * torch.mean(g2, dim=-1))
-                col.copy_(beta * col + (1 - beta) * torch.mean(g2, dim=-2))
+                row.copy_(beta * row + (1 - beta) * _mean(g2, -1, spec[-1]))
+                col.copy_(beta * col + (1 - beta) * _mean(g2, -2, spec[-2]))
                 denom = torch.sqrt(
                     row[..., None] * col[..., None, :]
-                    / (torch.mean(row, dim=-1, keepdim=True)[..., None]
+                    / (_mean(row, -1, spec[-2], keepdim=True)[..., None]
                        + eps))
                 upd_val = g / (denom + 1e-9)
             else:
@@ -167,7 +188,8 @@ def adafactor(lr: Callable | float, *, decay: float = 0.8, eps: float = 1e-30,
             master.copy_(master - lr_t * upd_val)
             p.copy_(master)
 
-        tree_map(upd, grads, state["moments"], state["master"], params)
+        tree_map(upd, grads, state["moments"], state["master"], params,
+                 specs)
         return params, state, {"grad_norm": gn}
 
     return Optimizer(init=init, update=update, name="adafactor")

@@ -11,6 +11,9 @@ bf16 or fp16 tensors are taken in fp32 and rounded once.
   * :func:`grad_sum_over` — a whole tensor feeding this rank's part of a
     parallel computation: passes through; its gradient, a partial sum, is
     summed over the group;
+  * :func:`data_sum` — a sum over the data axis that every rank then uses
+    in its own loss (the mesh step adds the ranks' gradients and divides
+    by their count): summed over the group, and so is its gradient;
   * :func:`gather` — a stored block made whole along ``dim``; its gradient
     goes back as this rank's block, of the sum over the group where each
     rank's use was a part (``partial``), else as it is;
@@ -20,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["sum_over", "grad_sum_over", "gather", "max_over"]
+__all__ = ["sum_over", "grad_sum_over", "data_sum", "gather",
+           "max_over"]
 
 
 def _wide(x: torch.Tensor) -> torch.Tensor:
@@ -46,6 +50,17 @@ class _GradSumOver(torch.autograd.Function):
     def forward(ctx, x, comm):
         ctx.comm = comm
         return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.comm), None
+
+
+class _DataSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return _sum(x, comm)
 
     @staticmethod
     def backward(ctx, g):
@@ -79,6 +94,12 @@ def grad_sum_over(x: torch.Tensor, comm) -> torch.Tensor:
     if comm is None or comm.size == 1:
         return x
     return _GradSumOver.apply(x, comm)
+
+
+def data_sum(x: torch.Tensor, comm) -> torch.Tensor:
+    if comm is None or comm.size == 1:
+        return x
+    return _DataSum.apply(x, comm)
 
 
 def gather(x: torch.Tensor, comm, dim: int, partial: bool) -> torch.Tensor:

@@ -4,33 +4,50 @@ a model's train state on it.
 **Storage layout.**  Parameters, gradients and optimizer state are stored
 sharded by the mesh's rules (``default_rules``): each leaf of the stacked
 train state (``convert.stack_layers``) is this rank's block under its spec
-(``param_shardings``, with the divisibility fallback on the fused dims).
+(``param_shardings``, with the divisibility fallback on the fused dims);
+adafactor's row and column moments take the leaf's spec without its last
+and without its next-to-last dim (:meth:`ShardPlan.state_specs`).
 
 **Compute layout** (:meth:`ShardPlan.compute`, per microbatch, through
 ``runtime/collectives.py``).  The step computes Megatron-style over
-``model`` only on whole heads, whole ``ff`` columns and whole vocab rows:
+``model`` only on whole heads, whole ``ff`` columns, whole experts and
+whole vocab rows.  A leaf's region is the module that holds it
+(:func:`_region`), the same in every family's tree:
 
-  * attention is head-parallel where the query heads divide the axis:
+  * ``act_heads`` — attention (``attn``, ``xattn``: every family's
+    self-attention, whisper's and the vlm's cross attention, zamba2's
+    shared block) is head-parallel where the query heads divide the axis:
     each rank attends its heads ``[r·H/mp, (r+1)·H/mp)`` and query head
     ``h`` meets KV head ``h // G``.  A KV shard of whole heads that are
     exactly those is used as it is; otherwise (a shard that splits a head,
     or KV heads that replicate) the rank's KV heads are taken from the
-    whole ``wk``/``wv``;
-  * the MLP is ``ff``-parallel and the embedding and LM head
-    vocab-parallel wherever the rules shard those dims (whole columns or
-    rows by construction);
-  * any other sharded dim is all-gathered for compute and its gradient
-    goes back as this rank's block: reduce-scattered where the ranks'
-    uses were parts of one computation (every ``data`` dim, whose ranks
-    see different rows; a ``model`` dim of a parallel region), sliced
-    where every rank computed the whole (a ``model`` dim of a replicated
-    region).  A leaf that replicates computes whole on every rank; in a
-    parallel region its gradient is summed over ``model``.
+    whole ``wk``/``wv``.  RWKV6's time mix is head-parallel the same way
+    (``wr wk wv wg`` columns and ``wo`` rows of its heads), its per-channel
+    ``w0``, ``ln_x``, ``decay_B`` columns and per-head ``bonus`` sliced to
+    the rank's heads;
+  * ``act_ff`` — the MLP (``mlp``, the MoE's ``dense`` residual) and the
+    channel mix's ``wk``/``wv`` are ``ff``-parallel;
+  * ``act_experts`` — the MoE's ``wi wg wo`` are expert-parallel: each
+    rank stores and computes its experts ``[r·E/mp, (r+1)·E/mp)``
+    (``layers.moe_apply``); every rank routes every token (``router``);
+  * ``vocab`` — the embedding and LM head are vocab-parallel;
+  * a leaf outside these regions (norms, Mamba2, the gates applied after a
+    sum: ``xattn.gate``, ``mlp_gate``, ``mlp.bo``, the channel mix's
+    ``d_model``-wide ``wr`` gate and its token-shift mixes) computes whole
+    on every rank.
+
+Any other sharded dim is all-gathered for compute and its gradient goes
+back as this rank's block: reduce-scattered where the ranks' uses were
+parts of one computation (every ``data`` dim, whose ranks see different
+rows; a ``model`` dim of a parallel region), sliced where every rank
+computed the whole (a ``model`` dim of a replicated region or of a fused
+output that cuts across its parts: Mamba2's ``in_proj`` ``[z, xBC, dt]``,
+the channel mix's ``wr``).  A leaf that replicates computes whole on every
+rank; in a parallel region its gradient is summed over ``model``.
 
 The model code marks where activations change layout with
 ``runtime/sharding.py``'s ``constrain``, which asks the active plan
-(:meth:`ShardPlan.parallel`).  Only the dense family is planned on more
-than one rank.
+(:meth:`ShardPlan.parallel`).  Every family is planned on a mesh.
 """
 from __future__ import annotations
 
@@ -44,28 +61,34 @@ from repro_torch.runtime.process_group import Communicator, process_group
 from repro_torch.runtime.sharding import (MeshContext, default_rules,
                                           param_shardings)
 
-__all__ = ["TrainMesh", "ShardPlan", "connect_train_mesh", "spec_items",
-           "MESH_FAMILIES"]
+__all__ = ["TrainMesh", "ShardPlan", "connect_train_mesh", "spec_items"]
 
-# families whose step is planned on a mesh of more than one rank
-MESH_FAMILIES = ("dense",)
-
+# module (the key that holds a leaf) -> the region it computes in
+_REGIONS = {"attn": "act_heads", "xattn": "act_heads",
+            "time_mix": "act_heads", "mlp": "act_ff", "dense": "act_ff",
+            "channel_mix": "act_ff", "moe": "act_experts", "embed": "vocab"}
+# leaves of those modules that act outside the parallel part: applied
+# after its sum (the gates, ``bo``), or before the point where its input
+# feeds it (the channel mix's token-shift mixes and its whole-width gate)
+_OUTSIDE = {("attn", "gate"), ("xattn", "gate"), ("mlp", "bo"),
+            ("dense", "bo"), ("channel_mix", "mu_k"),
+            ("channel_mix", "mu_r"), ("channel_mix", "wr")}
 # the attention's K/V leaves: whole heads of their own, or taken from the
 # whole leaf for the rank's query heads
+_ATTN = ("attn", "xattn")
 _KV = ("wk", "wv", "bk", "bv")
+# the time mix's whole leaves used on the rank's channels only: the dim
+# cut to the rank's heads
+_SLICED = {"w0": -1, "ln_x": -1, "decay_B": -1, "bonus": -2}
 
 
 def _region(path: tuple) -> Optional[str]:
     """The split dim of the computation a leaf takes part in, or None
-    (computed whole on every rank): ``mlp/bo`` is added after the MLP's
-    sum, so it is no part of it."""
-    if path[:2] == ("layers", "attn"):
-        return "act_heads"
-    if path[:2] == ("layers", "mlp") and path[2] != "bo":
-        return "act_ff"
-    if path[0] == "embed":
-        return "vocab"
-    return None
+    (computed whole on every rank), from the module that holds it."""
+    module, leaf = str(path[-2]), str(path[-1])
+    if (module, leaf) in _OUTSIDE:
+        return None
+    return _REGIONS.get(module)
 
 
 @dataclasses.dataclass(eq=False)
@@ -181,30 +204,44 @@ class ShardPlan:
         from repro_torch.convert import stack_axes, stack_layers
         from repro_torch.models.lm import build_model
 
-        if mesh.size > 1 and cfg.family not in MESH_FAMILIES:
-            raise ValueError(
-                f"the {cfg.family} family ({cfg.name}) does not train on a "
-                f"mesh of more than one rank (mesh {mesh.dp}x{mesh.mp}); "
-                f"families planned on a mesh: {', '.join(MESH_FAMILIES)}")
         self.cfg, self.mesh = cfg, mesh
         model = build_model(cfg)
         aparams = stack_layers(model.abstract_params())
         self.specs = param_shardings(mesh, aparams,
                                      stack_axes(model.param_axes()))
         self.spec_by_key = {"/".join(map(str, p)): s
-                         for p, _, s in spec_items(aparams, self.specs)}
-        attn = self.specs["layers"]["attn"]
+                            for p, _, s in spec_items(aparams, self.specs)}
         mp, H, KV = mesh.mp, cfg.n_heads, cfg.n_kv_heads
-        self._parallel = {
-            "act_heads": attn["wq"][-1] == "model" and H % mp == 0,
-            "act_ff": self.specs["layers"]["mlp"]["wi"][-1] == "model",
-            "vocab": self.specs["embed"]["tok"][0] == "model",
-        }
-        self.kv_local = (self._parallel["act_heads"]
-                         and attn["wk"][-1] == "model" and KV % mp == 0)
+        if cfg.family == "rwkv":  # the time mix's heads
+            H = cfg.d_model // cfg.rwkv_head_size
+        # a region computes in parallel where its leaves' split dim is
+        # sharded over 'model' in whole units: the query heads (attention
+        # or the time mix), the ff columns, the experts, the vocab rows
+        split = {"act_heads": set(), "act_ff": set(), "act_experts": set(),
+                 "vocab": set()}
+        for path, _, spec in spec_items(aparams, self.specs):
+            module, leaf = path[-2], path[-1]
+            if (module, leaf) in (("attn", "wq"), ("xattn", "wq"),
+                                  ("time_mix", "wr")):
+                split["act_heads"].add(spec[-1] == "model" and H % mp == 0)
+            elif (module, leaf) in (("mlp", "wi"), ("dense", "wi"),
+                                    ("channel_mix", "wk")):
+                split["act_ff"].add(spec[-1] == "model")
+            elif (module, leaf) == ("moe", "wi"):
+                split["act_experts"].add(spec[1] == "model")
+            elif (module, leaf) == ("embed", "tok"):
+                split["vocab"].add(spec[0] == "model")
+        if any(len(v) > 1 for v in split.values()):
+            raise ValueError(f"{cfg.name}: the modules of one region shard "
+                             f"differently on mesh {mesh.dp}x{mesh.mp}")
+        self._parallel = {k: bool(v) and v.pop() for k, v in split.items()}
+        attn = next((s for k, s in self.spec_by_key.items()
+                     if k.endswith("attn/wk")), None)
+        self.kv_local = (self._parallel["act_heads"] and attn is not None
+                         and attn[-1] == "model" and KV % mp == 0)
         self.kv_heads = None  # KV heads to take from the whole wk / wv
         self.local_cfg = cfg
-        if self._parallel["act_heads"]:
+        if self._parallel["act_heads"] and attn is not None:
             hl = H // mp
             heads = range(mesh.model_rank * hl, (mesh.model_rank + 1) * hl)
             kv = [h // (H // KV) for h in heads]
@@ -213,7 +250,7 @@ class ShardPlan:
                     and hl % len(uniq) == 0:
                 kvl = len(uniq)
                 self.kv_heads = None if self.kv_local else uniq
-            else:  # ragged groups: one KV head (repeated) per query head
+            else:  # ragged groups: one KV head (repeated) a query head
                 kvl, self.kv_heads = hl, kv
             self.local_cfg = dataclasses.replace(cfg, n_heads=hl,
                                                  n_kv_heads=kvl)
@@ -230,6 +267,16 @@ class ShardPlan:
     @property
     def model_rank(self) -> int:
         return self.mesh.model_rank
+
+    @property
+    def data_comm(self):
+        return self.mesh.data_comm
+
+    def axis_comm(self, axis: str):
+        """The communicator over the mesh axis ``axis``."""
+        if axis not in ("model", "data"):
+            raise ValueError(f"the training mesh has no axis {axis!r}")
+        return self.mesh.comm if axis == "model" else self.mesh.data_comm
 
     # ---- the step ----
 
@@ -252,7 +299,7 @@ class ShardPlan:
         mesh = self.mesh
         region = _region(path)
         par = region is not None and self._parallel[region]
-        kv = par and path[-1] in _KV and region == "act_heads"
+        kv = par and path[-2] in _ATTN and path[-1] in _KV
         keep = par and not (kv and not self.kv_local)
         for d, ax in enumerate(spec):
             if ax == "data":
@@ -265,6 +312,10 @@ class ShardPlan:
                                  f"{spec} shards over several mesh axes")
         if par and "model" not in spec:
             t = C.grad_sum_over(t, mesh.comm)
+            if path[-2] == "time_mix" and path[-1] in _SLICED:
+                d = _SLICED[path[-1]]
+                lo, hi = mesh.local_range(t.shape[d], "model")
+                t = t.narrow(d, lo, hi - lo)
         if kv and self.kv_heads is not None:
             hd = self.cfg.head_dim
             cols = torch.tensor([h * hd + i for h in self.kv_heads
@@ -303,8 +354,18 @@ class ShardPlan:
         return mesh.sum_over_mesh(total)
 
     def state_specs(self, state: dict) -> dict:
-        """The spec tree of a train state ``{"params", "opt"}`` whose
-        optimizer state holds param-shaped trees (adamw, sgd)."""
+        """The spec tree of a train state ``{"params", "opt"}``: each tree
+        of the optimizer state param-shaped (adamw's, sgd's, adafactor's
+        ``master``) or adafactor's ``moments``, a leaf's ``(row, col)``
+        taking its spec without the last dim and without the next-to-last
+        (``(row, None)`` for a 1-D leaf)."""
+        def factored(path, t, spec):
+            if t.ndim < 2:
+                return (spec, None)
+            return (spec[:-1], spec[:-2] + spec[-1:])
+
+        moments = _map(factored, state["params"], self.specs)
         return {"params": self.specs,
-                "opt": {k: self.specs for k in state["opt"]}}
+                "opt": {k: moments if k == "moments" else self.specs
+                        for k in state["opt"]}}
 

@@ -13,7 +13,7 @@ import dataclasses
 
 import pytest
 
-from repro_torch.configs import ShapeSpec, get_smoke_config
+from repro_torch.configs import SHAPES, ShapeSpec, get_config, get_smoke_config
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.runtime.sharding import default_rules
@@ -115,7 +115,6 @@ def test_remat_replays_the_attention_sum():
 @pytest.mark.parametrize("kind,arch,why", [
     ("decode", "qwen3-14b", "one process's program"),
     ("prefill", "qwen3-14b", "one process's program"),
-    ("train", "rwkv6-1.6b", "the rwkv family does not train on a mesh"),
 ])
 def test_other_multichip_cells_keep_null_with_the_reason(kind, arch, why):
     rec = dryrun.analyze_cell(get_smoke_config(arch),
@@ -125,3 +124,37 @@ def test_other_multichip_cells_keep_null_with_the_reason(kind, arch, why):
                               default_rules())
     assert rec["collectives"] is None and why in rec["collectives_note"]
     assert rec["roofline"]["collective_s"] is None
+
+
+def test_moe_train_4k_at_1x4_counts_its_collectives():
+    """llama4-scout's ``train_4k`` at (1, 4), depth cut to one layer for
+    the trace's time: its 16 experts are expert-parallel (4 a rank), so
+    one rank's step records all-gathers, among them the combine's sums of
+    the rank's part of the MoE output and of the aux loss, not ``null``."""
+    cfg = dataclasses.replace(get_config("llama4-scout-17b-a16e"),
+                              n_layers=1)
+    rec = dryrun.analyze_cell(cfg, SHAPES["train_4k"], make_production_mesh(
+        shape=(1, 4)), default_rules())
+    coll = rec["collectives"]
+    assert "collectives_note" not in rec
+    assert set(coll["by_kind"]) == {"all-gather"}
+    nm = SHAPES["train_4k"].global_batch // cfg.microbatch
+    rows = SHAPES["train_4k"].global_batch // nm * SHAPES["train_4k"].seq_len
+    # at least the forward's sum of the MoE output and its backward's sum
+    # of the MoE input, each microbatch: rows x d_model fp32, 3 of 4 ranks
+    moe = 2 * nm * rows * cfg.d_model * F32 * 3
+    assert coll["total_bytes"] > moe
+    assert rec["roofline"]["collective_s"] > 0
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b",
+                                  "whisper-small", "llama-3.2-vision-90b",
+                                  "arctic-480b"])
+def test_every_family_train_cell_counts_collectives(arch):
+    """Every family's train cell on a (1, 2) mesh counts one rank's
+    collectives (the smoke configs)."""
+    rec = dryrun.analyze_cell(get_smoke_config(arch), SHAPE,
+                              make_production_mesh(shape=(1, 2)),
+                              default_rules())
+    assert "collectives_note" not in rec
+    assert rec["collectives"]["total_bytes"] > 0

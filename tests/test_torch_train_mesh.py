@@ -375,26 +375,9 @@ def test_ragged_kv_groups_step_equals_one_device():
 
 
 # ---------------------------------------------------------------------------
-# refusals
+# refusals (every family and optimizer trains on a mesh:
+# test_torch_train_mesh_families.py, test_torch_train_mesh_adafactor.py)
 # ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "rwkv6-1.6b",
-                                  "zamba2-7b", "whisper-small",
-                                  "llama-3.2-vision-90b"])
-def test_non_dense_families_refused_on_a_mesh(arch):
-    cfg = get_smoke_config(arch)
-    with pytest.raises(ValueError, match=f"the {cfg.family} family"):
-        ShardPlan(cfg, TrainMesh(dp=1, mp=2))
-    with pytest.raises(ValueError, match=f"the {cfg.family} family"):
-        tr.train(cfg, OPTS, dp=1, mp=2)
-
-
-def test_adafactor_refused_on_a_mesh():
-    opt = PO.adafactor(1e-3)
-    with pytest.raises(ValueError, match="adafactor"):
-        make_train_step(build_model(CFG), opt, mesh=TrainMesh(dp=2, mp=1))
-    assert make_train_step(build_model(CFG), opt).plan is None
 
 
 def test_mesh_refuses_a_batch_the_data_ranks_cannot_split():
